@@ -9,14 +9,23 @@ Phases, each of which fails the run on any fault or mismatch:
    the CUDA kernels from diffndm_tpu_torch/csrc;
 2. kernels: each EGNN edge-chain kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (captured from one
-   denoiser forward) and at the flagship shapes of
-   configs/crossdock_fullatom_cond.yml (B=20, N=344, H=256, 5 A cutoff);
-   kernel time, plain time and the card's bound for the same work;
+   denoiser forward), at the flagship shapes of
+   configs/crossdock_fullatom_cond.yml (B=20, N=344, H=256, 5 A cutoff)
+   and over a sweep of small ragged shapes and options; kernel time,
+   plain time and the card's bound for the same work; every kernel output
+   is computed twice and must come out bit-identical;
 3. path check: a 10-step fixed-noise trajectory through the kernels on
    the card against the plain path on the CPU;
 4. main path: 2 test pockets x 16 samples at T=500 from the committed
    v3b EMA weights, molecules built and written as SDF, with the kernel
-   launch counts of that run.
+   launch counts of that run;
+5. step: a 50-step stretch of the same sampler with CUDA events around
+   every kernel wrapper call and a profiler trace: ms per step, kernel ms
+   per step inside the loop, the device's idle share.
+
+``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
+a build of the kernels with cycle counters, where a block's time goes
+(both for work on the kernels; they print no result lines).
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -26,6 +35,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -42,13 +52,16 @@ WEIGHTS = os.path.join(REPO, "diffndm_tpu_torch", "assets",
                        "virtual_cond_v3b_ema.npz")
 DATA = os.path.join(REPO, "data", "processed", "virtual_v3")
 POCKETS = (220, 48)          # the 40- and 36-atom test pockets
-N_SAMPLES, T_MAIN, T_CHECK = 16, 500, 10
+N_SAMPLES, T_MAIN, T_CHECK, T_STEP = 16, 500, 10, 50
 SEED = 0
 
-# published H100 SXM peaks (fp32 outside the tensor cores, HBM3)
-PEAK_FP32_FLOPS = 67e12
+# published H100 SXM peaks (dense TF32 on the tensor cores, HBM3).  The
+# kernels split each product into three TF32 products; the bound counts
+# the product once.
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-# kernel vs plain on the card: both fp32, sums in another order
+# kernel vs plain on the card: fp32 against a three-term TF32 split with
+# fp32 accumulation, sums in another order
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # path check: ten steps of fp32 forwards on two devices
 PATH_COORD_ATOL = 1e-3       # Angstrom
@@ -57,7 +70,15 @@ KERNELS = {
     "gcl_messages": "diffndm_tpu/ops/pallas_egnn.py:151",
     "edge_vector_reduce": "diffndm_tpu/ops/pallas_egnn.py:269",
 }
+# wrapper -> the kernel it launches (the pair launches the vector kernel
+# once for both weight sets)
+WRAPPERS = {"gcl_messages": "gcl_messages",
+            "edge_vector_reduce": "edge_vector_reduce",
+            "edge_vector_reduce_pair": "edge_vector_reduce"}
 SOURCE = "diffndm_tpu_torch/csrc/egnn_edge.cu"
+# [B, N, H] of the edge-shape sweep; the last is large enough for blocks
+# of several rows with a ragged last block
+SWEEP_SHAPES = ((1, 7, 128), (3, 37, 192), (2, 50, 256), (24, 37, 128))
 
 
 def log(*args):
@@ -78,73 +99,118 @@ def nvidia_smi() -> str:
 def call_cost(name, args, kw):
     """(operations, bytes) that the call's data needs: the matrix
     products and per-edge dot products of the edges with a nonzero
-    adjacency among the rows computed; each input read once, the output
-    written once."""
-    a, adj = args[0], args[4]
+    adjacency among the rows computed, once per weight set; each input
+    read once, the output written once."""
+    pair = name == "edge_vector_reduce_pair"
+    a, adj = (args[0][0] if pair else args[0]), args[4]
     bsz, n, h = a.shape
-    rows = kw.get("n_rows") or n
+    n_sets = 2 if pair else 1
+    rows = kw.get("n_rows")
+    rows = n if rows is None else max(0, min(n, rows))
     edges = int((adj[:, :rows] != 0).sum())
     per_edge = 2 * h * h + 2 * h + (2 * h if name == "gcl_messages" else 30)
-    node = bsz * rows * h + bsz * n * h
+    node = n_sets * (bsz * rows * h + bsz * n * h)
     planes = 3 * bsz * rows * n
-    weights = h * h + 5 * h
+    weights = n_sets * (h * h + 5 * h)
     if name == "gcl_messages":
         out = bsz * n * h
         extra = 0
     else:
         out = bsz * n * 3
         extra = bsz * n * 3 + bsz * 3
-    return edges * per_edge, 4 * (node + planes + weights + extra + out)
+    return (n_sets * edges * per_edge,
+            4 * (node + planes + weights + extra + out))
 
 
 def bound_ms(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def time_ms(torch, fn, reps, warmup=3):
-    """Median of per-launch CUDA-event times."""
+def time_ms(torch, fn, reps, warmup=3, rounds=5):
+    """Device time of one call: CUDA events around ``reps`` calls queued
+    behind a long matrix product, so that the host has enqueued them all
+    before the first may start and its own cost per call stays out of the
+    number.  Median over ``rounds``."""
+    if not hasattr(time_ms, "blocker"):
+        time_ms.blocker = torch.ones((8192, 8192), device="cuda")
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
+        torch.mm(time_ms.blocker, time_ms.blocker)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
+def host_us(torch, fn, reps=200):
+    """Host time of one call while the device queue has room."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
 def compare(torch, name, out, ref):
+    """(max abs error, largest share of its tolerance that an element
+    uses); raises where an element is beyond atol + rtol * |ref|."""
     err = (out - ref).abs()
-    bad = err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()
+    share = float((err / (KERNEL_ATOL + KERNEL_RTOL * ref.abs())).max())
     max_abs = float(err.max())
-    max_rel = float((err / ref.abs().clamp_min(1e-6)).max())
-    if not bool(torch.isfinite(out).all()) or bool(bad.any()):
+    if not bool(torch.isfinite(out).all()) or not share <= 1.0:
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version: max abs "
-            f"{max_abs:.3e}, {int(bad.sum())} elements beyond atol "
-            f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}")
-    return max_abs, max_rel
+            f"{max_abs:.3e}, {share:.2f} of atol {KERNEL_ATOL} + rtol "
+            f"{KERNEL_RTOL}")
+    return max_abs, share
 
 
 def check_kernel(torch, K, name, args, kw, reps):
     kernel = getattr(K, name)
     plain = getattr(K, name + "_plain")
     out = kernel(*args, **kw)
+    again = kernel(*args, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ in their bits")
     ref = plain(*args, **kw)
-    max_abs, max_rel = compare(torch, name, out, ref)
+    max_abs, share = compare(torch, name, out, ref)
     ms = time_ms(torch, lambda: kernel(*args, **kw), reps)
     plain_ms = time_ms(torch, lambda: plain(*args, **kw), max(3, reps // 10),
-                       warmup=1)
+                       warmup=1, rounds=3)
     b_ms, b_by = bound_ms(*call_cost(name, args, kw))
-    return dict(max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    shape = list((args[0][0] if name.endswith("_pair") else args[0]).shape)
+    blocks, per_block = K.launch_grid(name, *shape, kw.get("n_rows"))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(max_abs_err=max_abs, tolerance_share=share, ms=ms,
+                host_us=host_us(torch, lambda: kernel(*args, **kw)),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                shape=shape, blocks=blocks, rows_per_block=per_block,
+                blocks_per_sm=blocks / n_sm)
+
+
+def describe(res):
+    return (f"max abs {res['max_abs_err']:.3e}, at most "
+            f"{res['tolerance_share']:.2f} of the tolerance; kernel "
+            f"{res['ms']:.4f} ms (host {res['host_us']:.1f} us per call), "
+            f"plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}, TF32 {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s "
+            f"or {PEAK_BYTES / 1e12:.2f} TB/s); grid {res['blocks']} blocks "
+            f"of {res['rows_per_block']} rows, "
+            f"{res['blocks_per_sm']:.2f} per SM")
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +221,7 @@ def capture_kernel_calls(torch, K, model, pocket, sizes):
     """The kernel calls of one denoiser forward on the main path's first
     state (t = 1): the wrappers' arguments, recorded as given."""
     calls = []
-    originals = {n: getattr(K, n) for n in KERNELS}
+    originals = {n: getattr(K, n) for n in WRAPPERS}
 
     def recorder(name):
         def fn(*args, **kw):
@@ -174,7 +240,7 @@ def capture_kernel_calls(torch, K, model, pocket, sizes):
     z, xh_p = init_ligand_from_pocket(core, p_x, p_h, lig_mask, pocket.mask,
                                       generator=g)
     t = torch.ones(z.shape[0], device=model.device)
-    for n in KERNELS:
+    for n in WRAPPERS:
         setattr(K, n, recorder(n))
     try:
         with torch.no_grad():
@@ -219,46 +285,174 @@ def flagship_inputs(torch, name, device):
     if name == "gcl_messages":
         return common + [we, w2, b2, wvec, t(np.array([0.1], f32))], {}
     center = x.mean(1, keepdims=True)
-    return (common + [t(x), t(center), we, w2, b2, wvec],
-            dict(cross=True, n_rows=nl))
+    if name == "edge_vector_reduce":
+        return (common + [t(x), t(center), we, w2, b2, wvec],
+                dict(cross=True, n_rows=nl))
+    second = [t(rng.normal(size=(bsz, n, h)) * 0.5),
+              t(rng.normal(size=(bsz, n, h)) * 0.5),
+              t(rng.normal(size=(2, h)) * 0.05),
+              t(rng.normal(size=(h, h)) / np.sqrt(h)),
+              t(rng.normal(size=(h,)) * 0.1),
+              t(rng.normal(size=(h, 1)) / np.sqrt(h))]
+    pairs = [(first, other) for first, other in
+             zip(common[:2] + [we, w2, b2, wvec], second)]
+    return ([pairs[0], pairs[1]] + common[2:] + [t(x), t(center)]
+            + pairs[2:], dict(n_rows=nl))
+
+
+def sweep_inputs(torch, device, bsz, n, h, seed):
+    """Small ragged inputs: a random ~15 % adjacency with values in
+    {0, 0.5, 1}, all-zero rows and (where B > 1) an all-zero batch
+    element."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(bsz, n, 3)) * 2
+    x0 = x + rng.normal(size=x.shape) * 0.5
+    adj = (rng.uniform(size=(bsz, n, n)) < 0.15) * rng.choice(
+        [0.5, 1.0], size=(bsz, n, n))
+    adj[:, rng.choice(n, size=max(1, n // 5), replace=False)] = 0.0
+    if bsz > 1:
+        adj[bsz - 1] = 0.0
+
+    def t(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+            device)
+
+    def weight_set():
+        return dict(a=t(rng.normal(size=(bsz, n, h)) * 0.5),
+                    b=t(rng.normal(size=(bsz, n, h)) * 0.5),
+                    we=t(rng.normal(size=(2, h)) * 0.05),
+                    w2=t(rng.normal(size=(h, h)) / np.sqrt(h)),
+                    b2=t(rng.normal(size=(h,)) * 0.1),
+                    wvec=t(rng.normal(size=(h, 1)) / np.sqrt(h)))
+
+    planes = [t(((x[:, :, None] - x[:, None]) ** 2).sum(-1)),
+              t(((x0[:, :, None] - x0[:, None]) ** 2).sum(-1)), t(adj)]
+    return dict(sets=[weight_set(), weight_set()], planes=planes, x=t(x),
+                center=t(x.mean(1, keepdims=True)),
+                batt=t(np.array([0.1])))
+
+
+def edge_shape_sweep(torch, K, device):
+    """Each wrapper against its plain version where compaction and ragged
+    tiles can break: odd sizes, empty rows, n_rows in {0, 5, N}, every
+    option on and off."""
+    n_cases, worst = 0, 0.0
+    for seed, (bsz, n, h) in enumerate(SWEEP_SHAPES):
+        d = sweep_inputs(torch, device, bsz, n, h, SEED + 10 + seed)
+        s0, s1 = d["sets"]
+        keys = ("we", "w2", "b2", "wvec")
+        cases = [("gcl_messages",
+                  [s0["a"], s0["b"], *d["planes"], *(s0[k] for k in keys),
+                   d["batt"]], dict(attention=att)) for att in (True, False)]
+        for n_rows in (0, 5, n):
+            for tanh in (True, False):
+                cases += [("edge_vector_reduce",
+                           [s0["a"], s0["b"], *d["planes"], d["x"],
+                            d["center"], *(s0[k] for k in keys)],
+                           dict(tanh=tanh, cross=cross, n_rows=n_rows))
+                          for cross in (False, True)]
+                cases.append(("edge_vector_reduce_pair",
+                              [(s0["a"], s1["a"]), (s0["b"], s1["b"]),
+                               *d["planes"], d["x"], d["center"],
+                               *((s0[k], s1[k]) for k in keys)],
+                              dict(tanh=tanh, n_rows=n_rows)))
+        for name, args, kw in cases:
+            out = getattr(K, name)(*args, **kw)
+            again = getattr(K, name)(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name} {kw} [{bsz}, {n}, {h}]: two "
+                                     f"launches differ in their bits")
+            ref = getattr(K, name + "_plain")(*args, **kw)
+            worst = max(worst, compare(
+                torch, f"{name} {kw} [{bsz}, {n}, {h}]", out, ref)[0])
+            n_cases += 1
+    log(f"[kernels] edge-shape sweep: {n_cases} cases at "
+        f"{[list(s) for s in SWEEP_SHAPES]} within atol {KERNEL_ATOL} + rtol "
+        f"{KERNEL_RTOL} of the plain versions, max abs {worst:.3e}, "
+        f"repeat launches bit-identical")
 
 
 def kernel_phase(torch, K, model, pocket, sizes):
     calls = capture_kernel_calls(torch, K, model, pocket, sizes)
-    counts = {n: sum(1 for c in calls if c[0] == n) for n in KERNELS}
+    counts = {n: sum(1 for c in calls if c[0] == n) for n in WRAPPERS}
     log(f"[kernels] captured one forward's calls: {counts}")
     results = {}
-    for name in KERNELS:
-        mine = [c for c in calls if c[0] == name]
+    for wrapper, kernel in WRAPPERS.items():
+        mine = [c for c in calls if c[0] == wrapper]
+        if not mine:
+            continue
         errs = []
         for _, args, kw in mine:
-            out = getattr(K, name)(*args, **kw)
+            out = getattr(K, wrapper)(*args, **kw)
             torch.cuda.synchronize()
-            errs.append(compare(torch, name, out,
-                                getattr(K, name + "_plain")(*args, **kw)))
+            errs.append(compare(torch, wrapper, out,
+                                getattr(K, wrapper + "_plain")(*args, **kw)))
         _, args, kw = mine[0]
-        res = check_kernel(torch, K, name, args, kw, reps=50)
+        res = check_kernel(torch, K, wrapper, args, kw, reps=50)
         res["max_abs_err"] = max(e[0] for e in errs)
-        res["max_rel_err"] = max(e[1] for e in errs)
-        res["shape"] = list(args[0].shape)
-        results[name] = res
-        log(f"[kernels] main path {name} {res['shape']} ({len(mine)} calls "
-            f"checked): max abs {res['max_abs_err']:.3e} max rel "
-            f"{res['max_rel_err']:.3e} (atol {KERNEL_ATOL} + rtol "
-            f"{KERNEL_RTOL}); kernel {res['ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-            f"({res['bound_by']})")
-    flagship = {}
-    for name in KERNELS:
+        res["tolerance_share"] = max(e[1] for e in errs)
+        res["entry"] = wrapper
+        results[kernel] = res
+        log(f"[kernels] main path {wrapper} {res['shape']} ({len(mine)} "
+            f"calls checked, atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}): "
+            f"{describe(res)}")
+        if wrapper == "edge_vector_reduce_pair":
+            # one weight set alone, the launch an earlier design made twice
+            single = [args[0][0], args[1][0], *args[2:7],
+                      *(w[0] for w in args[7:])]
+            alone = check_kernel(torch, K, "edge_vector_reduce", single,
+                                 dict(kw, cross=False), reps=50)
+            log(f"[kernels] main path edge_vector_reduce, first set alone: "
+                f"{describe(alone)}")
+        if wrapper == "gcl_messages":
+            # what a launch costs when no edge is there to compute
+            empty = list(args)
+            empty[4] = torch.zeros_like(args[4])
+            empty_ms = time_ms(torch,
+                               lambda: K.gcl_messages(*empty, **kw), 50)
+            log(f"[kernels] main path gcl_messages with an all-zero "
+                f"adjacency (launch, compaction and the write of zeros): "
+                f"{empty_ms:.4f} ms")
+    missing = set(KERNELS) - set(results)
+    if missing:
+        raise AssertionError(f"the forward launched no {sorted(missing)}")
+    for name in WRAPPERS:
         args, kw = flagship_inputs(torch, name, model.device)
         res = check_kernel(torch, K, name, args, kw, reps=10)
-        res["shape"] = list(args[0].shape)
-        flagship[name] = res
-        log(f"[kernels] flagship {name} {res['shape']} {kw}: max abs "
-            f"{res['max_abs_err']:.3e} max rel {res['max_rel_err']:.3e}; "
-            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
-    return results, flagship
+        log(f"[kernels] flagship {name} {res['shape']} {kw}: "
+            f"{describe(res)}")
+    edge_shape_sweep(torch, K, model.device)
+    return results
+
+
+def phase_cycles(torch, K, model, pocket, sizes):
+    """Where a block's cycles go, per kernel call of the main path and of
+    the flagship shapes (the build with -DEGNN_PROFILE; thread 0 of each
+    block counts, so a phase's figure is what warp 0 saw)."""
+    K.PROFILE_BUILD = True
+    calls = capture_kernel_calls(torch, K, model, pocket, sizes)
+    cases = []
+    for name in ("gcl_messages", "edge_vector_reduce_pair"):
+        _, args, kw = next(c for c in calls if c[0] == name)
+        cases.append(("main path", name, args, kw))
+        cases.append(("flagship", name,
+                      *flagship_inputs(torch, name, model.device)))
+    for label, name, args, kw in cases:
+        getattr(K, name)(*args, **kw)
+        K.read_profile()                        # warm, and clear
+        getattr(K, name)(*args, **kw)
+        c = K.read_profile()
+        blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
+        rest = c["loop"] - c["wait"] - c["request"] - c["mma"]
+        log(f"[phases] {label} {name}: {c['blocks']} blocks, "
+            f"{c['passes']} passes of 128 edges; cycles per block: set-up "
+            f"and compaction {c['setup'] / blocks:.0f}, chunk loop "
+            f"{c['loop'] / blocks:.0f}; per pass: waiting for chunks "
+            f"{c['wait'] / passes:.0f}, asking for them "
+            f"{c['request'] / passes:.0f}, z and mma {c['mma'] / passes:.0f}, "
+            f"epilogue {rest / passes:.0f}")
+    K.PROFILE_BUILD = False
 
 
 def fixed_noise(torch, model, sizes, steps):
@@ -334,9 +528,11 @@ def main_path(torch, K, model, pockets, sizes):
         f"built ({n_records} SDF records, atoms {min(n_atoms)}-"
         f"{max(n_atoms)}, single-fragment share {connected:.3f}); "
         f"outputs finite: {finite}; launches {launches}")
+    # per forward and layer: one gcl_messages, and one edge_vector_reduce
+    # launch that takes the difference and the cross weight set together
     per_batch = {"gcl_messages": (T_MAIN + 1) * model.cfg.egnn.n_layers,
                  "edge_vector_reduce":
-                     (T_MAIN + 1) * model.cfg.egnn.n_layers * 2}
+                     (T_MAIN + 1) * model.cfg.egnn.n_layers}
     want = {k: v * len(pockets) for k, v in per_batch.items()}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -345,8 +541,90 @@ def main_path(torch, K, model, pockets, sizes):
     return launches
 
 
+def step_phase(torch, K, model, pocket, sizes):
+    """A T_STEP-step stretch of the sampler: CUDA events around every
+    kernel wrapper call (the kernels on the loop's own, cold inputs), a
+    host clock around the stretch, and a profiler trace of a second
+    stretch for the device's busy time."""
+    originals = {n: getattr(K, n) for n in WRAPPERS}
+    events = {n: [] for n in WRAPPERS}
+
+    def timed(name):
+        def fn(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[name](*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return fn
+
+    def stretch():
+        g = torch.Generator(device=model.device).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample_given_pocket(pocket, sizes, timesteps=T_STEP,
+                                  generator=g)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    stretch()                                   # warm
+    plain_wall = stretch()
+    for n in WRAPPERS:
+        setattr(K, n, timed(n))
+    try:
+        timed_wall = stretch()
+    finally:
+        for n, f in originals.items():
+            setattr(K, n, f)
+    forwards = T_STEP + 1
+    per_step = {n: sum(a.elapsed_time(b) for a, b in ev) / forwards
+                for n, ev in events.items() if ev}
+    per_call = {n: per_step[n] * forwards / len(events[n]) for n in per_step}
+    log(f"[step] {T_STEP} steps ({forwards} forwards), B={len(sizes)}: "
+        f"{plain_wall / forwards:.4f} ms per step by the host clock "
+        f"({timed_wall / forwards:.4f} with the events); kernel wrapper ms "
+        f"per step inside the loop "
+        f"{ {n: round(v, 4) for n, v in per_step.items()} }, sum "
+        f"{sum(per_step.values()):.4f}; ms per call "
+        f"{ {n: round(v, 4) for n, v in per_call.items()} } (events "
+        f"around the wrapper: launch gaps included)")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = stretch()
+    busy_us, ours_us, n_dev = 0.0, 0.0, 0
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            dur = ev.time_range.elapsed_us()
+            busy_us += dur
+            n_dev += 1
+            if "edge_chain" in ev.name:
+                ours_us += dur
+    if n_dev == 0 or busy_us <= 0:
+        log("[step] the profiler recorded no device activity: idle share "
+            "not measured")
+        return
+    busy = busy_us / 1e3
+    log(f"[step] profiler over {T_STEP} steps: {n_dev} device activities "
+        f"({n_dev / forwards:.1f} per step), device busy "
+        f"{busy / forwards:.4f} ms per step of which the edge-chain "
+        f"kernels {ours_us / 1e3 / forwards:.4f}; wall "
+        f"{prof_wall / forwards:.4f} ms per step while profiled; idle "
+        f"share {1 - busy / prof_wall:.3f} (against the unprofiled wall: "
+        f"{1 - busy / plain_wall:.3f})")
+
+
 def main() -> int:
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=["kernels", "phases"],
+                        default=None, help="stop after the kernel phase, "
+                        "or print the kernels' cycles per phase")
+    opts = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -366,14 +644,14 @@ def main() -> int:
     so = K.build_library()
     log(f"[identity] kernels built in {time.perf_counter() - t0:.1f} s: "
         f"{os.path.relpath(so, REPO)}")
-    # the compiler's report, per instantiation edge_chain_kernel<H/16, VEC>
+    # the compiler's report, per instantiation edge_chain_mma<H, VEC>
     kernel = None
     for line in so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function .*edge_chain_kernelILi(\d+)"
+        m = re.search(r"Compiling entry function .*edge_chain_mmaILi(\d+)"
                       r"ELb([01])E", line)
         if m:
             name = "edge_vector_reduce" if m[2] == "1" else "gcl_messages"
-            kernel = f"{name} H={16 * int(m[1])}"
+            kernel = f"{name} H={int(m[1])}"
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
 
@@ -393,16 +671,26 @@ def main() -> int:
     g = torch.Generator().manual_seed(SEED)
     sizes = [model.sample_ligand_sizes(p, g) for p in pockets]
 
-    results, _ = kernel_phase(torch, K, model, pockets[0], sizes[0])
+    if opts.only == "phases":
+        phase_cycles(torch, K, model, pockets[0], sizes[0])
+        return 0
+    results = kernel_phase(torch, K, model, pockets[0], sizes[0])
+    if opts.only == "kernels":
+        log("[kernels] done (--only kernels: no result)")
+        return 0
     path_check(torch, make_model, ds[POCKETS[0]])
     launches = main_path(torch, K, model, pockets, sizes)
+    step_phase(torch, K, model, pockets[0], sizes[0])
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
                   max_abs_err=results[name]["max_abs_err"],
                   ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
                   bound_ms=results[name]["bound_ms"],
-                  bound_by=results[name]["bound_by"], library_ms=None)
+                  bound_by=results[name]["bound_by"], library_ms=None,
+                  bound_peak="tf32 495 TFLOP/s, 3.35 TB/s",
+                  entry=results[name]["entry"],
+                  shape=results[name]["shape"])
              for name, src in KERNELS.items()]
     print(json.dumps({"kernels": table}))
     print(smi)

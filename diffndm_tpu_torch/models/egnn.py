@@ -106,19 +106,24 @@ class EquivariantUpdate(_ExplicitParams):
         mask_f = node_mask[..., None]
         center = ((x * mask_f).sum(1, keepdim=True)
                   / mask_f.sum(1, keepdim=True).clamp_min(1e-12))
-        agg = None
-        for name in self.names:
-            part = K.edge_vector_reduce(
-                self._linear(f"{name}_src", h),
-                self._linear(f"{name}_dst", h), d2c, d2i, adj, x, center,
-                getattr(self, f"{name}_edge_kernel"),
-                getattr(self, f"{name}_l2_kernel"),
-                getattr(self, f"{name}_l2_bias"),
-                getattr(self, f"{name}_out_kernel"),
-                tanh=cfg.tanh, coords_range=self.coords_range,
-                norm_constant=cfg.norm_constant, cross=name == "cross",
-                norm_factor=cfg.normalization_factor, n_rows=coord_rows)
-            agg = part if agg is None else agg + part
+        kw = dict(tanh=cfg.tanh, coords_range=self.coords_range,
+                  norm_constant=cfg.norm_constant,
+                  norm_factor=cfg.normalization_factor, n_rows=coord_rows)
+        names = self.names
+        a = [self._linear(f"{name}_src", h) for name in names]
+        b = [self._linear(f"{name}_dst", h) for name in names]
+        we, w2, b2, wout = (
+            [getattr(self, f"{name}_{part}") for name in names]
+            for part in ("edge_kernel", "l2_kernel", "l2_bias", "out_kernel"))
+        if len(names) == 2:
+            # difference and cross direction over the same rows and graph:
+            # one launch
+            agg = K.edge_vector_reduce_pair(a, b, d2c, d2i, adj, x, center,
+                                            we, w2, b2, wout, **kw)
+        else:
+            agg = K.edge_vector_reduce(a[0], b[0], d2c, d2i, adj, x, center,
+                                       we[0], w2[0], b2[0], wout[0],
+                                       cross=False, **kw)
         if update_coords_mask is not None:
             agg = agg * update_coords_mask
         x = x + agg
