@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run on any fault or mismatch:
 
-1. identity: the card (nvidia-smi name and power limit) and the build of
-   the CUDA kernels from diffndm_tpu_torch/csrc;
+1. identity: the card (nvidia-smi name and power limit) and the builds,
+   side by side, of the CUDA kernels from diffndm_tpu_torch/csrc (nvcc)
+   and of the native reward scorer (host g++);
 2. kernels: each EGNN edge-chain kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (captured from one
    denoiser forward), at the flagship shapes of
@@ -19,13 +20,29 @@ Phases, each of which fails the run on any fault or mismatch:
 4. main path: 2 test pockets x 16 samples at T=500 from the committed
    v3b EMA weights, molecules built and written as SDF, with the kernel
    launch counts of that run;
-5. step: a 50-step stretch of the same sampler with CUDA events around
-   every kernel wrapper call and a profiler trace: ms per step, kernel ms
-   per step inside the loop, the device's idle share.
+5. guided: the same 2 pockets x 16 samples at T=500 with SPSA + ATP
+   guidance at its defaults, every reward from the native scorer; the
+   launch counts that follow from the config; seconds per pocket batch,
+   the oracle's share of the wall time; and a 12-step fixed-noise guided
+   trajectory on the card against the plain path on the CPU;
+6. fan-out and oracle: the kernels against their plain versions on the
+   inputs of one fused SPSA forward captured from the guided run
+   ([k*2B, N, H] = [320, 80, 192]); the native scorer against the Python
+   scorer on one 320-molecule population of that run;
+7. quality: 8 test pockets x 16 samples, unguided and guided, scored by
+   the evaluation protocol of the JAX package's guided-lift script
+   (largest fragment, sizes floored at 4) beside that script's committed
+   rows, with floors on validity, QED, SA and the guided lift;
+8. step: a 50-step stretch of the unguided sampler with CUDA events
+   around every kernel wrapper call and a profiler trace: ms per step,
+   kernel ms per step inside the loop, the device's idle share.
 
 ``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes
-(both for work on the kernels; they print no result lines).
+(both for work on the kernels).  ``--only quality`` runs phase 7 alone
+over five seeds and prints how far each metric moves with the random
+stream (what a change to the kernels' arithmetic has to exceed).  None of
+the three prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -54,6 +71,25 @@ DATA = os.path.join(REPO, "data", "processed", "virtual_v3")
 POCKETS = (220, 48)          # the 40- and 36-atom test pockets
 N_SAMPLES, T_MAIN, T_CHECK, T_STEP = 16, 500, 10, 50
 SEED = 0
+# quality phase: the protocol and the committed rows of the JAX package's
+# scripts/guided_lift_eval.py (a TPU run of the JAX package; quality, not
+# speed): examples/checkpoints/virtual_cond_v3b/guided_lift_tpu.json
+N_QUALITY_POCKETS, MIN_LIGAND_ATOMS = 8, 4
+JAX_ROWS = {
+    "unguided": dict(valid=0.906, connectivity=0.868, connected=0.508,
+                     qed=0.460, sa=0.486),
+    "guided": dict(valid=1.0, connectivity=0.710, connected=0.055,
+                   qed=0.565, sa=0.730)}
+# floors: those of the JAX package's tests/test_guided_lift.py, lowered by
+# about three standard errors at n = 128 (another random stream)
+QUALITY_FLOORS = {"unguided": dict(valid=0.85, qed=0.42),
+                  "guided": dict(valid=0.93, qed=0.52, sa=0.66)}
+LIFT_FLOORS = dict(qed=0.05, sa=0.10)
+QUALITY_SPREAD_SEEDS = 5     # --only quality
+# guided path check: T, and windows scaled so that every event fires
+T_GUIDED_CHECK = 12
+GUIDED_CHECK = dict(spsa=dict(num_probes=2, start_step=6, every=2, zeta0=5.0),
+                    atp=dict(num_groups=4, start_step=10, every=5))
 
 # published H100 SXM peaks (dense TF32 on the tensor cores, HBM3).  The
 # kernels split each product into three TF32 products; the bound counts
@@ -199,6 +235,22 @@ def check_kernel(torch, K, name, args, kw, reps):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 shape=shape, blocks=blocks, rows_per_block=per_block,
                 blocks_per_sm=blocks / n_sm)
+
+
+def check_calls(torch, K, wrapper, calls, reps):
+    """Every captured call of ``wrapper`` against its plain version; the
+    first one also timed.  The result carries the worst error of all."""
+    errs = []
+    for _, args, kw in calls:
+        out = getattr(K, wrapper)(*args, **kw)
+        torch.cuda.synchronize()
+        errs.append(compare(torch, wrapper, out,
+                            getattr(K, wrapper + "_plain")(*args, **kw)))
+    _, args, kw = calls[0]
+    res = check_kernel(torch, K, wrapper, args, kw, reps)
+    res["max_abs_err"] = max(e[0] for e in errs)
+    res["tolerance_share"] = max(e[1] for e in errs)
+    return res
 
 
 def describe(res):
@@ -382,16 +434,8 @@ def kernel_phase(torch, K, model, pocket, sizes):
         mine = [c for c in calls if c[0] == wrapper]
         if not mine:
             continue
-        errs = []
-        for _, args, kw in mine:
-            out = getattr(K, wrapper)(*args, **kw)
-            torch.cuda.synchronize()
-            errs.append(compare(torch, wrapper, out,
-                                getattr(K, wrapper + "_plain")(*args, **kw)))
         _, args, kw = mine[0]
-        res = check_kernel(torch, K, wrapper, args, kw, reps=50)
-        res["max_abs_err"] = max(e[0] for e in errs)
-        res["tolerance_share"] = max(e[1] for e in errs)
+        res = check_calls(torch, K, wrapper, mine, reps=50)
         res["entry"] = wrapper
         results[kernel] = res
         log(f"[kernels] main path {wrapper} {res['shape']} ({len(mine)} "
@@ -541,6 +585,269 @@ def main_path(torch, K, model, pockets, sizes):
     return launches
 
 
+def event_noise(torch, model, sizes, steps):
+    """Fixed noise for a guided trajectory: that of ``fixed_noise`` plus
+    the draws of every guidance event the config fires."""
+    from diffndm_tpu_torch.diffusion.sampler import guidance_events
+
+    cfg = model.sample_cfg
+    base = fixed_noise(torch, model, sizes, steps)
+    rng = np.random.default_rng(SEED + 2)
+    shape = tuple(base.init.shape)
+    g_extra, k = cfg.atp.num_groups - 1, cfg.spsa.num_probes
+
+    def normal(*shp):
+        return torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+
+    events = guidance_events(cfg, steps)
+    return base._replace(
+        atp={s: normal(g_extra, *shape) for s in events["atp"]},
+        spsa={s: normal(k, *shape[:2], 3) for s in events["spsa"]},
+        hybrid=(normal(g_extra, *shape), normal(g_extra, k, *shape[:2], 3)))
+
+
+def guided_path_check(torch, make_model, pair):
+    """The same fixed-noise guided trajectory (prunes, SPSA updates and
+    the hybrid all fire) on the card and on the CPU: the same rows must
+    survive, with the same atom types, at the same coordinates."""
+    from diffndm_tpu_torch.config import (ATPConfig, SampleConfig,
+                                          SPSAConfig)
+
+    cfg = SampleConfig(pocket_pad_multiple=16,
+                       spsa=SPSAConfig(enabled=True, **GUIDED_CHECK["spsa"]),
+                       atp=ATPConfig(enabled=True, **GUIDED_CHECK["atp"]))
+    sizes = np.array([12, 18, 9, 24])
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = make_model(device, cfg)
+        pocket = model.pocket_from_dataset(pair, len(sizes))
+        noise = event_noise(torch, model, sizes, T_GUIDED_CHECK)
+        res = model.sample_given_pocket(pocket, sizes,
+                                        timesteps=T_GUIDED_CHECK, noise=noise)
+        out[device] = [v.cpu() for v in (res.ligand.x, res.ligand.h,
+                                         res.ligand.mask, res.row_src)]
+    (xg, hg, mg, rg), (xc, hc, mc, rc) = out["cuda"], out["cpu"]
+    same_rows = bool(torch.equal(rg, rc) and torch.equal(mg, mc))
+    err = float((xg - xc).abs().max()) if same_rows else float("inf")
+    m = mc > 0.5
+    same_types = same_rows and bool(
+        torch.equal(hg.argmax(-1)[m], hc.argmax(-1)[m]))
+    log(f"[guided] path check, T={T_GUIDED_CHECK} fixed noise, "
+        f"B={len(sizes)}: surviving rows cuda {rg.tolist()} cpu "
+        f"{rc.tolist()}; max |x_cuda - x_cpu| = {err:.3e} A (atol "
+        f"{PATH_COORD_ATOL}); atom types identical: {same_types}")
+    if not (same_rows and same_types and err <= PATH_COORD_ATOL):
+        raise AssertionError("the guided kernel path disagrees with the "
+                             "guided plain path")
+
+
+def guided_phase(torch, K, model, pockets, sizes):
+    """The guided main path.  Returns its launch counts, the kernel calls
+    of its first fused SPSA forward and the first population of that size
+    it scored."""
+    from diffndm_tpu_torch.diffusion.sampler import (count_forwards,
+                                                     guidance_events)
+
+    cfg, oracle = model.sample_cfg, model.oracle
+    n_layers = model.cfg.egnn.n_layers
+    fan_out = 2 * cfg.spsa.num_probes * N_SAMPLES
+    calls, populations = [], []
+    originals = {n: getattr(K, n) for n in WRAPPERS}
+
+    def recorder(name):
+        def fn(*args, **kw):
+            a = args[0][0] if name.endswith("_pair") else args[0]
+            if a.shape[0] == fan_out and \
+                    sum(c[0] == name for c in calls) < n_layers:
+                calls.append((name, args, kw))
+            return originals[name](*args, **kw)
+        return fn
+
+    score = oracle.score_batch_types
+
+    def recording_score(coords, types, mask, weights):
+        if len(coords) == fan_out and not populations:
+            populations.append((coords.copy(), types.copy(), mask.copy(),
+                                weights))
+        return score(coords, types, mask, weights)
+
+    for n in WRAPPERS:
+        setattr(K, n, recorder(n))
+    oracle.score_batch_types = recording_score
+    K.reset_launches()
+    oracle.reset_counts()
+    mols, seconds, finite = [], [], True
+    try:
+        for pocket, n_lig in zip(pockets, sizes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = torch.Generator(device=model.device).manual_seed(SEED)
+            res = model.sample_given_pocket(pocket, n_lig, timesteps=T_MAIN,
+                                            generator=g)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            finite &= all(bool(torch.isfinite(v).all()) for v in
+                          (res.ligand.x, res.ligand.h, res.pocket.x))
+            expect = (N_SAMPLES, -(-int(max(n_lig)) // 8) * 8, 3)
+            if tuple(res.ligand.x.shape) != expect:
+                raise AssertionError(f"ligand shape "
+                                     f"{tuple(res.ligand.x.shape)} != "
+                                     f"{expect}")
+            if not np.array_equal(
+                    np.asarray(n_lig)[res.row_src.cpu().numpy()],
+                    res.ligand.mask.sum(1).cpu().numpy()):
+                raise AssertionError("a surviving row's mask is not its "
+                                     "origin row's")
+            mols += model.result_to_molecules(res)
+    finally:
+        del oracle.score_batch_types
+        for n, f in originals.items():
+            setattr(K, n, f)
+    launches = dict(K.LAUNCHES)
+
+    events = guidance_events(cfg, T_MAIN)
+    forwards = count_forwards(cfg, T_MAIN)
+    g_extra = cfg.atp.num_groups - 1
+    per_spsa = 1 if cfg.spsa.fuse_probes else cfg.spsa.num_probes
+    scorings = (per_spsa * len(events["spsa"]) + 2 * len(events["atp"])
+                + (2 + g_extra * per_spsa) * len(events["hybrid"]))
+    n_lig = int(sum(len(s) for s in sizes))
+    wall = sum(seconds)
+    log(f"[guided] {len(pockets)} pockets x {N_SAMPLES} samples, T={T_MAIN}, "
+        f"SPSA k={cfg.spsa.num_probes} + ATP G={cfg.atp.num_groups}: events "
+        f"per pocket batch {dict((k, len(v)) for k, v in events.items())}, "
+        f"{forwards} forwards; seconds per pocket batch "
+        f"{[round(s, 3) for s in seconds]}, {n_lig / wall:.3f} ligands/s; "
+        f"oracle: {oracle.n_calls} calls, {oracle.n_scored} molecules, "
+        f"{oracle.seconds:.3f} s = {oracle.seconds / wall:.3f} of the wall "
+        f"time, invalid rate {oracle.invalid_rate:.3f}, rows scored in "
+        f"Python {oracle.n_python_rows}; {len(mols)} molecules built; "
+        f"outputs finite: {finite}; launches {launches}")
+    want = {k: forwards * n_layers * len(pockets) for k in launches}
+    if launches != want:
+        raise AssertionError(f"guided launch counts {launches} != {want}")
+    if oracle.n_calls != scorings * len(pockets):
+        raise AssertionError(f"{oracle.n_calls} reward calls, expected "
+                             f"{scorings * len(pockets)}")
+    if not finite or len(mols) != n_lig:
+        raise AssertionError("guided path outputs are incomplete")
+    if len(populations) != 1 or any(
+            sum(c[0] == n for c in calls) != n_layers
+            for n in ("gcl_messages", "edge_vector_reduce_pair")):
+        raise AssertionError("no fused SPSA forward was captured")
+    return launches, calls, populations[0], seconds
+
+
+def fanout_phase(torch, K, calls):
+    """Both kernels against their plain versions on the captured calls of
+    one fused SPSA forward (every layer's call compared, the first timed)."""
+    results = {}
+    for wrapper in ("gcl_messages", "edge_vector_reduce_pair"):
+        mine = [c for c in calls if c[0] == wrapper]
+        res = check_calls(torch, K, wrapper, mine, reps=20)
+        results[WRAPPERS[wrapper]] = res
+        log(f"[kernels] fan-out {wrapper} {res['shape']} ({len(mine)} calls "
+            f"of a fused SPSA forward checked, atol {KERNEL_ATOL} + rtol "
+            f"{KERNEL_RTOL}): {describe(res)}")
+    return results
+
+
+def oracle_phase(model, population):
+    """The native scorer against the Python scorer on one fan-out
+    population of the guided run."""
+    from diffndm_tpu_torch.guidance.oracle import RewardOracle
+
+    coords, types, mask, weights = population
+    python = RewardOracle(model.dataset_info, scorer="python")
+    native = RewardOracle(model.dataset_info, scorer="native")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        r_nat = native.score_batch_types(coords, types, mask, weights)
+        times.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    r_py = python.score_batch_types(coords, types, mask, weights)
+    py_ms = 1e3 * (time.perf_counter() - t0)
+    equal = bool(np.array_equal(r_nat, r_py))
+    log(f"[oracle] one fused SPSA population of {len(coords)} molecules "
+        f"({int((r_nat > 0).sum())} valid): native rewards equal the Python "
+        f"scorer's bit for bit: {equal}; native {np.median(times):.2f} ms, "
+        f"Python {py_ms:.1f} ms per {len(coords)} molecules (host, one "
+        f"thread)")
+    if not equal:
+        raise AssertionError("the native scorer disagrees with the Python "
+                             "scorer")
+
+
+def quality_rows(torch, ds, models, seed):
+    """One evaluation by the JAX package's guided-lift protocol: per model
+    the summary row, and per pocket the single-fragment count and the
+    number of distinct input rows its 16 ligands descend from (a global
+    top-B prune replicates candidates, so a guided pocket batch can end as
+    the offspring of a few rows)."""
+    from diffndm_tpu_torch.chem.metrics import quality_summary
+
+    picks = np.random.default_rng(0).choice(
+        len(ds), size=N_QUALITY_POCKETS, replace=False)
+    rows = {}
+    for label, model in models.items():
+        g_sizes = torch.Generator().manual_seed(seed)
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        mols, connected, origins, t0 = [], [], [], time.perf_counter()
+        for pi in picks:
+            pocket = model.pocket_from_dataset(ds[int(pi)], N_SAMPLES)
+            sizes = np.maximum(model.sample_ligand_sizes(pocket, g_sizes),
+                               MIN_LIGAND_ATOMS)
+            res = model.sample_given_pocket(pocket, sizes, timesteps=T_MAIN,
+                                            generator=g)
+            batch = model.result_to_molecules(res)
+            connected.append(sum(len(m.fragments()) == 1 for m in batch))
+            origins.append(len(set(res.row_src.tolist())))
+            mols += batch
+        torch.cuda.synchronize()
+        rows[label] = dict(quality_summary(mols),
+                           seconds=time.perf_counter() - t0)
+        ref = JAX_ROWS[label]
+        log(f"[quality] seed {seed} {label:8s} n={rows[label]['n']} in "
+            f"{rows[label]['seconds']:.1f} s: "
+            + ", ".join(f"{k} {rows[label][k]:.3f} (JAX {ref[k]:.3f})"
+                        for k in ref)
+            + f", logp {rows[label]['logp']:.3f}, lipinski "
+            f"{rows[label]['lipinski']:.2f}; per pocket: single-fragment "
+            f"ligands {connected}, distinct origin rows {origins}")
+    return rows
+
+
+def quality_spread(torch, ds, models):
+    """The evaluation over QUALITY_SPREAD_SEEDS seeds: how far each metric
+    moves with the random stream alone, which is what a difference between
+    two builds of the kernels has to exceed."""
+    runs = [quality_rows(torch, ds, models, SEED + 1 + i)
+            for i in range(QUALITY_SPREAD_SEEDS)]
+    for label in models:
+        log(f"[quality] {label} over {len(runs)} seeds, min-max: "
+            + ", ".join(f"{k} {min(r[label][k] for r in runs):.3f}-"
+                        f"{max(r[label][k] for r in runs):.3f}"
+                        for k in JAX_ROWS[label]))
+
+
+def quality_phase(torch, ds, models):
+    """The JAX package's guided-lift evaluation protocol on the card."""
+    rows = quality_rows(torch, ds, models, SEED + 1)
+    lifts = {k: rows["guided"][k] - rows["unguided"][k] for k in LIFT_FLOORS}
+    log(f"[quality] guided lift: QED {lifts['qed']:+.3f} (JAX +0.105), SA "
+        f"{lifts['sa']:+.3f} (JAX +0.244); floors {QUALITY_FLOORS}, lift "
+        f"{LIFT_FLOORS}")
+    missed = [f"{label} {k} {rows[label][k]:.3f} < {v}"
+              for label, floors in QUALITY_FLOORS.items()
+              for k, v in floors.items() if not rows[label][k] >= v]
+    missed += [f"{k} lift {lifts[k]:.3f} < {v}"
+               for k, v in LIFT_FLOORS.items() if not lifts[k] >= v]
+    if missed:
+        raise AssertionError(f"sample quality below its floors: {missed}")
+    return rows
+
+
 def step_phase(torch, K, model, pocket, sizes):
     """A T_STEP-step stretch of the sampler: CUDA events around every
     kernel wrapper call (the kernels on the loop's own, cold inputs), a
@@ -621,9 +928,10 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["kernels", "phases"],
+    parser.add_argument("--only", choices=["kernels", "phases", "quality"],
                         default=None, help="stop after the kernel phase, "
-                        "or print the kernels' cycles per phase")
+                        "print the kernels' cycles per phase, or run the "
+                        "quality evaluation alone over several seeds")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -631,7 +939,11 @@ def main() -> int:
         return 2
     torch.set_grad_enabled(False)
     sys.path.insert(0, REPO)
-    from diffndm_tpu_torch.config import SampleConfig
+    from concurrent.futures import ThreadPoolExecutor
+
+    from diffndm_tpu_torch.chem import native
+    from diffndm_tpu_torch.config import (ATPConfig, SampleConfig,
+                                          SPSAConfig)
     from diffndm_tpu_torch.data.dataset import ProcessedLigandPocketDataset
     from diffndm_tpu_torch.model import DiffNDM
     from diffndm_tpu_torch.ops import egnn_kernels as K
@@ -641,9 +953,13 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    so = K.build_library()
-    log(f"[identity] kernels built in {time.perf_counter() - t0:.1f} s: "
-        f"{os.path.relpath(so, REPO)}")
+    with ThreadPoolExecutor(2) as pool:     # the two compilers side by side
+        builds = [pool.submit(K.build_library),
+                  pool.submit(native.build_library)]
+        so, scorer_so = (b.result() for b in builds)
+    log(f"[identity] kernels and reward scorer built in "
+        f"{time.perf_counter() - t0:.1f} s: {os.path.relpath(so, REPO)}, "
+        f"{os.path.relpath(scorer_so, REPO)}")
     # the compiler's report, per instantiation edge_chain_mma<H, VEC>
     kernel = None
     for line in so.with_suffix(".log").read_text().splitlines():
@@ -656,12 +972,15 @@ def main() -> int:
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
 
     hist = np.load(os.path.join(DATA, "size_distribution.npy"))
+    unguided_cfg = SampleConfig(pocket_pad_multiple=16)
+    guided_cfg = SampleConfig(pocket_pad_multiple=16,
+                              spsa=SPSAConfig(enabled=True),
+                              atp=ATPConfig(enabled=True))
 
-    def make_model(device):
+    def make_model(device, sample_cfg=unguided_cfg):
         model = DiffNDM.from_yaml(
             os.path.join(RUN, "hparams.yaml"), device=device,
-            size_histogram=hist,
-            sample_cfg=SampleConfig(pocket_pad_multiple=16))
+            size_histogram=hist, sample_cfg=sample_cfg, scorer="native")
         model.load_params_npz(WEIGHTS)
         return model
 
@@ -674,12 +993,25 @@ def main() -> int:
     if opts.only == "phases":
         phase_cycles(torch, K, model, pockets[0], sizes[0])
         return 0
+    if opts.only == "quality":
+        quality_spread(torch, ds, {"unguided": model, "guided": make_model(
+            "cuda", guided_cfg)})
+        return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
     if opts.only == "kernels":
         log("[kernels] done (--only kernels: no result)")
         return 0
     path_check(torch, make_model, ds[POCKETS[0]])
     launches = main_path(torch, K, model, pockets, sizes)
+
+    guided = make_model("cuda", guided_cfg)
+    guided_path_check(torch, make_model, ds[POCKETS[0]])
+    guided_launches, calls, population, _ = guided_phase(
+        torch, K, guided, pockets, sizes)
+    fanout = fanout_phase(torch, K, calls)
+    del calls
+    oracle_phase(guided, population)
+    quality_phase(torch, ds, {"unguided": model, "guided": guided})
     step_phase(torch, K, model, pockets[0], sizes[0])
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
@@ -690,7 +1022,11 @@ def main() -> int:
                   bound_by=results[name]["bound_by"], library_ms=None,
                   bound_peak="tf32 495 TFLOP/s, 3.35 TB/s",
                   entry=results[name]["entry"],
-                  shape=results[name]["shape"])
+                  shape=results[name]["shape"],
+                  guided_launches=guided_launches[name],
+                  fanout={k: fanout[name][k] for k in (
+                      "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "blocks", "rows_per_block")})
              for name, src in KERNELS.items()]
     print(json.dumps({"kernels": table}))
     print(smi)

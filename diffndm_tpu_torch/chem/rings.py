@@ -1,13 +1,21 @@
 """Smallest set of smallest rings of a small molecular graph (BFS
-smallest-ring search over the 2-core of the graph)."""
+smallest-ring search over the 2-core of the graph).
+
+Neighbours are kept and visited in the order the bonds were given: which
+of several equally small rings is found, and in fused systems even how
+many rings are kept, depends on that order, and it is the order of
+``cg_find_rings`` in native/chemgraph.cpp, which the native reward scorer
+runs.  The two must agree ring for ring, or the scorers' rewards differ."""
 
 from __future__ import annotations
 
 from collections import deque
 from typing import List, Sequence, Set, Tuple
 
+Adjacency = List[List[int]]
 
-def _trim_tree_nodes(n: int, adj: List[Set[int]]) -> Set[int]:
+
+def _trim_tree_nodes(n: int, adj: Adjacency) -> Set[int]:
     """Iteratively remove degree<=1 nodes; what remains carries all rings."""
     deg = [len(a) for a in adj]
     queue = deque(i for i in range(n) if deg[i] <= 1)
@@ -26,7 +34,7 @@ def _trim_tree_nodes(n: int, adj: List[Set[int]]) -> Set[int]:
 
 
 def _smallest_ring_through(root: int, core: Set[int],
-                           adj: List[Set[int]]) -> Tuple[int, ...]:
+                           adj: Adjacency) -> Tuple[int, ...]:
     """Smallest cycle through ``root`` restricted to core nodes (BFS)."""
     parent = {root: -1}
     depth = {root: 0}
@@ -62,10 +70,10 @@ def _smallest_ring_through(root: int, core: Set[int],
 
 
 def find_rings(n: int, bonds: Sequence[Tuple[int, int]]) -> List[List[int]]:
-    adj: List[Set[int]] = [set() for _ in range(n)]
+    adj: Adjacency = [[] for _ in range(n)]
     for i, j in bonds:
-        adj[i].add(j)
-        adj[j].add(i)
+        adj[i].append(j)
+        adj[j].append(i)
     core = _trim_tree_nodes(n, adj)
     if not core:
         return []

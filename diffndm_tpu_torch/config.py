@@ -2,8 +2,9 @@
 
 The same field names and defaults as the JAX package's ``config.py`` for
 what this package runs: the EGNN denoiser, the diffusion schedule, the
-model's feature sizes, and unguided sampling.  Reference-style YAML files
-(``configs/*.yml``, a checkpoint's ``hparams.yaml``) are read by a small
+model's feature sizes, and sampling with or without SPSA / ATP
+guidance.  Reference-style YAML files (``configs/*.yml``, a checkpoint's
+``hparams.yaml``) are read by a small
 parser for the subset of YAML those files use, so the package needs no
 YAML library.
 """
@@ -61,10 +62,76 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class SPSAConfig:
+    """Zero-order SPSA guidance of the ligand coordinates."""
+    enabled: bool = False
+    num_probes: int = 10           # k perturbation pairs averaged
+    start_step: int = 30           # active for s <= start_step
+    every: int = 2                 # ... at s % every == 0
+    zeta0: float = 1e-3            # zeta = zeta0 * s / zeta_denom
+    zeta_denom: float = 500.0
+    guidance_scale: float = 1e-3   # gradient-ascent step
+    # reward 2*QED + 3*SA + Lipinski/5
+    w_qed: float = 2.0
+    w_sa: float = 3.0
+    w_lipinski: float = 0.2
+    # affinity term; needs docking, which this package does not have: must
+    # stay 0
+    w_vina: float = 0.0
+    # reward += w_connectivity * largest-fragment fraction; 0 = reference
+    w_connectivity: float = 0.0
+    # one-off branch ensemble + prune at s == start_step
+    hybrid_prune: bool = True
+    # all k probes in one denoiser forward of k*2B rows and one reward
+    # call, instead of k forwards of 2B rows; the same arithmetic
+    fuse_probes: bool = True
+
+
+@dataclass(frozen=True)
+class ATPConfig:
+    """Adaptive trajectory pruning (SVDD-style candidate selection)."""
+    enabled: bool = False
+    num_groups: int = 5            # 1 current + 4 resampled branches
+    start_step: int = 50           # active for s <= start_step
+    every: int = 10                # ... at s % every == 0
+    # mixed reward r = r_x0 * (s/mix_denom) + r_z * w_z(s).  The reference
+    # computes w_z as (mix_denom - s/mix_denom), an operator-precedence
+    # quirk that compat_precedence=True reproduces; False uses
+    # (mix_denom - s)/mix_denom.
+    mix_denom: float = 250.0
+    compat_precedence: bool = True
+    # Selection scope.  Default: one top-B over all G*B candidates (sound
+    # when every row shares one pocket).  per_sample: the best of the G
+    # branches per row.  group_size=n: rows form contiguous groups of n
+    # sharing a pocket, top-n within each group.
+    per_sample: bool = False
+    group_size: Optional[int] = None
+    # reward 2*QED + 2*SA + sigmoid-window(LogP, k, [lo, hi]) + Lipinski/5
+    w_qed: float = 2.0
+    w_sa: float = 2.0
+    w_lipinski: float = 0.2
+    w_vina: float = 0.0            # see SPSAConfig.w_vina
+    w_connectivity: float = 0.0    # see SPSAConfig.w_connectivity
+    logp_k: float = 20.0
+    logp_lo: float = -1.0
+    logp_hi: float = 5.0
+
+
+@dataclass(frozen=True)
 class SampleConfig:
-    """Unguided sampling settings: the padding buckets."""
+    """Sampling settings: guidance, the noise temperature of the reverse
+    steps (1.0 = the model's own) and the padding buckets."""
+    spsa: SPSAConfig = field(default_factory=SPSAConfig)
+    atp: ATPConfig = field(default_factory=ATPConfig)
+    noise_scale: float = 1.0
     lig_pad_multiple: int = 8
     pocket_pad_multiple: int = 64
+
+    def __post_init__(self):
+        if self.spsa.w_vina or self.atp.w_vina:
+            raise NotImplementedError(
+                "w_vina needs the docking scorer, which this package does "
+                "not have")
 
 
 # ---------------------------------------------------------------------------

@@ -84,9 +84,11 @@ class CondDiffusion:
     # -- one reverse step t -> s ----------------------------------------------
     def sample_p_zs_given_zt(self, s_norm, t_norm, z_lig, xh_pocket,
                              lig_mask, pocket_mask, eps_fn: EpsFn,
-                             noise=None, generator=None):
+                             noise=None, generator=None,
+                             noise_scale: float = 1.0):
         """s_norm, t_norm: normalised times [B]; the gamma lookup rounds
-        t*T.  Returns (z_s, xh_pocket)."""
+        t*T.  noise_scale scales the injected noise only (the posterior
+        mean stays exact).  Returns (z_s, xh_pocket)."""
         gamma_s = self.schedule(s_norm)
         gamma_t = self.schedule(t_norm)
         sig2_ts, sig_ts, alpha_ts = S.sigma_and_alpha_t_given_s(
@@ -97,6 +99,8 @@ class CondDiffusion:
         mu = (z_lig / _b11(alpha_ts)
               - _b11(sig2_ts / alpha_ts / sigma_t) * eps_lig)
         sigma = sig_ts * sigma_s / sigma_t
+        if noise_scale != 1.0:
+            sigma = sigma * noise_scale
         return self.sample_normal_zero_com(mu, xh_pocket, sigma, lig_mask,
                                            pocket_mask, noise, generator)
 
@@ -107,7 +111,11 @@ class CondDiffusion:
 
     def to_x0(self, z_t_lig, xh_pocket, t_norm, lig_mask, pocket_mask,
               eps_fn: EpsFn):
-        """Predict eps at t and roll to z0 in one step."""
+        """Predict eps at t and roll to z0 in one step (the guidance
+        lookahead).  t_norm: a scalar or [B]."""
+        t_norm = torch.as_tensor(t_norm, dtype=z_t_lig.dtype,
+                                 device=z_t_lig.device).expand(
+            z_t_lig.shape[0])
         gamma_t = self.schedule(t_norm)
         eps_lig, _ = eps_fn(z_t_lig, xh_pocket, t_norm, lig_mask,
                             pocket_mask)

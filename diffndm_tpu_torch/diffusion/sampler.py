@@ -1,9 +1,12 @@
-"""Unguided pocket-conditional sampling: a Python loop of T reverse steps,
-one denoiser forward each, then the final decode."""
+"""Pocket-conditional sampling: a Python loop of T reverse steps, one
+denoiser forward each, then the final decode.  With guidance enabled a
+step may be followed by an ATP prune, an SPSA update and (once) the hybrid
+branch ensemble, in that order; each is decided by plain ``if``s on the
+integer step index."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -11,30 +14,75 @@ import torch
 from diffndm_tpu_torch.config import SampleConfig
 from diffndm_tpu_torch.diffusion.core import (CondDiffusion,
                                               init_ligand_from_pocket)
+from diffndm_tpu_torch.guidance.atp import atp_prune, hybrid_spsa_prune
+from diffndm_tpu_torch.guidance.oracle import RewardOracle
+from diffndm_tpu_torch.guidance.spsa import spsa_update
 from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
 from diffndm_tpu_torch.structs import NodeBatch, pad_to
 
 
 class SampleResult(NamedTuple):
+    """ATP selection can replicate a candidate across batch rows and drop
+    another, so the masks are those of the rows that survived and
+    ``row_src`` [B] names the input row each output row descends from."""
     ligand: NodeBatch       # decoded ligand, in the original pocket frame
     pocket: NodeBatch       # pocket, shifted back to the original frame
+    row_src: torch.Tensor
 
 
 class SamplerNoise(NamedTuple):
-    """Fixed noise for one trajectory, each [B, NL, 3 + atom_nf]:
+    """Fixed noise for one trajectory.  Each of [B, NL, 3 + atom_nf]:
     ``init`` for the initial ligand, ``steps[s]`` for reverse step s
-    (steps is [T, B, NL, F]), ``decode`` for the final decode."""
+    (steps is [T, B, NL, F]), ``decode`` for the final decode.  Guidance
+    events, by step index (every event that fires must have an entry):
+    ``atp[s]`` the branches' step noise [G-1, B, NL, F], ``spsa[s]`` the k
+    probe draws [k, B, NL, 3], ``hybrid`` the pair (branch step noise
+    [G-1, B, NL, F], per-branch probe draws [G-1, k, B, NL, 3])."""
     init: torch.Tensor
     steps: torch.Tensor
     decode: torch.Tensor
+    atp: Optional[Dict[int, torch.Tensor]] = None
+    spsa: Optional[Dict[int, torch.Tensor]] = None
+    hybrid: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def guidance_events(cfg: SampleConfig, timesteps: int) -> dict:
+    """The step indices at which each guidance event fires."""
+    steps = range(timesteps - 1, -1, -1)
+    atp = [s for s in steps if cfg.atp.enabled and s <= cfg.atp.start_step
+           and s % cfg.atp.every == 0]
+    spsa = [s for s in steps if cfg.spsa.enabled
+            and s <= cfg.spsa.start_step and s % cfg.spsa.every == 0]
+    hybrid = [s for s in spsa if cfg.spsa.hybrid_prune
+              and s == cfg.spsa.start_step]
+    return dict(atp=atp, spsa=spsa, hybrid=hybrid)
+
+
+def count_forwards(cfg: SampleConfig, timesteps: int) -> int:
+    """Denoiser forwards of one ``sample_given_pocket`` call: one per step
+    and the decode; per SPSA update one (fused) or k; per prune one for
+    the G-1 branches and one for the G lookaheads; the hybrid adds an SPSA
+    update per branch."""
+    ev = guidance_events(cfg, timesteps)
+    per_spsa = 1 if cfg.spsa.fuse_probes else cfg.spsa.num_probes
+    g_extra = cfg.atp.num_groups - 1
+    per_prune = (1 if g_extra else 0) + 1
+    return (timesteps + 1 + per_prune * len(ev["atp"])
+            + per_spsa * len(ev["spsa"])
+            + (per_prune + g_extra * per_spsa) * len(ev["hybrid"]))
 
 
 class ConditionalSampler:
     def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
-                 cfg: SampleConfig):
+                 cfg: SampleConfig, oracle: Optional[RewardOracle] = None):
+        """oracle: the reward oracle; needed when ``cfg`` enables
+        guidance."""
+        if (cfg.spsa.enabled or cfg.atp.enabled) and oracle is None:
+            raise ValueError("guided sampling needs a reward oracle")
         self.core = core
         self.dynamics = dynamics
         self.cfg = cfg
+        self.oracle = oracle
 
     def ligand_mask(self, num_nodes_lig, device) -> torch.Tensor:
         """[B, NL] mask; NL is the largest size rounded up to
@@ -53,7 +101,8 @@ class ConditionalSampler:
                             generator: Optional[torch.Generator] = None,
                             noise: Optional[SamplerNoise] = None
                             ) -> SampleResult:
-        """Generate ligands for a padded, batched pocket.
+        """Generate ligands for a padded, batched pocket, guided as the
+        sampler's config says.
 
         num_nodes_lig: [B] ligand sizes.  timesteps: reverse steps (default
         the schedule's T; fewer steps read the T-step table at round(t*T)).
@@ -65,36 +114,79 @@ class ConditionalSampler:
         lig_mask = self.ligand_mask(num_nodes_lig, device)
         pocket_mask = pocket.mask
 
+        def fixed(name, s=None):
+            """The fixed noise of an event, or None where it is drawn."""
+            if noise is None:
+                return None
+            table = getattr(noise, name)
+            if table is None:
+                raise ValueError(f"SamplerNoise.{name} is missing, and the "
+                                 f"event fires at step {s}")
+            return table if s is None else table[s]
+
         nx, nh = core.cfg.norm_values
         bh = core.cfg.norm_biases[1]
         p_x = pocket.x / nx * pocket_mask[..., None]
         p_h = (pocket.h - bh) / nh * pocket_mask[..., None]
         z_lig, xh_pocket = init_ligand_from_pocket(
             core, p_x, p_h, lig_mask, pocket_mask,
-            noise=None if noise is None else noise.init, generator=generator)
+            noise=fixed("init"), generator=generator)
+
+        cfg, oracle = self.cfg, self.oracle
+        events = guidance_events(cfg, timesteps)
+        pocket_mask0 = pocket_mask
+        row_src = torch.arange(b, device=device)
 
         for s in range(timesteps - 1, -1, -1):
             s_norm = torch.full((b,), float(s), device=device) / timesteps
             t_norm = torch.full((b,), float(s + 1), device=device) / timesteps
             z_lig, xh_pocket = core.sample_p_zs_given_zt(
                 s_norm, t_norm, z_lig, xh_pocket, lig_mask, pocket_mask,
-                self._eps, noise=None if noise is None else noise.steps[s],
-                generator=generator)
+                self._eps, noise=fixed("steps", s),
+                generator=generator, noise_scale=cfg.noise_scale)
+
+            if s in events["atp"]:
+                z_lig, xh_pocket, lig_mask, pocket_mask, sel = atp_prune(
+                    core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
+                    pocket_mask, s_norm, t_norm, s, cfg.atp,
+                    noise=fixed("atp", s),
+                    generator=generator, noise_scale=cfg.noise_scale)
+                row_src = row_src[sel % b]
+
+            if s in events["spsa"]:
+                # float32 arithmetic, as the latents are
+                zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
+                             / np.float32(cfg.spsa.zeta_denom))
+                z_lig, xh_pocket = spsa_update(
+                    core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
+                    pocket_mask, t_norm, zeta, cfg.spsa,
+                    noise=fixed("spsa", s),
+                    generator=generator)
+                if s in events["hybrid"]:
+                    branch, probes = fixed("hybrid") or (None, None)
+                    (z_lig, xh_pocket, lig_mask, pocket_mask,
+                     sel) = hybrid_spsa_prune(
+                        core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
+                        pocket_mask, s_norm, t_norm, s, cfg.atp, cfg.spsa,
+                        zeta, noise=branch, spsa_noise=probes,
+                        generator=generator, noise_scale=cfg.noise_scale)
+                    row_src = row_src[sel % b]
 
         x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
             z_lig, xh_pocket, lig_mask, pocket_mask, self._eps,
-            noise=None if noise is None else noise.decode,
-            generator=generator)
+            noise=fixed("decode"), generator=generator)
 
         # centre-of-gravity drift projection, then the shift back to the
         # original pocket frame
         x_lig, x_pocket = remove_mean_ligand(x_lig, x_pocket, lig_mask,
                                              pocket_mask)
-        com_before = masked_mean(pocket.x, pocket_mask, dim=1, keepdim=True)
+        com_before = masked_mean(pocket.x, pocket_mask0, dim=1,
+                                 keepdim=True)[row_src]
         com_after = masked_mean(x_pocket, pocket_mask, dim=1, keepdim=True)
         shift = com_before - com_after
         x_lig = (x_lig + shift) * lig_mask[..., None]
         x_pocket = (x_pocket + shift) * pocket_mask[..., None]
         return SampleResult(ligand=NodeBatch(x_lig, h_lig, lig_mask),
                             pocket=NodeBatch(x_pocket, h_pocket,
-                                             pocket_mask))
+                                             pocket_mask),
+                            row_src=row_src)

@@ -2,7 +2,9 @@
 
 Builds the denoiser, the noise schedule and the size prior from a model
 config, loads weights exported from the JAX package, generates ligands
-for a pocket and turns the result into molecules.
+for a pocket (unguided, or with the SPSA / ATP guidance the sample config
+enables, scored by the chemistry reward oracle) and turns the result into
+molecules.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from diffndm_tpu_torch.diffusion.node_distribution import (DistributionNodes,
                                                            default_histogram)
 from diffndm_tpu_torch.diffusion.sampler import (ConditionalSampler,
                                                  SampleResult, SamplerNoise)
+from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.models.dynamics import EGNNDynamics
 from diffndm_tpu_torch.structs import NodeBatch, pad_to, to_lists
 
@@ -34,9 +37,11 @@ class DiffNDM:
     def __init__(self, model_cfg: ModelConfig,
                  sample_cfg: Optional[SampleConfig] = None,
                  size_histogram: Optional[np.ndarray] = None,
-                 device=None):
+                 device=None, scorer: str = "native"):
         """device: ``cuda`` unless given; raises when no GPU is present
-        and no device was named."""
+        and no device was named.  scorer: the reward oracle's scorer when
+        ``sample_cfg`` enables guidance: "native" (the C++ scorer, built
+        at first use; raises if it cannot be built) or "python"."""
         if model_cfg.mode != "pocket_conditioning":
             raise NotImplementedError(
                 f"mode {model_cfg.mode!r}: the port runs the "
@@ -57,8 +62,11 @@ class DiffNDM:
         self.size_distribution = DistributionNodes(
             size_histogram if size_histogram is not None
             else default_histogram())
+        self.oracle = None
+        if self.sample_cfg.spsa.enabled or self.sample_cfg.atp.enabled:
+            self.oracle = RewardOracle(self.dataset_info, scorer=scorer)
         self.sampler = ConditionalSampler(self.core, self.dynamics,
-                                          self.sample_cfg)
+                                          self.sample_cfg, self.oracle)
 
     @classmethod
     def from_yaml(cls, path: str, **kw) -> "DiffNDM":
@@ -105,8 +113,8 @@ class DiffNDM:
                             generator: Optional[torch.Generator] = None,
                             noise: Optional[SamplerNoise] = None
                             ) -> SampleResult:
-        """Unguided generation for a padded pocket batch; see
-        ``ConditionalSampler.sample_given_pocket``."""
+        """Generation for a padded pocket batch, guided as ``sample_cfg``
+        says; see ``ConditionalSampler.sample_given_pocket``."""
         return self.sampler.sample_given_pocket(
             pocket.to(self.device), num_nodes_lig, timesteps=timesteps,
             generator=generator, noise=noise)

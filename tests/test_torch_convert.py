@@ -122,3 +122,35 @@ def test_yaml_reader_and_model_config_match(path):
     for f in dataclasses.fields(port.diffusion):
         assert getattr(port.diffusion, f.name) == \
             getattr(ref.diffusion, f.name), f.name
+
+
+@pytest.mark.parametrize("name", ["SPSAConfig", "ATPConfig"])
+def test_guidance_config_defaults_equal_jax(name):
+    """Field by field: the same names, in the same order, with the same
+    defaults, so that a default changed on one side is caught."""
+    ours = dataclasses.fields(getattr(tcfg, name))
+    ref = dataclasses.fields(getattr(jcfg, name))
+    assert [f.name for f in ours] == [f.name for f in ref]
+    for a, b in zip(ours, ref):
+        assert a.default == b.default, a.name
+        assert type(a.default) is type(b.default), a.name
+
+
+def test_sample_config_fields_equal_jax_where_ported():
+    """The port's SampleConfig is the subset of the JAX one that guided
+    and unguided sampling read; the TPU kernel banding knob, the RL,
+    inpainting and output-filter fields are not ported."""
+    ref = {f.name: f for f in dataclasses.fields(jcfg.SampleConfig)}
+    ours = dataclasses.fields(tcfg.SampleConfig)
+    assert [f.name for f in ours] == ["spsa", "atp", "noise_scale",
+                                      "lig_pad_multiple",
+                                      "pocket_pad_multiple"]
+    made, made_ref = tcfg.SampleConfig(), jcfg.SampleConfig()
+    for f in ours:
+        assert f.name in ref
+        if dataclasses.is_dataclass(getattr(made, f.name)):
+            assert dataclasses.asdict(getattr(made, f.name)) == \
+                dataclasses.asdict(getattr(made_ref, f.name))
+        else:
+            assert getattr(made, f.name) == getattr(made_ref, f.name)
+    assert not made.spsa.enabled and not made.atp.enabled

@@ -144,6 +144,32 @@ def test_to_x0(state):
     close(out, ref)
 
 
+def test_sample_p_zs_given_zt_noise_scale(state):
+    """noise_scale scales the injected noise only."""
+    key = jax.random.PRNGKey(5)
+    s = np.full((B,), 41 / 500, np.float32)
+    t = np.full((B,), 42 / 500, np.float32)
+    z_s, xh_p, _, _ = state["jc"].sample_p_zs_given_zt(
+        key, jnp.asarray(s), jnp.asarray(t), state["z"], state["xh_p"],
+        state["lm"], state["pm"], eps_fn_factory(jnp), noise_scale=0.7)
+    noise = jax.random.normal(key, state["z"].shape, jnp.float32)
+    tz_s, txh_p = state["tc"].sample_p_zs_given_zt(
+        T(s), T(t), T(state["z"]), T(state["xh_p"]), T(state["lm"]),
+        T(state["pm"]), eps_fn_factory(torch), noise=T(noise),
+        noise_scale=0.7)
+    close(tz_s, z_s)
+    close(txh_p, xh_p)
+
+
+def test_to_x0_scalar_time(state):
+    ref = state["jc"].to_x0(state["z"], state["xh_p"], jnp.float32(0.3),
+                            state["lm"], state["pm"], eps_fn_factory(jnp))
+    out = state["tc"].to_x0(T(state["z"]), T(state["xh_p"]), 0.3,
+                            T(state["lm"]), T(state["pm"]),
+                            eps_fn_factory(torch))
+    close(out, ref)
+
+
 def test_sample_p_xh_given_z0_with_jax_noise(state):
     key = jax.random.PRNGKey(9)
     ref = state["jc"].sample_p_xh_given_z0(

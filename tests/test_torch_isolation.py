@@ -2,8 +2,10 @@
 chip_smoke.py imports JAX, flax, optax, orbax or the JAX package (a GPU
 deployment of the port has none of them).  The scan is static, over the
 source, because the test process already holds JAX for the other tests,
-so sys.modules cannot tell.  And an entry point with no device given
-raises when there is no GPU instead of running on the CPU."""
+so sys.modules cannot tell.  It reads its data from its own assets (not
+from the JAX package's ``chem/data``) and builds the native scorer into
+``build/``, never into ``native/``.  And an entry point with no device
+given raises when there is no GPU instead of running on the CPU."""
 
 import ast
 import glob
@@ -33,9 +35,53 @@ def imported_roots(path):
             yield str(node.args[0].value).split(".")[0]
 
 
+def string_constants(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    docstrings = {id(n.body[0].value) for n in ast.walk(tree)
+                  if isinstance(n, (ast.Module, ast.ClassDef,
+                                    ast.FunctionDef))
+                  and n.body and isinstance(n.body[0], ast.Expr)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docstrings]
+
+
 def test_sources_found():
     assert "diffndm_tpu_torch/model.py" in SOURCES
-    assert len(SOURCES) > 20
+    for module in ("chem/sanitize.py", "chem/descriptors.py",
+                   "chem/morgan.py", "chem/properties.py", "chem/metrics.py",
+                   "chem/native.py", "guidance/oracle.py",
+                   "guidance/spsa.py", "guidance/atp.py"):
+        assert f"diffndm_tpu_torch/{module}" in SOURCES
+    assert len(SOURCES) > 30
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_reads_own_assets_and_never_writes_under_native(path):
+    """No path into the JAX package's data directory; the files under
+    ``native/`` are named only by chem/native.py, which reads its two
+    sources there and writes its library under ``build``."""
+    strings = string_constants(path)
+    assert not [s for s in strings if "chem/data" in s]
+    named = [s for s in strings if "native/" in s or s.endswith(".cpp")
+             or "libchemgraph" in s]
+    if path == "diffndm_tpu_torch/chem/native.py":
+        assert sorted(named) == ["chemgraph.cpp", "chemscore.cpp"]
+    else:
+        assert not named
+
+
+def test_native_scorer_paths():
+    from diffndm_tpu_torch.chem import native, properties
+
+    root = native.ROOT
+    assert [str(p.relative_to(root)) for p in native.SOURCES] == [
+        "native/chemgraph.cpp", "native/chemscore.cpp"]
+    assert native.BUILD_DIR == root / "build"
+    assert native.library_path().parent == root / "build"
+    assert properties.FPSCORES.endswith(
+        "diffndm_tpu_torch/assets/fpscores.npz")
 
 
 @pytest.mark.parametrize("path", SOURCES)
