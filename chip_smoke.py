@@ -35,7 +35,18 @@ Phases, each of which fails the run on any fault or mismatch:
    rows, with floors on validity, QED, SA and the guided lift;
 8. step: a 50-step stretch of the unguided sampler with CUDA events
    around every kernel wrapper call and a profiler trace: ms per step,
-   kernel ms per step inside the loop, the device's idle share.
+   kernel ms per step inside the loop, the device's idle share;
+9. cli: the port's generate CLI (diffndm_tpu_torch.cli.generate, run in
+   this process) on a PDB file and a reference-ligand SDF written from
+   test pocket 220: the pocket read from the PDB against the dataset's,
+   then 16 ligands at T=500 with SPSA + ATP, the RL AdjustNet adjusting
+   every step and trained by REINFORCE over two loops, sanitized into an
+   SDF; the launch counts of each loop, the AdjustNet changed by the
+   updates and its checkpoint reloaded bit for bit; the kernels against
+   their plain versions on the calls of the run's first main-step forward
+   and first fused SPSA forward (the PDB pocket's shapes); and a 12-step
+   fixed-noise guided trajectory with the AdjustNet on the card against
+   the plain path on the CPU.
 
 ``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes
@@ -90,6 +101,10 @@ QUALITY_SPREAD_SEEDS = 5     # --only quality
 T_GUIDED_CHECK = 12
 GUIDED_CHECK = dict(spsa=dict(num_probes=2, start_step=6, every=2, zeta0=5.0),
                     atp=dict(num_groups=4, start_step=10, every=5))
+# cli phase: generation + REINFORCE rounds; the adjusted path check scales
+# the fresh AdjustNet's output layer to the size of a policy that has
+# learned something (a fresh one adds O(1) to eps at every step)
+CLI_POCKET, CLI_LOOPS, ADJUST_SCALE = 220, 2, 0.1
 
 # published H100 SXM peaks (dense TF32 on the tensor cores, HBM3).  The
 # kernels split each product into three TF32 products; the bound counts
@@ -101,6 +116,7 @@ PEAK_BYTES = 3.35e12
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # path check: ten steps of fp32 forwards on two devices
 PATH_COORD_ATOL = 1e-3       # Angstrom
+PATH_LP_RTOL = 1e-4          # the adjusted trajectory's avg log-prob
 
 KERNELS = {
     "gcl_messages": "diffndm_tpu/ops/pallas_egnn.py:151",
@@ -606,10 +622,12 @@ def event_noise(torch, model, sizes, steps):
         hybrid=(normal(g_extra, *shape), normal(g_extra, k, *shape[:2], 3)))
 
 
-def guided_path_check(torch, make_model, pair):
+def guided_path_check(torch, make_model, pair, adjust=False):
     """The same fixed-noise guided trajectory (prunes, SPSA updates and
     the hybrid all fire) on the card and on the CPU: the same rows must
-    survive, with the same atom types, at the same coordinates."""
+    survive, with the same atom types, at the same coordinates.  With
+    ``adjust`` the AdjustNet (the same seeded weights on both devices)
+    adjusts every step, and the log-prob proxies must agree too."""
     from diffndm_tpu_torch.config import (ATPConfig, SampleConfig,
                                           SPSAConfig)
 
@@ -620,25 +638,39 @@ def guided_path_check(torch, make_model, pair):
     out = {}
     for device in ("cuda", "cpu"):
         model = make_model(device, cfg)
+        if adjust:
+            fc2 = model.ensure_adjust().module.fc2
+            with torch.no_grad():
+                fc2.weight.mul_(ADJUST_SCALE)
+                fc2.bias.mul_(ADJUST_SCALE)
         pocket = model.pocket_from_dataset(pair, len(sizes))
         noise = event_noise(torch, model, sizes, T_GUIDED_CHECK)
         res = model.sample_given_pocket(pocket, sizes,
-                                        timesteps=T_GUIDED_CHECK, noise=noise)
+                                        timesteps=T_GUIDED_CHECK, noise=noise,
+                                        optimize=adjust)
         out[device] = [v.cpu() for v in (res.ligand.x, res.ligand.h,
-                                         res.ligand.mask, res.row_src)]
-    (xg, hg, mg, rg), (xc, hc, mc, rc) = out["cuda"], out["cpu"]
+                                         res.ligand.mask, res.row_src,
+                                         res.avg_log_prob)]
+    (xg, hg, mg, rg, lg), (xc, hc, mc, rc, lc) = out["cuda"], out["cpu"]
     same_rows = bool(torch.equal(rg, rc) and torch.equal(mg, mc))
     err = float((xg - xc).abs().max()) if same_rows else float("inf")
     m = mc > 0.5
     same_types = same_rows and bool(
         torch.equal(hg.argmax(-1)[m], hc.argmax(-1)[m]))
-    log(f"[guided] path check, T={T_GUIDED_CHECK} fixed noise, "
+    lp_rel = float((lg - lc).abs() / lc.abs().clamp_min(1e-30))
+    label = "[cli] adjusted" if adjust else "[guided]"
+    log(f"{label} path check, T={T_GUIDED_CHECK} fixed noise, "
         f"B={len(sizes)}: surviving rows cuda {rg.tolist()} cpu "
         f"{rc.tolist()}; max |x_cuda - x_cpu| = {err:.3e} A (atol "
-        f"{PATH_COORD_ATOL}); atom types identical: {same_types}")
-    if not (same_rows and same_types and err <= PATH_COORD_ATOL):
-        raise AssertionError("the guided kernel path disagrees with the "
-                             "guided plain path")
+        f"{PATH_COORD_ATOL}); atom types identical: {same_types}"
+        + (f"; avg log-prob cuda {float(lg):.6f} cpu {float(lc):.6f} "
+           f"(rel {lp_rel:.2e}, rtol {PATH_LP_RTOL})" if adjust else ""))
+    if not (same_rows and same_types and err <= PATH_COORD_ATOL
+            and bool(torch.isfinite(xg).all())):
+        raise AssertionError(f"{label}: the kernel path disagrees with the "
+                             "plain path")
+    if adjust and not (lp_rel <= PATH_LP_RTOL and float(lc) < 0):
+        raise AssertionError(f"{label}: the log-prob proxies disagree")
 
 
 def guided_phase(torch, K, model, pockets, sizes):
@@ -924,6 +956,197 @@ def step_phase(torch, K, model, pocket, sizes):
         f"{1 - busy / plain_wall:.3f})")
 
 
+def write_pocket_files(pair, decoder, tmp):
+    """A PDB file with one ALA residue per pocket atom (the element from
+    the one-hot decoder, two-letter ones in capitals as PDB files write
+    them) and the ligand as the reference SDF.  Returns their paths."""
+    from diffndm_tpu_torch.chem.io import write_sdf
+    from diffndm_tpu_torch.chem.mol import Molecule
+
+    lines = []
+    for i, (c, oh) in enumerate(zip(pair.pocket_coords,
+                                    pair.pocket_one_hot)):
+        el = decoder[int(oh.argmax())].upper()
+        lines.append(f"ATOM  {i + 1:>5} {el:<4} ALA A{i + 1:>4}    "
+                     f"{c[0]:8.3f}{c[1]:8.3f}{c[2]:8.3f}  1.00  0.00"
+                     f"          {el:>2}")
+    pdb, sdf = os.path.join(tmp, "pocket.pdb"), os.path.join(tmp, "ref.sdf")
+    with open(pdb, "w") as f:
+        f.write("\n".join(lines + ["END"]) + "\n")
+    write_sdf(sdf, [Molecule([decoder[int(t)] for t in
+                              pair.lig_one_hot.argmax(1)], [],
+                             coords=pair.lig_coords.astype(np.float64))])
+    return pdb, sdf
+
+
+def pdb_pocket_check(torch, model, pair, pdb, sdf):
+    """pocket_from_pdb against pocket_from_dataset on the atoms within
+    the 8 A cutoff (the PDB holds coordinates to 1e-3 A)."""
+    import dataclasses
+
+    near = np.linalg.norm(pair.pocket_coords[:, None]
+                          - pair.lig_coords[None], axis=-1).min(1) < 8.0
+    kept = dataclasses.replace(pair, pocket_coords=pair.pocket_coords[near],
+                               pocket_one_hot=pair.pocket_one_hot[near])
+    out = model.pocket_from_pdb(pdb, sdf, N_SAMPLES)
+    ref = model.pocket_from_dataset(kept, N_SAMPLES)
+    same = (out.x.shape == ref.x.shape and torch.equal(out.h, ref.h)
+            and torch.equal(out.mask, ref.mask))
+    err = float((out.x - ref.x).abs().max()) if same else float("inf")
+    log(f"[cli] pocket from the PDB file: {int(near.sum())} of "
+        f"{len(near)} atoms within 8 A, [{out.x.shape[0]}, "
+        f"{out.x.shape[1]}] rows on {out.x.device}; types and mask equal "
+        f"to the dataset's: {same}; max coordinate difference {err:.1e} A")
+    if not (same and err <= 5e-4 + 1e-6):
+        raise AssertionError("pocket_from_pdb disagrees with "
+                             "pocket_from_dataset")
+
+
+def cli_phase(torch, K, ds, tmp):
+    """The generate CLI in this process: SPSA + ATP, the AdjustNet
+    adjusting and trained over CLI_LOOPS loops, sanitized SDF out.
+    Returns the launch counts of the whole run and the kernels' checks
+    against their plain versions on the calls of its first main-step
+    forward and of its first fused SPSA forward."""
+    from diffndm_tpu_torch.cli import generate
+    from diffndm_tpu_torch.config import (SPSAConfig, load_yaml,
+                                          model_config_from_yaml)
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.diffusion.sampler import count_forwards
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.models.adjust_net import AdjustNetState
+
+    loops, updates = [], []
+    originals = (DiffNDM.generate_ligands, AdjustNetState.reinforce)
+    n_layers = model_config_from_yaml(load_yaml(os.path.join(
+        RUN, "hparams.yaml"))).egnn.n_layers
+    # forwards by their rows: the main step's B, the fused SPSA's 2kB (the
+    # CLI runs SPSA at its defaults)
+    captured = {N_SAMPLES: ("main step", []),
+                2 * SPSAConfig().num_probes * N_SAMPLES: ("fused SPSA", [])}
+    wrappers = {n: getattr(K, n) for n in WRAPPERS}
+
+    def recorder(name):
+        def fn(*args, **kw):
+            a = args[0][0] if name.endswith("_pair") else args[0]
+            calls = captured.get(a.shape[0], (None, None))[1]
+            if calls is not None and \
+                    sum(c[0] == name for c in calls) < n_layers:
+                calls.append((name, args, kw))
+            return wrappers[name](*args, **kw)
+        return fn
+
+    def generate_ligands(self, *args, **kw):
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mols, res = originals[0](self, *args, **kw)
+        torch.cuda.synchronize()
+        loops.append(dict(
+            seconds=time.perf_counter() - t0, mols=mols, result=res,
+            launches={k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()},
+            weights=[p.detach().clone() for p in
+                     self.adjust_state.module.parameters()]))
+        return mols, res
+
+    def reinforce(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals[1](self, *args, **kw)
+        torch.cuda.synchronize()
+        updates.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    pdb, sdf = write_pocket_files(
+        ds[CLI_POCKET], dataset_params["crossdock_full"]["atom_decoder"], tmp)
+    out_sdf, ckpt = (os.path.join(tmp, n) for n in ("cli.sdf", "adjust.npz"))
+    argv = [WEIGHTS, "--config", os.path.join(RUN, "hparams.yaml"),
+            "--pdbfile", pdb, "--ref_ligand", sdf, "--outfile", out_sdf,
+            "--n_samples", str(N_SAMPLES), "--SPSA", "1", "--SVDD", "1",
+            "--optimize", "1", "--path_save", ckpt, "--rl_loops",
+            str(CLI_LOOPS), "--sanitize", "--seed", str(SEED)]
+    log(f"[cli] python -m diffndm_tpu_torch.cli.generate {' '.join(argv)}")
+    DiffNDM.generate_ligands = generate_ligands
+    AdjustNetState.reinforce = reinforce
+    for n in WRAPPERS:
+        setattr(K, n, recorder(n))
+    K.reset_launches()
+    try:
+        model = generate.main(argv)
+    finally:
+        DiffNDM.generate_ligands, AdjustNetState.reinforce = originals
+        for n, f in wrappers.items():
+            setattr(K, n, f)
+    launches = dict(K.LAUNCHES)
+    pdb_pocket_check(torch, model, ds[CLI_POCKET], pdb, sdf)
+
+    cfg, oracle = model.sample_cfg, model.oracle
+    timesteps = model.core.schedule.timesteps
+    forwards = count_forwards(cfg, timesteps)
+    want = {k: forwards * model.cfg.egnn.n_layers for k in KERNELS}
+    history = model.adjust_state.history
+    n_records = open(out_sdf).read().count("$$$$")
+    n_kept = sum(m is not None for m in loops[-1]["mols"])
+    changed = any(not torch.equal(a, b) for a, b in
+                  zip(loops[0]["weights"], loops[1]["weights"]))
+    reloaded = AdjustNetState(model.adjust_state.cfg, device=model.device)
+    reloaded.load(ckpt)
+    opt, opt2 = model.adjust_state.optimizer, reloaded.optimizer
+    bit_exact = all(torch.equal(a, b) for a, b in zip(
+        reloaded.module.parameters(), model.adjust_state.module.parameters()))
+    bit_exact &= all(
+        torch.equal(opt.state[p][k].cpu(), opt2.state[q][k].cpu())
+        for p, q in zip(model.adjust_state.module.parameters(),
+                        reloaded.module.parameters())
+        for k in ("step", "exp_avg", "exp_avg_sq"))
+    finite = all(np.isfinite(h).all() for h in history) and all(
+        bool(torch.isfinite(lp["result"].ligand.x).all()) for lp in loops)
+    seconds = [lp["seconds"] for lp in loops]
+    log(f"[cli] {CLI_LOOPS} loops x {N_SAMPLES} ligands at T={timesteps}, "
+        f"SPSA + ATP + AdjustNet: seconds per loop "
+        f"{[round(x, 3) for x in seconds]}, "
+        f"{N_SAMPLES * len(loops) / sum(seconds):.3f} ligands/s; RL update "
+        f"ms {[round(x, 2) for x in updates]} (stacks "
+        f"{list(loops[0]['result'].rl_traj[0].shape)}); (loss, grad norm, "
+        f"reward) {[tuple(round(v, 5) for v in h) for h in history]}; "
+        f"avg log-prob {[round(float(lp['result'].avg_log_prob), 5) for lp in loops]}; "
+        f"oracle {oracle.n_calls} calls, {oracle.n_scored} molecules, "
+        f"{oracle.seconds:.3f} s = {oracle.seconds / sum(seconds):.3f} of "
+        f"the wall time, invalid rate {oracle.invalid_rate:.3f}; sizes of "
+        f"the surviving rows "
+        f"{sorted(int(v) for v in loops[0]['result'].ligand.mask.sum(1))}"
+        f" (the built-in size prior); launches per loop "
+        f"{[lp['launches'] for lp in loops]} (expected {want}: "
+        f"{model.cfg.egnn.n_layers} x {forwards} forwards); {n_records} SDF records of {n_kept} "
+        f"sanitized molecules; AdjustNet changed between loops: {changed}; "
+        f"checkpoint reloads bit for bit: {bit_exact}")
+    if any(lp["launches"] != want for lp in loops) or len(loops) != CLI_LOOPS:
+        raise AssertionError(f"cli launch counts "
+                             f"{[lp['launches'] for lp in loops]} != {want}")
+    if not (finite and len(history) == CLI_LOOPS and len(updates) == CLI_LOOPS
+            and n_records == n_kept > 0):
+        raise AssertionError("cli outputs are incomplete or not finite")
+    if not (changed and bit_exact):
+        raise AssertionError("the AdjustNet was not trained or does not "
+                             "reload from its checkpoint")
+
+    checks = {}
+    for label, calls in captured.values():
+        for wrapper in ("gcl_messages", "edge_vector_reduce_pair"):
+            mine = [c for c in calls if c[0] == wrapper]
+            if len(mine) != n_layers:
+                raise AssertionError(f"[cli] {len(mine)} {wrapper} calls of "
+                                     f"a {label} forward captured, expected "
+                                     f"{n_layers}")
+            res = check_calls(torch, K, wrapper, mine,
+                              reps=100 if label == "main step" else 20)
+            checks.setdefault(WRAPPERS[wrapper], {})[label] = res
+            log(f"[kernels] cli {label} {wrapper} {res['shape']} "
+                f"({len(mine)} calls checked, atol {KERNEL_ATOL} + rtol "
+                f"{KERNEL_RTOL}): {describe(res)}")
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -1013,6 +1236,10 @@ def main() -> int:
     oracle_phase(guided, population)
     quality_phase(torch, ds, {"unguided": model, "guided": guided})
     step_phase(torch, K, model, pockets[0], sizes[0])
+    del guided
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, cli_checks = cli_phase(torch, K, ds, tmp)
+    guided_path_check(torch, make_model, ds[POCKETS[0]], adjust=True)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -1024,6 +1251,10 @@ def main() -> int:
                   entry=results[name]["entry"],
                   shape=results[name]["shape"],
                   guided_launches=guided_launches[name],
+                  cli_launches=cli_launches[name],
+                  cli={label: {k: res[k] for k in (
+                      "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by")} for label, res in cli_checks[name].items()},
                   fanout={k: fanout[name][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "blocks", "rows_per_block")})

@@ -2,8 +2,8 @@
 
 The same field names and defaults as the JAX package's ``config.py`` for
 what this package runs: the EGNN denoiser, the diffusion schedule, the
-model's feature sizes, and sampling with or without SPSA / ATP
-guidance.  Reference-style YAML files (``configs/*.yml``, a checkpoint's
+model's feature sizes, sampling with or without SPSA / ATP guidance and
+the RL noise adjustment, and the output filters.  Reference-style YAML files (``configs/*.yml``, a checkpoint's
 ``hparams.yaml``) are read by a small
 parser for the subset of YAML those files use, so the package needs no
 YAML library.
@@ -118,11 +118,34 @@ class ATPConfig:
 
 
 @dataclass(frozen=True)
+class RLConfig:
+    """AdjustNet, the RL noise-adjustment policy, and its REINFORCE
+    update."""
+    enabled: bool = False          # add the adjustment to eps
+    train: bool = False            # REINFORCE update after sampling
+    input_dim: int = 13            # 3 coordinates + atom_nf
+    hidden_dim: int = 128
+    lr: float = 1e-3
+    reward_scale: float = 0.1      # REINFORCE loss scale
+    # final reward: mean over the batch of 6*QED + 2*SA + Lipinski/5
+    w_qed: float = 6.0
+    w_sa: float = 2.0
+    w_lipinski: float = 0.2
+
+
+@dataclass(frozen=True)
 class SampleConfig:
-    """Sampling settings: guidance, the noise temperature of the reverse
-    steps (1.0 = the model's own) and the padding buckets."""
+    """Sampling settings: guidance, the RL adjustment, the output filters,
+    the noise temperature of the reverse steps (1.0 = the model's own) and
+    the padding buckets."""
+    n_samples: int = 20
+    timesteps: Optional[int] = None  # default: diffusion.timesteps
     spsa: SPSAConfig = field(default_factory=SPSAConfig)
     atp: ATPConfig = field(default_factory=ATPConfig)
+    rl: RLConfig = field(default_factory=RLConfig)
+    sanitize: bool = False
+    relax_iter: int = 0
+    largest_frag: bool = False
     noise_scale: float = 1.0
     lig_pad_multiple: int = 8
     pocket_pad_multiple: int = 64

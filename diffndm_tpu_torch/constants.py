@@ -3,7 +3,8 @@
 A self-contained copy of the subset of the JAX package's ``constants.py``
 that bond perception, molecule building and the full-atom pocket encoding
 read: bond-length tables (pm), OpenBabel covalent radii and bond caps,
-allowed valences, masses and the 11-type atom decoder.
+allowed valences, masses, the 11-type atom decoder and the standard amino
+acids that pocket extraction from a PDB file keeps.
 """
 
 from __future__ import annotations
@@ -87,6 +88,15 @@ ATOMIC_NUMBER = {
     "P": 15, "S": 16, "Cl": 17, "As": 33, "Br": 35, "I": 53, "Hg": 80,
     "Bi": 83,
 }
+
+
+AA_3TO1 = {
+    "ALA": "A", "ARG": "R", "ASN": "N", "ASP": "D", "CYS": "C", "GLN": "Q",
+    "GLU": "E", "GLY": "G", "HIS": "H", "ILE": "I", "LEU": "L", "LYS": "K",
+    "MET": "M", "PHE": "F", "PRO": "P", "SER": "S", "THR": "T", "TRP": "W",
+    "TYR": "Y", "VAL": "V",
+}
+STANDARD_AA = set(AA_3TO1)
 
 
 def _sym_table(pairs: dict, decoder: list) -> np.ndarray:

@@ -84,25 +84,39 @@ class CondDiffusion:
     # -- one reverse step t -> s ----------------------------------------------
     def sample_p_zs_given_zt(self, s_norm, t_norm, z_lig, xh_pocket,
                              lig_mask, pocket_mask, eps_fn: EpsFn,
-                             noise=None, generator=None,
+                             adjust_fn=None, noise=None, generator=None,
                              noise_scale: float = 1.0):
         """s_norm, t_norm: normalised times [B]; the gamma lookup rounds
         t*T.  noise_scale scales the injected noise only (the posterior
-        mean stays exact).  Returns (z_s, xh_pocket)."""
+        mean stays exact).
+
+        adjust_fn: an optional policy z_t -> adjustment, added to the
+        denoiser's eps (the AdjustNet); its log-prob proxy is
+        -0.5 * mean((adjustment - eps)^2) over the whole padded batch.
+
+        Returns (z_s, xh_pocket, log_prob, eps): log_prob is a 0-d tensor
+        (the float 0.0 without adjust_fn, which costs the step no device
+        work) and eps the denoiser's, before adjustment."""
         gamma_s = self.schedule(s_norm)
         gamma_t = self.schedule(t_norm)
         sig2_ts, sig_ts, alpha_ts = S.sigma_and_alpha_t_given_s(
             gamma_t, gamma_s)
         sigma_s, sigma_t = S.sigma(gamma_s), S.sigma(gamma_t)
 
-        eps_lig, _ = eps_fn(z_lig, xh_pocket, t_norm, lig_mask, pocket_mask)
+        eps_pre, _ = eps_fn(z_lig, xh_pocket, t_norm, lig_mask, pocket_mask)
+        eps_lig, log_prob = eps_pre, 0.0
+        if adjust_fn is not None:
+            adjustment = adjust_fn(z_lig)
+            log_prob = -0.5 * ((adjustment - eps_pre) ** 2).mean()
+            eps_lig = eps_pre + adjustment
         mu = (z_lig / _b11(alpha_ts)
               - _b11(sig2_ts / alpha_ts / sigma_t) * eps_lig)
         sigma = sig_ts * sigma_s / sigma_t
         if noise_scale != 1.0:
             sigma = sigma * noise_scale
-        return self.sample_normal_zero_com(mu, xh_pocket, sigma, lig_mask,
-                                           pocket_mask, noise, generator)
+        z_s, xh_pocket = self.sample_normal_zero_com(
+            mu, xh_pocket, sigma, lig_mask, pocket_mask, noise, generator)
+        return z_s, xh_pocket, log_prob, eps_pre
 
     # -- x0 prediction ----------------------------------------------------------
     def xh_given_zt_and_epsilon(self, z_t, eps, gamma_t):

@@ -2,7 +2,12 @@
 denoiser forward each, then the final decode.  With guidance enabled a
 step may be followed by an ATP prune, an SPSA update and (once) the hybrid
 branch ensemble, in that order; each is decided by plain ``if``s on the
-integer step index."""
+integer step index.
+
+RL: with an AdjustNet (``adjust``) its output is added to eps at every
+reverse step (and at the prunes' branch steps); with ``collect_rl`` the
+loop also stacks each step's (z_t, eps) for the REINFORCE update
+``rl_update`` makes after decoding."""
 
 from __future__ import annotations
 
@@ -24,10 +29,17 @@ from diffndm_tpu_torch.structs import NodeBatch, pad_to
 class SampleResult(NamedTuple):
     """ATP selection can replicate a candidate across batch rows and drop
     another, so the masks are those of the rows that survived and
-    ``row_src`` [B] names the input row each output row descends from."""
+    ``row_src`` [B] names the input row each output row descends from.
+    ``avg_log_prob`` is the mean over the T main steps of the adjustment's
+    log-prob proxy (0 without one); ``rl_traj`` the (z_t, eps) stacks
+    [T, B, NL, F] of the main steps, z_t before the step and its prunes,
+    eps before adjustment, in step order T-1 .. 0 (None unless
+    collected)."""
     ligand: NodeBatch       # decoded ligand, in the original pocket frame
     pocket: NodeBatch       # pocket, shifted back to the original frame
     row_src: torch.Tensor
+    avg_log_prob: torch.Tensor
+    rl_traj: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 class SamplerNoise(NamedTuple):
@@ -76,7 +88,7 @@ class ConditionalSampler:
     def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
                  cfg: SampleConfig, oracle: Optional[RewardOracle] = None):
         """oracle: the reward oracle; needed when ``cfg`` enables
-        guidance."""
+        guidance, and by ``rl_update``."""
         if (cfg.spsa.enabled or cfg.atp.enabled) and oracle is None:
             raise ValueError("guided sampling needs a reward oracle")
         self.core = core
@@ -99,16 +111,20 @@ class ConditionalSampler:
     def sample_given_pocket(self, pocket: NodeBatch, num_nodes_lig,
                             timesteps: Optional[int] = None,
                             generator: Optional[torch.Generator] = None,
-                            noise: Optional[SamplerNoise] = None
-                            ) -> SampleResult:
+                            noise: Optional[SamplerNoise] = None,
+                            adjust=None,
+                            collect_rl: bool = False) -> SampleResult:
         """Generate ligands for a padded, batched pocket, guided as the
         sampler's config says.
 
         num_nodes_lig: [B] ligand sizes.  timesteps: reverse steps (default
-        the schedule's T; fewer steps read the T-step table at round(t*T)).
-        generator draws the noise unless ``noise`` fixes it."""
+        the config's ``timesteps``, else the schedule's T; fewer steps read
+        the T-step table at round(t*T)).  generator draws the noise unless
+        ``noise`` fixes it.  adjust: the AdjustNet (any z -> adjustment
+        callable), applied at every step when given; collect_rl: keep the
+        stacks ``rl_update`` needs."""
         core = self.core
-        timesteps = timesteps or core.schedule.timesteps
+        timesteps = timesteps or self.cfg.timesteps or core.schedule.timesteps
         device = pocket.x.device
         b = pocket.x.shape[0]
         lig_mask = self.ligand_mask(num_nodes_lig, device)
@@ -136,21 +152,31 @@ class ConditionalSampler:
         events = guidance_events(cfg, timesteps)
         pocket_mask0 = pocket_mask
         row_src = torch.arange(b, device=device)
+        lp_sum = z_lig.new_zeros(())
+        traj = ((z_lig.new_empty((timesteps,) + z_lig.shape),
+                 z_lig.new_empty((timesteps,) + z_lig.shape))
+                if collect_rl else None)
 
         for s in range(timesteps - 1, -1, -1):
             s_norm = torch.full((b,), float(s), device=device) / timesteps
             t_norm = torch.full((b,), float(s + 1), device=device) / timesteps
-            z_lig, xh_pocket = core.sample_p_zs_given_zt(
+            if collect_rl:
+                traj[0][timesteps - 1 - s] = z_lig
+            z_lig, xh_pocket, lp, eps = core.sample_p_zs_given_zt(
                 s_norm, t_norm, z_lig, xh_pocket, lig_mask, pocket_mask,
-                self._eps, noise=fixed("steps", s),
+                self._eps, adjust_fn=adjust, noise=fixed("steps", s),
                 generator=generator, noise_scale=cfg.noise_scale)
+            if adjust is not None:
+                lp_sum += lp
+            if collect_rl:
+                traj[1][timesteps - 1 - s] = eps
 
             if s in events["atp"]:
                 z_lig, xh_pocket, lig_mask, pocket_mask, sel = atp_prune(
                     core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
                     pocket_mask, s_norm, t_norm, s, cfg.atp,
-                    noise=fixed("atp", s),
-                    generator=generator, noise_scale=cfg.noise_scale)
+                    noise=fixed("atp", s), generator=generator,
+                    noise_scale=cfg.noise_scale, adjust_fn=adjust)
                 row_src = row_src[sel % b]
 
             if s in events["spsa"]:
@@ -169,7 +195,8 @@ class ConditionalSampler:
                         core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
                         pocket_mask, s_norm, t_norm, s, cfg.atp, cfg.spsa,
                         zeta, noise=branch, spsa_noise=probes,
-                        generator=generator, noise_scale=cfg.noise_scale)
+                        generator=generator, noise_scale=cfg.noise_scale,
+                        adjust_fn=adjust)
                     row_src = row_src[sel % b]
 
         x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
@@ -189,4 +216,24 @@ class ConditionalSampler:
         return SampleResult(ligand=NodeBatch(x_lig, h_lig, lig_mask),
                             pocket=NodeBatch(x_pocket, h_pocket,
                                              pocket_mask),
-                            row_src=row_src)
+                            row_src=row_src,
+                            avg_log_prob=lp_sum / max(timesteps, 1),
+                            rl_traj=traj)
+
+    def rl_update(self, adjust_state, result: SampleResult):
+        """The REINFORCE update of the AdjustNet after a generation with
+        ``collect_rl``: the reward is the batch mean of the RL profile on
+        the decoded ligands; the stacks are masked by the final ligand
+        masks.  Returns (loss, grad_norm, reward)."""
+        if result.rl_traj is None:
+            raise ValueError("rl_update needs a result sampled with "
+                             "collect_rl=True")
+        if self.oracle is None:
+            raise ValueError("rl_update needs a reward oracle")
+        cfg = self.cfg.rl
+        lig = result.ligand
+        reward = self.oracle.rl_reward_host(lig.x, lig.h, lig.mask, cfg)
+        z_stack, eps_stack = result.rl_traj
+        loss, grad_norm = adjust_state.reinforce(
+            z_stack, eps_stack, lig.mask, reward, cfg.reward_scale)
+        return loss, grad_norm, reward

@@ -16,7 +16,8 @@ At a prune step s (after the s-step update):
 Candidates live on a leading group axis, flattened G-major to [G*B, ...].
 The G-1 branches run as one denoiser forward of (G-1)*B rows and the G
 lookaheads as one of G*B rows: row by row the same arithmetic as one
-forward per group, in fewer launches.
+forward per group, in fewer launches.  An RL adjustment (``adjust_fn``)
+applies to the branch steps, not to the lookaheads or the SPSA probes.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ def gather_selected(sel_idx, z_flat, xh_flat, lig_mask, pocket_mask,
 
 
 def _branches(core, eps_fn, z_lig, xh_pocket, lig_mask, pocket_mask, s_norm,
-              t_norm, n: int, noise, generator, noise_scale):
+              t_norm, n: int, noise, generator, noise_scale, adjust_fn):
     """n fresh (s, t) transitions of the same state, as one forward of n*B
     rows.  noise: [n, B, NL, 3+F] or None.  Returns [n, B, ...] stacks."""
     b = z_lig.shape[0]
@@ -92,11 +93,11 @@ def _branches(core, eps_fn, z_lig, xh_pocket, lig_mask, pocket_mask, s_norm,
                 xh_pocket.new_empty((0,) + xh_pocket.shape))
     if noise is not None:
         noise = noise.reshape((n * b,) + tuple(noise.shape[2:]))
-    z, xh = core.sample_p_zs_given_zt(
+    z, xh, _, _ = core.sample_p_zs_given_zt(
         s_norm.repeat(n), t_norm.repeat(n), z_lig.repeat(n, 1, 1),
         xh_pocket.repeat(n, 1, 1), lig_mask.repeat(n, 1),
-        pocket_mask.repeat(n, 1), eps_fn, noise=noise, generator=generator,
-        noise_scale=noise_scale)
+        pocket_mask.repeat(n, 1), eps_fn, adjust_fn=adjust_fn, noise=noise,
+        generator=generator, noise_scale=noise_scale)
     return z.reshape((n, b) + z.shape[1:]), xh.reshape((n, b) + xh.shape[1:])
 
 
@@ -131,15 +132,16 @@ def atp_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle, z_lig,
               xh_pocket, lig_mask, pocket_mask, s_norm, t_norm, s_step: int,
               cfg: ATPConfig, noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              noise_scale: float = 1.0):
+              noise_scale: float = 1.0, adjust_fn=None):
     """One pruning event.  z_lig: [B, NL, D]; s_norm, t_norm: [B]; noise:
     the branches' step noise [G-1, B, NL, D], else drawn from
-    ``generator``.  Returns (z_lig, xh_pocket, lig_mask, pocket_mask,
+    ``generator``; adjust_fn: the RL adjustment of the branch steps.
+    Returns (z_lig, xh_pocket, lig_mask, pocket_mask,
     sel_idx): the masks replace the caller's, and sel_idx % B is each
     output row's origin row."""
     zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
                         pocket_mask, s_norm, t_norm, cfg.num_groups - 1,
-                        noise, generator, noise_scale)
+                        noise, generator, noise_scale, adjust_fn)
     return _score_and_select(
         core, eps_fn, oracle, torch.cat([z_lig[None], zb]),
         torch.cat([xh_pocket[None], xhb]), lig_mask, pocket_mask, t_norm,
@@ -153,16 +155,17 @@ def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
                       noise: Optional[torch.Tensor] = None,
                       spsa_noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      noise_scale: float = 1.0):
+                      noise_scale: float = 1.0, adjust_fn=None):
     """The one-off hybrid event at s == spsa.start_step: G-1 extra branches
     are sampled, each gets its own SPSA update, then the G-group ensemble
     is scored and pruned like ``atp_prune``.  Branches with index >= 2 use
     zeta = zeta0, not ``zeta`` (the reference implementation's multi-scale
-    quirk).  noise: [G-1, B, NL, D]; spsa_noise: [G-1, k, B, NL, 3]."""
+    quirk).  noise: [G-1, B, NL, D]; spsa_noise: [G-1, k, B, NL, 3];
+    adjust_fn: the RL adjustment of the branch steps."""
     g_extra = atp_cfg.num_groups - 1
     zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
                         pocket_mask, s_norm, t_norm, g_extra, noise,
-                        generator, noise_scale)
+                        generator, noise_scale, adjust_fn)
     updated = [spsa_update(
         core, eps_fn, oracle, zb[i], xhb[i], lig_mask, pocket_mask, t_norm,
         spsa_cfg.zeta0 if i >= 2 else zeta, spsa_cfg,

@@ -7,6 +7,7 @@ population.  Reward profiles:
 - SPSA: 2*QED + 3*SA + Lipinski/5
 - SVDD: 2*QED + 2*SA + sigmoid(k(logp-lo)) * sigmoid(-k(logp-hi))
         + Lipinski/5
+- RL (the batch mean): 6*QED + 2*SA + Lipinski/5
 
 Invalid molecules score 0 in every term.  The scorer is an explicit
 choice: ``"native"`` (one C++ call per batch, ``chem/native.py``) or
@@ -146,3 +147,13 @@ class RewardOracle:
         return self.rewards(coords, h, mask, (
             cfg.w_qed, cfg.w_sa, cfg.w_lipinski, cfg.logp_k, cfg.logp_lo,
             cfg.logp_hi, cfg.w_vina, cfg.w_connectivity))
+
+    def rl_reward_host(self, coords, h, mask, cfg) -> float:
+        """The REINFORCE reward: the batch mean of the RL profile
+        (``RLConfig`` weights, no LogP window).  coords [B, N, 3], h
+        [B, N, F], mask [B, N], numpy arrays or tensors on any device."""
+        host = [a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                else np.asarray(a) for a in (coords, h, mask)]
+        r = self.score_batch_types(host[0], host[1].argmax(-1), host[2], (
+            cfg.w_qed, cfg.w_sa, cfg.w_lipinski, 0.0, 0.0, 0.0))
+        return float(np.mean(r))

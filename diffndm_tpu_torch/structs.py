@@ -64,3 +64,22 @@ def to_lists(batch: NodeBatch):
     mask = batch.mask.detach().cpu().numpy() > 0.5
     return [(x[i][mask[i]], h[i][mask[i]].argmax(axis=-1))
             for i in range(x.shape[0])]
+
+
+def pad_nodes(batch: NodeBatch, n_target: int) -> NodeBatch:
+    """Grow the node axis to n_target with zero padding."""
+    n = batch.x.shape[1]
+    if n >= n_target:
+        return batch
+    grow = n_target - n
+    return NodeBatch(torch.nn.functional.pad(batch.x, (0, 0, 0, grow)),
+                     torch.nn.functional.pad(batch.h, (0, 0, 0, grow)),
+                     torch.nn.functional.pad(batch.mask, (0, grow)))
+
+
+def concat_batches(batches) -> NodeBatch:
+    """Concatenate NodeBatches along the sample axis, the node axis padded
+    to the largest (several pockets in one batch)."""
+    n_max = max(b.x.shape[1] for b in batches)
+    padded = [pad_nodes(b, n_max) for b in batches]
+    return NodeBatch(*(torch.cat([b[i] for b in padded]) for i in range(3)))

@@ -6,6 +6,10 @@
   exactly once, from a nested or a flat tree alike.
 - The port's YAML reader and ``model_config_from_yaml`` agree with the
   JAX package's (PyYAML-based) ones on every committed config.
+- A state dict under the reference implementation's names (made from
+  the committed weights by the JAX package's ``export_state_dict``), as
+  a raw dict and as a Lightning ``.ckpt``, loads into the port equal to
+  ``params_from_jax`` of the committed tree.
 """
 
 import dataclasses
@@ -22,9 +26,13 @@ import jax.numpy as jnp  # noqa: E402
 import yaml  # noqa: E402
 
 from diffndm_tpu import config as jcfg  # noqa: E402
+from diffndm_tpu import convert as jconvert  # noqa: E402
 from diffndm_tpu.models.dynamics import EGNNDynamics as JaxDynamics  # noqa: E402
 from diffndm_tpu_torch import config as tcfg  # noqa: E402
-from diffndm_tpu_torch.convert import flatten_tree, params_from_jax  # noqa: E402
+from diffndm_tpu_torch.convert import (convert_state_dict,  # noqa: E402
+                                       flatten_tree,
+                                       load_reference_checkpoint,
+                                       params_from_jax)
 from diffndm_tpu_torch.models.dynamics import EGNNDynamics  # noqa: E402
 
 RUN = "examples/checkpoints/virtual_cond_v3b"
@@ -124,7 +132,7 @@ def test_yaml_reader_and_model_config_match(path):
             getattr(ref.diffusion, f.name), f.name
 
 
-@pytest.mark.parametrize("name", ["SPSAConfig", "ATPConfig"])
+@pytest.mark.parametrize("name", ["SPSAConfig", "ATPConfig", "RLConfig"])
 def test_guidance_config_defaults_equal_jax(name):
     """Field by field: the same names, in the same order, with the same
     defaults, so that a default changed on one side is caught."""
@@ -137,14 +145,19 @@ def test_guidance_config_defaults_equal_jax(name):
 
 
 def test_sample_config_fields_equal_jax_where_ported():
-    """The port's SampleConfig is the subset of the JAX one that guided
-    and unguided sampling read; the TPU kernel banding knob, the RL,
-    inpainting and output-filter fields are not ported."""
+    """The port's SampleConfig is the subset of the JAX one that
+    sampling, guidance, the RL adjustment and the output filters read;
+    the TPU kernel banding knob and the inpainting fields are not
+    ported."""
     ref = {f.name: f for f in dataclasses.fields(jcfg.SampleConfig)}
     ours = dataclasses.fields(tcfg.SampleConfig)
-    assert [f.name for f in ours] == ["spsa", "atp", "noise_scale",
+    assert [f.name for f in ours] == ["n_samples", "timesteps", "spsa",
+                                      "atp", "rl", "sanitize", "relax_iter",
+                                      "largest_frag", "noise_scale",
                                       "lig_pad_multiple",
                                       "pocket_pad_multiple"]
+    assert [f.name for f in ours] == [n for n in ref if n in
+                                      {f.name for f in ours}]
     made, made_ref = tcfg.SampleConfig(), jcfg.SampleConfig()
     for f in ours:
         assert f.name in ref
@@ -154,3 +167,47 @@ def test_sample_config_fields_equal_jax_where_ported():
         else:
             assert getattr(made, f.name) == getattr(made_ref, f.name)
     assert not made.spsa.enabled and not made.atp.enabled
+    assert not made.rl.enabled and not made.rl.train
+
+
+def nested(flat):
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *head, leaf = k.split("/")
+        for p in head:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def test_reference_state_dict_loads_equal_to_params_from_jax(tmp_path):
+    from diffndm_tpu_torch.model import DiffNDM
+
+    mcfg = tcfg.model_config_from_yaml(
+        tcfg.load_yaml(os.path.join(RUN, "hparams.yaml")))
+    jmcfg = jcfg.model_config_from_yaml(
+        jcfg.load_yaml(os.path.join(RUN, "hparams.yaml")))
+    with np.load(NPZ) as f:
+        tree = nested({k: f[k] for k in f.files})
+    sd = jconvert.export_state_dict(tree, jmcfg)
+    assert any(k.endswith("edge_mlp.0.weight") for k in sd)
+    # the same flax-shaped tree as the JAX package's converter builds
+    ours = flatten_tree(convert_state_dict(sd, mcfg))
+    ref = jax_flat(jconvert.convert_state_dict(sd, jmcfg))
+    assert sorted(ours) == sorted(ref) == sorted(flatten_tree(tree))
+    for k, v in ref.items():
+        np.testing.assert_array_equal(ours[k], v, err_msg=k)
+    want = params_from_jax(tree)
+    # a Lightning checkpoint: 'ddpm.' prefixes, other entries beside
+    path = str(tmp_path / "reference.ckpt")
+    torch.save({"state_dict": {f"ddpm.{k}": torch.from_numpy(
+        np.ascontiguousarray(v)) for k, v in sd.items()},
+        "epoch": 3}, path)
+    got = load_reference_checkpoint(path, mcfg)
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    model = DiffNDM(mcfg, device="cpu")
+    model.load_reference_checkpoint(path)
+    state = model.dynamics.state_dict()
+    assert all(torch.equal(state[k], want[k]) for k in want)

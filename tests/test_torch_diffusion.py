@@ -127,11 +127,39 @@ def test_sample_p_zs_given_zt_with_jax_noise(state):
         key, jnp.asarray(s), jnp.asarray(t), state["z"], state["xh_p"],
         state["lm"], state["pm"], eps_fn_factory(jnp))
     noise = jax.random.normal(key, state["z"].shape, jnp.float32)
-    tz_s, txh_p = state["tc"].sample_p_zs_given_zt(
+    tz_s, txh_p, _, _ = state["tc"].sample_p_zs_given_zt(
         T(s), T(t), T(state["z"]), T(state["xh_p"]), T(state["lm"]),
         T(state["pm"]), eps_fn_factory(torch), noise=T(noise))
     close(tz_s, z_s)
     close(txh_p, xh_p)
+
+
+def test_sample_p_zs_given_zt_with_adjustment(state):
+    """An adjustment added to eps: the step, its log-prob proxy over the
+    whole padded batch (the adjustment has a bias, as the AdjustNet has,
+    so padding rows count) and the eps before adjustment, as JAX returns
+    them; without one the proxy is 0 and eps is the denoiser's."""
+    key = jax.random.PRNGKey(6)
+    s = np.full((B,), 41 / 500, np.float32)
+    t = np.full((B,), 42 / 500, np.float32)
+    w = np.random.default_rng(3).normal(
+        size=(state["z"].shape[-1],) * 2).astype(np.float32) * 0.3
+    z_s, xh_p, lp, eps = state["jc"].sample_p_zs_given_zt(
+        key, jnp.asarray(s), jnp.asarray(t), state["z"], state["xh_p"],
+        state["lm"], state["pm"], eps_fn_factory(jnp),
+        adjust_fn=lambda z: jnp.sin(z @ jnp.asarray(w)) + 0.1)
+    noise = jax.random.normal(key, state["z"].shape, jnp.float32)
+    tz_s, txh_p, tlp, teps = state["tc"].sample_p_zs_given_zt(
+        T(s), T(t), T(state["z"]), T(state["xh_p"]), T(state["lm"]),
+        T(state["pm"]), eps_fn_factory(torch), noise=T(noise),
+        adjust_fn=lambda z: torch.sin(z @ T(w)) + 0.1)
+    for out, ref in ((tz_s, z_s), (txh_p, xh_p), (tlp, lp), (teps, eps)):
+        close(out, ref)
+    assert float(tlp) < 0
+    _, _, lp0, eps0 = state["tc"].sample_p_zs_given_zt(
+        T(s), T(t), T(state["z"]), T(state["xh_p"]), T(state["lm"]),
+        T(state["pm"]), eps_fn_factory(torch), noise=T(noise))
+    assert float(lp0) == 0.0 and torch.equal(eps0, teps)
 
 
 def test_to_x0(state):
@@ -153,7 +181,7 @@ def test_sample_p_zs_given_zt_noise_scale(state):
         key, jnp.asarray(s), jnp.asarray(t), state["z"], state["xh_p"],
         state["lm"], state["pm"], eps_fn_factory(jnp), noise_scale=0.7)
     noise = jax.random.normal(key, state["z"].shape, jnp.float32)
-    tz_s, txh_p = state["tc"].sample_p_zs_given_zt(
+    tz_s, txh_p, _, _ = state["tc"].sample_p_zs_given_zt(
         T(s), T(t), T(state["z"]), T(state["xh_p"]), T(state["lm"]),
         T(state["pm"]), eps_fn_factory(torch), noise=T(noise),
         noise_scale=0.7)

@@ -52,7 +52,9 @@ def test_sources_found():
     for module in ("chem/sanitize.py", "chem/descriptors.py",
                    "chem/morgan.py", "chem/properties.py", "chem/metrics.py",
                    "chem/native.py", "guidance/oracle.py",
-                   "guidance/spsa.py", "guidance/atp.py"):
+                   "guidance/spsa.py", "guidance/atp.py", "data/pdb.py",
+                   "data/pocket.py", "data/dataset.py", "cli/generate.py",
+                   "models/adjust_net.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
@@ -97,6 +99,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DiffNDM.from_yaml("configs/virtual_cond_v3b.yml")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -8,6 +8,12 @@ Ten to thirty fp32 denoiser forwards whose sums run in another order
 compound to well under 1e-3 A on the final coordinates (the stated
 tolerance); the argmax atom types, the masks and the rows selected by the
 prunes must be identical.
+
+Both kinds are replayed once more with the RL AdjustNet adjusting every
+step (``optimize``) and the REINFORCE stacks kept (``collect_rl``), the
+AdjustNet's weights carried over from a flax init: ``avg_log_prob``
+within rtol 1e-4; the (z_t, eps) stacks within 1e-4 of their largest
+magnitude, and each element within the coordinates' 1e-3.
 """
 
 import functools
@@ -26,10 +32,13 @@ from diffndm_tpu.constants import dataset_params  # noqa: E402
 from diffndm_tpu.diffusion import schedules as jS  # noqa: E402
 from diffndm_tpu.diffusion.core import CondDiffusion  # noqa: E402
 from diffndm_tpu.diffusion.sampler import ConditionalSampler  # noqa: E402
+from diffndm_tpu.models.adjust_net import \
+    AdjustNetState as JaxAdjust  # noqa: E402
 from diffndm_tpu.models.dynamics import EGNNDynamics  # noqa: E402
 from diffndm_tpu.structs import NodeBatch  # noqa: E402
 from diffndm_tpu_torch.config import (ATPConfig, SampleConfig,  # noqa: E402
                                       SPSAConfig)
+from diffndm_tpu_torch.convert import adjust_params_from_jax  # noqa: E402
 from diffndm_tpu_torch.data.dataset import \
     ProcessedLigandPocketDataset  # noqa: E402
 from diffndm_tpu_torch.diffusion.sampler import (SamplerNoise,  # noqa: E402
@@ -40,6 +49,8 @@ from diffndm_tpu_torch.model import DiffNDM  # noqa: E402
 RUN = "examples/checkpoints/virtual_cond_v3b"
 NPZ = "diffndm_tpu_torch/assets/virtual_cond_v3b_ema.npz"
 COORD_ATOL = 1e-3  # Angstrom
+RL_RTOL, RL_SCALE = 1e-4, 1e-4
+ADJUST_SCALE = 0.1
 STEPS, N_SAMPLES = 10, 4
 SIZES = np.array([10, 13, 9, 14])
 
@@ -92,18 +103,59 @@ def make_jax_sampler(sample_cfg):
         sample_cfg, dataset_params[mcfg.dataset])
 
 
-def test_trajectory_replay_matches_jax():
+def with_adjust(port, sampler, seed):
+    """The same AdjustNet on both sides: a flax init with the output layer
+    scaled by ADJUST_SCALE, adjustments of the size a policy that has
+    learned something makes (a fresh init adds O(1) to eps and drives a
+    12-step guided trajectory hundreds of A away).  Returns the JAX
+    keyword arguments of an adjusted, collected run."""
+    jstate = JaxAdjust(jcfg.RLConfig(), key=jax.random.PRNGKey(seed))
+    jstate.params = jax.tree_util.tree_map_with_path(
+        lambda path, v: v * ADJUST_SCALE if "fc2" in jax.tree_util.keystr(
+            path) else v, jstate.params)
+    port.ensure_adjust().module.load_state_dict(
+        adjust_params_from_jax(jax.device_get(jstate.params)))
+    sampler.adjust_module = jstate.module
+    return dict(adjust_params=jstate.params, optimize=True, collect_rl=True)
+
+
+def check_rl(out, ref, steps):
+    """avg_log_prob and the REINFORCE stacks against JAX's: each stack's
+    largest difference within RL_SCALE of its largest magnitude, and every
+    element within the coordinates' COORD_ATOL (an element of eps is a
+    denoiser output, which the forward amplifies like the coordinates)."""
+    assert out.rl_traj[0].shape == (steps,) + tuple(out.ligand.x.shape[:2]) \
+        + (out.rl_traj[0].shape[-1],)
+    for name, mine, theirs in zip(("z", "eps"), out.rl_traj, ref.rl_traj):
+        mine, theirs = mine.numpy(), np.asarray(theirs)
+        assert mine.shape == theirs.shape
+        err = float(np.abs(mine - theirs).max())
+        assert err <= RL_SCALE * float(np.abs(theirs).max()), (name, err)
+        np.testing.assert_allclose(mine, theirs, rtol=0, atol=COORD_ATOL)
+    lp = float(out.avg_log_prob)
+    assert lp < 0
+    np.testing.assert_allclose(lp, float(ref.avg_log_prob), rtol=RL_RTOL)
+
+
+@pytest.mark.parametrize("adjust", [False, True], ids=["plain", "adjust"])
+def test_trajectory_replay_matches_jax(adjust):
     port, pocket = make_port(SampleConfig(pocket_pad_multiple=16))
     mcfg, sampler = make_jax_sampler(jcfg.SampleConfig())
+    rl = with_adjust(port, sampler, seed=2) if adjust else {}
     key = jax.random.PRNGKey(7)
     ref = sampler.sample_given_pocket(
         key, NodeBatch(*(jnp.asarray(a.numpy()) for a in pocket)), SIZES,
-        timesteps=STEPS)
+        timesteps=STEPS, **rl)
 
     nl = ref.ligand.x.shape[1]
     noise = jax_noise(key, (N_SAMPLES, nl, 3 + mcfg.atom_nf), STEPS)
     out = port.sample_given_pocket(pocket, SIZES, timesteps=STEPS,
-                                   noise=noise)
+                                   noise=noise, optimize=adjust,
+                                   collect_rl=adjust)
+    if adjust:
+        check_rl(out, ref, STEPS)
+    else:
+        assert out.rl_traj is None and float(out.avg_log_prob) == 0.0
 
     mask = np.asarray(ref.ligand.mask)
     np.testing.assert_array_equal(out.ligand.mask.numpy(), mask)
@@ -171,13 +223,16 @@ def jax_guided_noise(key, cfg, shape, steps):
         hybrid=tuple(t(v) for v in hybrid))
 
 
-@pytest.mark.parametrize("seed", [7, 3])
-def test_guided_trajectory_replay_matches_jax(seed):
+@pytest.mark.parametrize("seed, adjust", [(7, False), (3, False),
+                                          (7, True)])
+def test_guided_trajectory_replay_matches_jax(seed, adjust):
     """ATP prunes at s = 10, 5, 0, SPSA updates at s = 6, 4, 2, 0 and the
     hybrid at s = 6, of 12 steps.  The rewards depend on perceived bonds,
     so a candidate on a perception threshold could fork the two sides;
     these seeds' trajectories have none (nor have seeds 1 and 2).  The
-    global top-B collapses the population onto one input row here."""
+    global top-B collapses the population onto one input row here.  With
+    ``adjust`` the AdjustNet adjusts the steps and the prunes' branch
+    steps."""
     cfg = SampleConfig(pocket_pad_multiple=16,
                        spsa=SPSAConfig(**GUIDED["spsa"]),
                        atp=ATPConfig(**GUIDED["atp"]))
@@ -187,10 +242,11 @@ def test_guided_trajectory_replay_matches_jax(seed):
     mcfg, sampler = make_jax_sampler(jcfg.SampleConfig(
         spsa=jcfg.SPSAConfig(**GUIDED["spsa"]),
         atp=jcfg.ATPConfig(**GUIDED["atp"])))
+    rl = with_adjust(port, sampler, seed=5) if adjust else {}
     key = jax.random.PRNGKey(seed)
     ref = sampler.sample_given_pocket(
         key, NodeBatch(*(jnp.asarray(a.numpy()) for a in pocket)), SIZES,
-        timesteps=G_STEPS)
+        timesteps=G_STEPS, **rl)
 
     nl = ref.ligand.x.shape[1]
     noise = jax_guided_noise(key, cfg, (N_SAMPLES, nl, 3 + mcfg.atom_nf),
@@ -199,10 +255,14 @@ def test_guided_trajectory_replay_matches_jax(seed):
     port.dynamics.register_forward_hook(
         lambda *a: forwards.append(1))
     out = port.sample_given_pocket(pocket, SIZES, timesteps=G_STEPS,
-                                   noise=noise)
+                                   noise=noise, optimize=adjust,
+                                   collect_rl=adjust)
 
+    # the AdjustNet adds no denoiser forward
     assert len(forwards) == count_forwards(cfg, G_STEPS) == 13 + 3 * 2 + 4 \
         + (2 + 3)
+    if adjust:
+        check_rl(out, ref, G_STEPS)
     mask = np.asarray(ref.ligand.mask)
     np.testing.assert_array_equal(out.ligand.mask.numpy(), mask)
     np.testing.assert_array_equal(out.pocket.mask.numpy(),
