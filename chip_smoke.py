@@ -46,14 +46,31 @@ Phases, each of which fails the run on any fault or mismatch:
    their plain versions on the calls of the run's first main-step forward
    and first fused SPSA forward (the PDB pocket's shapes); and a 12-step
    fixed-noise guided trajectory with the AdjustNet on the card against
-   the plain path on the CPU.
+   the plain path on the CPU;
+10. inpaint: a short fixed-noise guided inpainting (SPSA and two ATP
+   prunes fire) on the card against the plain path on the CPU; then the
+   port's inpaint CLI in-process on the same PDB and a fragment SDF made
+   by its fix_ligand CLI (T=60 x 10 resamplings, 10 added atoms, 16
+   samples, ATP): launch counts that follow from the config, the kernels
+   against their plain versions on the calls of the run's first forward,
+   the fixed atoms' geometry kept, seconds per batch and the host time of
+   the RePaint combine;
+11. inpaint-quality: the protocol of the JAX package's
+   scripts/inpaint_lift_eval.py (8 test pockets x 16, the first quarter of
+   each test ligand fixed, 10 atoms added, T=60 x 10, unguided then ATP,
+   whole molecules) beside that script's committed rows, with floors;
+12. optimize: the port's optimize CLI in-process (population 100, 100
+   noising steps, 2 generations, QED): launch counts, the kernels on the
+   calls of the first diversify forward, best and mean QED and seconds
+   per generation; and a 10-step fixed-noise diversify on the card
+   against the CPU.
 
 ``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes
 (both for work on the kernels).  ``--only quality`` runs phase 7 alone
 over five seeds and prints how far each metric moves with the random
-stream (what a change to the kernels' arithmetic has to exceed).  None of
-the three prints a result line.
+stream (what a change to the kernels' arithmetic has to exceed), then
+does the same for phase 11.  None of the three prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -105,6 +122,34 @@ GUIDED_CHECK = dict(spsa=dict(num_probes=2, start_step=6, every=2, zeta0=5.0),
 # the fresh AdjustNet's output layer to the size of a policy that has
 # learned something (a fresh one adds O(1) to eps at every step)
 CLI_POCKET, CLI_LOOPS, ADJUST_SCALE = 220, 2, 0.1
+# inpaint phases: the reference sweep's configuration (my_test_inpaint.py)
+# and the protocol and committed rows of the JAX package's
+# scripts/inpaint_lift_eval.py (a TPU run of the JAX package; quality, not
+# speed): examples/checkpoints/virtual_cond_v3b/inpaint_lift_tpu.json
+T_INPAINT, R_INPAINT, ADD_NODES, FRAG_FRACTION = 60, 10, 10, 0.25
+JAX_INPAINT_ROWS = {
+    "unguided": dict(valid=1.0, connectivity=0.644, qed=0.552, sa=0.669,
+                     logp=1.761),
+    "ATP": dict(valid=1.0, connectivity=0.553, qed=0.669, sa=0.792,
+                logp=2.928)}
+# floors: the JAX rows less about three standard errors at n = 128
+INPAINT_FLOORS = {"unguided": dict(valid=0.95, qed=0.50),
+                  "ATP": dict(valid=0.95, qed=0.60)}
+INPAINT_LIFT_FLOOR = 0.06
+# the fixed atoms' pairwise distances against the fragment's (the JAX
+# package's tests/test_inpaint.py::test_inpaint_basic)
+FIXED_GEOMETRY_ATOL = 1.5    # Angstrom
+# inpaint path check: T x R, and windows scaled so that one SPSA update
+# and two prunes fire
+T_INPAINT_CHECK, R_INPAINT_CHECK = 6, 3
+INPAINT_CHECK = dict(spsa=dict(num_probes=2, zeta0=5.0),
+                     atp=dict(num_groups=4),
+                     inpaint=dict(spsa_low=3, spsa_high=3,
+                                  spsa_zeta_denom=300.0, atp_start_step=2,
+                                  atp_every=2))
+# optimize phase (the JAX CLI's defaults but 2 generations) and the
+# diversify path check
+OPT_POPULATION, OPT_STEPS, OPT_GENERATIONS, T_DIVERSIFY_CHECK = 100, 100, 2, 10
 
 # published H100 SXM peaks (dense TF32 on the tensor cores, HBM3).  The
 # kernels split each product into three TF32 products; the bound counts
@@ -128,6 +173,8 @@ WRAPPERS = {"gcl_messages": "gcl_messages",
             "edge_vector_reduce": "edge_vector_reduce",
             "edge_vector_reduce_pair": "edge_vector_reduce"}
 SOURCE = "diffndm_tpu_torch/csrc/egnn_edge.cu"
+# what the kernel table keeps of a path's call check
+CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
 # of several rows with a ragged last block
 SWEEP_SHAPES = ((1, 7, 128), (3, 37, 192), (2, 50, 256), (24, 37, 128))
@@ -1147,6 +1194,420 @@ def cli_phase(torch, K, ds, tmp):
     return launches, checks
 
 
+def inpaint_batch(torch, model, pair, n_fixed, n_add, offsets):
+    """Per row b: the first n_fixed[b] atoms of the pair's ligand fixed and
+    n_add[b] atoms added, the whole input (ligand and pocket) translated
+    by offsets[b] (A).  Returns (ligand, lig_fixed, pocket) on the model's
+    device."""
+    from diffndm_tpu_torch.structs import NodeBatch, pad_to
+
+    b, nf = len(n_fixed), model.cfg.atom_nf
+    nl = pad_to(max(f + a for f, a in zip(n_fixed, n_add)),
+                model.sample_cfg.lig_pad_multiple)
+    x = np.zeros((b, nl, 3), np.float32)
+    h = np.zeros((b, nl, nf), np.float32)
+    mask = np.zeros((b, nl), np.float32)
+    fixed = np.zeros((b, nl), np.float32)
+    off = np.asarray(offsets, np.float32)
+    for i, (f, a) in enumerate(zip(n_fixed, n_add)):
+        x[i, :f] = pair.lig_coords[:f] + off[i]
+        h[i, :f] = pair.lig_one_hot[:f, :nf]
+        mask[i, :f + a] = 1.0
+        fixed[i, :f] = 1.0
+
+    def t(arr):
+        return torch.from_numpy(arr).to(model.device)
+
+    pocket = model.pocket_from_dataset(pair, b)
+    pocket = NodeBatch((pocket.x + t(off)[:, None]) * pocket.mask[..., None],
+                       pocket.h, pocket.mask)
+    return NodeBatch(t(x), t(h), t(mask)), t(fixed), pocket
+
+
+def inpaint_path_check(torch, make_model, pair):
+    """The same fixed-noise guided inpainting (an SPSA update and two
+    prunes fire) on the card and on the CPU.  The rows differ (fixed and
+    added atoms, a translation of the whole input per row), so that the
+    surviving rows show in the masks and a per-row quantity gathered
+    wrong shows in the coordinates."""
+    from diffndm_tpu_torch.config import (ATPConfig, InpaintConfig,
+                                          SampleConfig, SPSAConfig)
+    from diffndm_tpu_torch.diffusion.inpaint import (InpaintNoise,
+                                                     inpaint_events)
+
+    cfg = SampleConfig(pocket_pad_multiple=16,
+                       spsa=SPSAConfig(**INPAINT_CHECK["spsa"]),
+                       atp=ATPConfig(**INPAINT_CHECK["atp"]),
+                       inpaint=InpaintConfig(**INPAINT_CHECK["inpaint"]))
+    steps, res_n = T_INPAINT_CHECK, R_INPAINT_CHECK
+    events = inpaint_events(cfg, steps, True, True)
+    if events != dict(spsa=[3], atp=[2, 0]):
+        raise AssertionError(f"inpaint check events {events}")
+    q = max(int(len(pair.lig_coords) * FRAG_FRACTION), 1)
+    n_fixed = [q, max(q - 1, 1), q, max(q - 2, 1)]
+    n_add = [q + 4 + b - f for b, f in enumerate(n_fixed)]
+    offsets = [(0.0, 0.0, 0.0), (1.5, -0.5, 0.7), (-1.0, 2.0, 0.3),
+               (0.4, 0.4, -1.2)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = make_model(device, cfg)
+        ligand, fixed, pocket = inpaint_batch(torch, model, pair, n_fixed,
+                                              n_add, offsets)
+        shape = tuple(ligand.x.shape[:2]) + (3 + model.cfg.atom_nf,)
+        rng = np.random.default_rng(SEED + 3)
+
+        def normal(*shp):
+            return torch.from_numpy(rng.standard_normal(shp)
+                                    .astype(np.float32))
+
+        noise = InpaintNoise(
+            normal(*shape), normal(steps, res_n, *shape),
+            normal(steps, res_n, *shape), normal(steps, res_n - 1, *shape),
+            normal(*shape),
+            spsa={s: normal(cfg.spsa.num_probes, *shape[:2], 3)
+                  for s in events["spsa"]},
+            atp={s: normal(cfg.atp.num_groups - 1, *shape)
+                 for s in events["atp"]})
+        res = model.inpaint(ligand, fixed, pocket, timesteps=steps,
+                            resamplings=res_n, svdd=True, spsa=True,
+                            noise=noise)
+        out[device] = [v.cpu() for v in (res.ligand.x, res.ligand.h,
+                                         res.ligand.mask, res.row_src,
+                                         res.pocket.x)]
+    (xg, hg, mg, rg, pg), (xc, hc, mc, rc, pc) = out["cuda"], out["cpu"]
+    same_rows = bool(torch.equal(rg, rc) and torch.equal(mg, mc))
+    err = (float(max((xg - xc).abs().max(), (pg - pc).abs().max()))
+           if same_rows else float("inf"))
+    m = mc > 0.5
+    same_types = same_rows and bool(
+        torch.equal(hg.argmax(-1)[m], hc.argmax(-1)[m]))
+    log(f"[inpaint] path check, T={steps} x R={res_n} fixed noise, "
+        f"B={len(n_fixed)}, SPSA at s {events['spsa']}, prunes at s "
+        f"{events['atp']}: surviving rows cuda {rg.tolist()} cpu "
+        f"{rc.tolist()}; max |x_cuda - x_cpu| = {err:.3e} A (ligand and "
+        f"pocket, atol {PATH_COORD_ATOL}); atom types and masks identical: "
+        f"{same_types}")
+    if not (same_rows and same_types and err <= PATH_COORD_ATOL
+            and bool(torch.isfinite(xg).all())):
+        raise AssertionError("[inpaint]: the kernel path disagrees with the "
+                             "plain path")
+
+
+def v3b_layers():
+    from diffndm_tpu_torch.config import load_yaml, model_config_from_yaml
+
+    return model_config_from_yaml(load_yaml(os.path.join(
+        RUN, "hparams.yaml"))).egnn.n_layers
+
+
+def first_forward_recorder(K, n_layers):
+    """Wrapper replacements that record the calls of the first forward:
+    the first n_layers calls of each wrapper.  Returns (calls,
+    replacements, originals)."""
+    calls, originals = [], {n: getattr(K, n) for n in WRAPPERS}
+
+    def recorder(name):
+        def fn(*args, **kw):
+            if sum(c[0] == name for c in calls) < n_layers:
+                calls.append((name, args, kw))
+            return originals[name](*args, **kw)
+        return fn
+
+    return calls, {n: recorder(n) for n in WRAPPERS}, originals
+
+
+def check_first_forward(torch, K, label, calls, n_layers, reps):
+    checks = {}
+    for wrapper in ("gcl_messages", "edge_vector_reduce_pair"):
+        mine = [c for c in calls if c[0] == wrapper]
+        if len(mine) != n_layers:
+            raise AssertionError(f"[{label}] {len(mine)} {wrapper} calls of "
+                                 f"the first forward captured, expected "
+                                 f"{n_layers}")
+        res = check_calls(torch, K, wrapper, mine, reps=reps)
+        checks[WRAPPERS[wrapper]] = res
+        log(f"[kernels] {label} first forward {wrapper} {res['shape']} "
+            f"({len(mine)} calls checked, atol {KERNEL_ATOL} + rtol "
+            f"{KERNEL_RTOL}): {describe(res)}")
+    return checks
+
+
+def inpaint_cli_phase(torch, K, ds, tmp):
+    """The inpaint CLI in this process on a PDB file and a fragment SDF
+    made by the fix_ligand CLI.  Returns the launch counts of the run, the
+    kernels' checks on the calls of its first forward, and the paths of
+    the PDB file and of the ligand SDF."""
+    from diffndm_tpu_torch.chem.bonds import build_molecule
+    from diffndm_tpu_torch.chem.io import read_sdf, write_sdf
+    from diffndm_tpu_torch.cli import fix_ligand, inpaint
+    from diffndm_tpu_torch.config import SampleConfig
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.diffusion import inpaint as inpaint_module
+    from diffndm_tpu_torch.diffusion.inpaint import count_inpaint_forwards
+    from diffndm_tpu_torch.model import DiffNDM
+
+    info = dataset_params["crossdock_full"]
+    pair = ds[CLI_POCKET]
+    pdb, sdf = write_pocket_files(pair, info["atom_decoder"], tmp)
+    lig_dir = os.path.join(tmp, "ligands")
+    os.makedirs(lig_dir)
+    write_sdf(os.path.join(lig_dir, "ligand.sdf"), [build_molecule(
+        pair.lig_coords, pair.lig_one_hot.argmax(1), info)])
+    frag = fix_ligand.main([lig_dir, "--outdir", os.path.join(tmp, "frags"),
+                            "--fraction", str(FRAG_FRACTION)])[0]
+    frag_mol = read_sdf(frag)[0]
+    n_layers = v3b_layers()
+    calls, recorders, wrappers = first_forward_recorder(K, n_layers)
+    runs, combine_s = [], []
+    originals = (DiffNDM.inpaint, inpaint_module.repaint_combine)
+
+    def timed_inpaint(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = originals[0](self, *args, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(seconds=time.perf_counter() - t0, model=self))
+        return res
+
+    def timed_combine(*args, **kw):
+        t0 = time.perf_counter()
+        out = originals[1](*args, **kw)
+        combine_s.append(time.perf_counter() - t0)
+        return out
+
+    out_sdf = os.path.join(tmp, "inpaint.sdf")
+    argv = [WEIGHTS, "--config", os.path.join(RUN, "hparams.yaml"),
+            "--pdbfile", pdb, "--outfile", out_sdf, "--fix_atoms", frag,
+            "--add_n_nodes", str(ADD_NODES), "--n_samples", str(N_SAMPLES),
+            "--timesteps", str(T_INPAINT), "--resamplings", str(R_INPAINT),
+            "--svdd", "1", "--seed", str(SEED)]
+    log(f"[inpaint] python -m diffndm_tpu_torch.cli.inpaint "
+        f"{' '.join(argv)}")
+    DiffNDM.inpaint, inpaint_module.repaint_combine = (timed_inpaint,
+                                                       timed_combine)
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    K.reset_launches()
+    try:
+        res = inpaint.main(argv)
+    finally:
+        DiffNDM.inpaint, inpaint_module.repaint_combine = originals
+        for n, f in wrappers.items():
+            setattr(K, n, f)
+    launches = dict(K.LAUNCHES)
+    model = runs[0]["model"]
+    forwards = count_inpaint_forwards(SampleConfig(), T_INPAINT, R_INPAINT,
+                                      True, False)
+    want = {k: forwards * n_layers for k in KERNELS}
+
+    nfix = frag_mol.n_atoms
+    x = res.ligand.x.cpu().numpy()
+    d_frag = np.linalg.norm(frag_mol.coords[:, None] - frag_mol.coords[None],
+                            axis=-1)
+    d_out = np.linalg.norm(x[:, :nfix, None] - x[:, None, :nfix], axis=-1)
+    geometry = float(np.abs(d_out - d_frag[None]).max())
+    sizes = res.ligand.mask.sum(1).cpu().numpy()
+    n_records = open(out_sdf).read().count("$$$$")
+    seconds = runs[0]["seconds"]
+    iters = T_INPAINT * R_INPAINT
+    oracle = model.oracle
+    log(f"[inpaint] {N_SAMPLES} ligands, {nfix} fixed atoms of "
+        f"{pair.lig_coords.shape[0]} + {ADD_NODES} added, T={T_INPAINT} x "
+        f"R={R_INPAINT}, ATP G={model.sample_cfg.atp.num_groups}: "
+        f"{seconds:.3f} s per {N_SAMPLES}-ligand batch, "
+        f"{N_SAMPLES / seconds:.3f} ligands/s, "
+        f"{1e3 * seconds / iters:.3f} ms per (s, u) iteration of which the "
+        f"RePaint combine {1e3 * sum(combine_s) / iters:.3f} ms host time "
+        f"({sum(combine_s) / seconds:.3f} of the wall); oracle "
+        f"{oracle.n_calls} calls, {oracle.n_scored} molecules, "
+        f"{oracle.seconds:.3f} s; surviving rows from "
+        f"{len(set(res.row_src.tolist()))} input rows; max fixed-atom "
+        f"distance change {geometry:.3f} A (atol {FIXED_GEOMETRY_ATOL}); "
+        f"{n_records} SDF records; launches {launches} (expected {want}: "
+        f"{n_layers} x {forwards} forwards)")
+    if launches != want:
+        raise AssertionError(f"inpaint launch counts {launches} != {want}")
+    if not (bool(torch.isfinite(res.ligand.x).all()) and n_records ==
+            N_SAMPLES and len(combine_s) == iters and
+            np.all(sizes == nfix + ADD_NODES)):
+        raise AssertionError("inpaint outputs are incomplete or not finite")
+    if not geometry <= FIXED_GEOMETRY_ATOL:
+        raise AssertionError("the fixed atoms did not keep their geometry")
+    checks = check_first_forward(torch, K, "inpaint", calls, n_layers,
+                                 reps=100)
+    return launches, checks, (pdb, sdf)
+
+
+def inpaint_quality_rows(torch, ds, model, seed):
+    """One evaluation by the JAX package's inpaint-lift protocol: per mode
+    the summary row over whole molecules (sanitized = valid)."""
+    from diffndm_tpu_torch.chem.bonds import build_molecule
+    from diffndm_tpu_torch.chem.metrics import MoleculeProperties
+    from diffndm_tpu_torch.chem.sanitize import (SanitizeError,
+                                                 connectivity_fraction,
+                                                 sanitize)
+    from diffndm_tpu_torch.structs import to_lists
+
+    props = MoleculeProperties()
+    model.ensure_oracle()
+    picks = np.random.default_rng(0).choice(
+        len(ds), size=N_QUALITY_POCKETS, replace=False)
+    rows = {}
+    for label, svdd in (("unguided", False), ("ATP", True)):
+        g = torch.Generator(device=model.device).manual_seed(seed)
+        vals, conn, origins, t0 = [], [], [], time.perf_counter()
+        for pi in picks:
+            pair = ds[int(pi)]
+            q = max(int(len(pair.lig_coords) * FRAG_FRACTION), 1)
+            ligand, fixed, pocket = inpaint_batch(
+                torch, model, pair, [q] * N_SAMPLES, [ADD_NODES] * N_SAMPLES,
+                [(0.0, 0.0, 0.0)] * N_SAMPLES)
+            res = model.inpaint_sampler.inpaint(
+                ligand, fixed, pocket, timesteps=T_INPAINT,
+                resamplings=R_INPAINT, svdd=svdd, spsa=False, generator=g)
+            origins.append(len(set(res.row_src.tolist())))
+            for coords, types in to_lists(res.ligand):
+                mol = build_molecule(coords, types, model.dataset_info)
+                conn.append(connectivity_fraction(mol))
+                try:
+                    sanitize(mol)
+                except SanitizeError:
+                    continue
+                vals.append((props.calculate_qed(mol),
+                             props.calculate_sa(mol),
+                             props.calculate_logp(mol)))
+        torch.cuda.synchronize()
+        arr = np.asarray(vals, float) if vals else np.zeros((1, 3))
+        rows[label] = dict(n=len(conn), valid=len(vals) / max(len(conn), 1),
+                           connectivity=float(np.mean(conn)),
+                           qed=float(arr[:, 0].mean()),
+                           sa=float(arr[:, 1].mean()),
+                           logp=float(arr[:, 2].mean()),
+                           seconds=time.perf_counter() - t0)
+        ref = JAX_INPAINT_ROWS[label]
+        log(f"[inpaint-quality] seed {seed} {label:8s} n={rows[label]['n']} "
+            f"in {rows[label]['seconds']:.1f} s: "
+            + ", ".join(f"{k} {rows[label][k]:.3f} (JAX {ref[k]:.3f})"
+                        for k in ref)
+            + f"; distinct origin rows per pocket {origins}")
+    return rows
+
+
+def inpaint_quality_phase(torch, ds, model):
+    rows = inpaint_quality_rows(torch, ds, model, SEED + 1)
+    lift = rows["ATP"]["qed"] - rows["unguided"]["qed"]
+    log(f"[inpaint-quality] ATP lift: QED {lift:+.3f} (JAX +0.117); floors "
+        f"{INPAINT_FLOORS}, lift {INPAINT_LIFT_FLOOR}")
+    missed = [f"{label} {k} {rows[label][k]:.3f} < {v}"
+              for label, floors in INPAINT_FLOORS.items()
+              for k, v in floors.items() if not rows[label][k] >= v]
+    if not lift >= INPAINT_LIFT_FLOOR:
+        missed.append(f"QED lift {lift:.3f} < {INPAINT_LIFT_FLOOR}")
+    if missed:
+        raise AssertionError(f"inpainting quality below its floors: "
+                             f"{missed}")
+    return rows
+
+
+def inpaint_quality_spread(torch, ds, model):
+    runs = [inpaint_quality_rows(torch, ds, model, SEED + 1 + i)
+            for i in range(QUALITY_SPREAD_SEEDS)]
+    for label in JAX_INPAINT_ROWS:
+        log(f"[inpaint-quality] {label} over {len(runs)} seeds, min-max: "
+            + ", ".join(f"{k} {min(r[label][k] for r in runs):.3f}-"
+                        f"{max(r[label][k] for r in runs):.3f}"
+                        for k in JAX_INPAINT_ROWS[label]))
+    lifts = [r["ATP"]["qed"] - r["unguided"]["qed"] for r in runs]
+    log(f"[inpaint-quality] QED lift over {len(runs)} seeds: "
+        f"{min(lifts):.3f}-{max(lifts):.3f}")
+
+
+def optimize_phase(torch, K, tmp, pdb, sdf):
+    """The optimize CLI in this process.  Returns its launch counts and
+    the kernels' checks on the calls of its first diversify forward."""
+    from diffndm_tpu_torch.chem.io import read_sdf
+    from diffndm_tpu_torch.cli import optimize
+
+    n_layers = v3b_layers()
+    calls, recorders, wrappers = first_forward_recorder(K, n_layers)
+    out_sdf = os.path.join(tmp, "optimized.sdf")
+    argv = [WEIGHTS, "--config", os.path.join(RUN, "hparams.yaml"),
+            "--pdbfile", pdb, "--ref_ligand", sdf, "--outfile", out_sdf,
+            "--objective", "qed", "--population_size", str(OPT_POPULATION),
+            "--timesteps", str(OPT_STEPS), "--evolution_steps",
+            str(OPT_GENERATIONS), "--seed", str(SEED)]
+    log(f"[optimize] python -m diffndm_tpu_torch.cli.optimize "
+        f"{' '.join(argv)}")
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    K.reset_launches()
+    try:
+        history = optimize.main(argv)
+    finally:
+        for n, f in wrappers.items():
+            setattr(K, n, f)
+    launches = dict(K.LAUNCHES)
+    want = {k: OPT_GENERATIONS * (OPT_STEPS + 1) * n_layers for k in KERNELS}
+    n_best = len(read_sdf(out_sdf))
+    log(f"[optimize] population {OPT_POPULATION}, {OPT_STEPS} noising "
+        f"steps: per generation best QED "
+        f"{[round(h['best'], 4) for h in history]}, mean QED "
+        f"{[round(h['mean'], 4) for h in history]}, seconds "
+        f"{[round(h['seconds'], 3) for h in history]}; {n_best} molecules "
+        f"written; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"optimize launch counts {launches} != {want}")
+    if not (len(history) == OPT_GENERATIONS and n_best > 0 and all(
+            0.0 < h["mean"] <= h["best"] <= 1.0 for h in history)):
+        raise AssertionError("optimize outputs are incomplete")
+    checks = check_first_forward(torch, K, "optimize", calls, n_layers,
+                                 reps=20)
+    return launches, checks
+
+
+def diversify_path_check(torch, make_model, pair):
+    """The same fixed-noise diversification on the card and on the CPU."""
+    from diffndm_tpu_torch.data.pocket import ligand_node_batch
+    from diffndm_tpu_torch.diffusion.diversify import DiversifyNoise
+    from diffndm_tpu_torch.structs import repeat_batch
+
+    b, out = 4, {}
+    for device in ("cuda", "cpu"):
+        model = make_model(device)
+        enc = {k: v for k, v in model.dataset_info["atom_encoder"].items()
+               if v < model.cfg.atom_nf}
+        ligand = repeat_batch(ligand_node_batch(
+            pair.lig_coords, pair.lig_one_hot[:, :model.cfg.atom_nf]
+            .argmax(1), enc, model.sample_cfg.lig_pad_multiple,
+            device=model.device), b)
+        pocket = model.pocket_from_dataset(pair, b)
+        rng = np.random.default_rng(SEED + 4)
+        shape = tuple(ligand.x.shape[:2]) + (3 + model.cfg.atom_nf,)
+
+        def normal(*shp):
+            return torch.from_numpy(rng.standard_normal(shp)
+                                    .astype(np.float32))
+
+        noise = DiversifyNoise(normal(*shape),
+                               normal(T_DIVERSIFY_CHECK, *shape),
+                               normal(*shape))
+        res = model.diversify(ligand, pocket, T_DIVERSIFY_CHECK, noise=noise)
+        out[device] = [v.cpu() for v in (res.ligand.x, res.ligand.h,
+                                         res.ligand.mask)]
+    (xg, hg, mg), (xc, hc, mc) = out["cuda"], out["cpu"]
+    err = float((xg - xc).abs().max())
+    m = mc > 0.5
+    same = bool(torch.equal(mg, mc) and torch.equal(hg.argmax(-1)[m],
+                                                    hc.argmax(-1)[m]))
+    log(f"[optimize] diversify path check, {T_DIVERSIFY_CHECK} steps fixed "
+        f"noise, B={b}: max |x_cuda - x_cpu| = {err:.3e} A (atol "
+        f"{PATH_COORD_ATOL}); atom types identical: {same}")
+    if not (same and err <= PATH_COORD_ATOL
+            and bool(torch.isfinite(xg).all())):
+        raise AssertionError("[optimize]: the kernel path disagrees with "
+                             "the plain path")
+
+
 def main() -> int:
     import torch
 
@@ -1219,6 +1680,7 @@ def main() -> int:
     if opts.only == "quality":
         quality_spread(torch, ds, {"unguided": model, "guided": make_model(
             "cuda", guided_cfg)})
+        inpaint_quality_spread(torch, ds, make_model("cuda"))
         return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
     if opts.only == "kernels":
@@ -1240,6 +1702,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_checks = cli_phase(torch, K, ds, tmp)
     guided_path_check(torch, make_model, ds[POCKETS[0]], adjust=True)
+    inpaint_path_check(torch, make_model, ds[CLI_POCKET])
+    with tempfile.TemporaryDirectory() as tmp:
+        inpaint_launches, inpaint_checks, (pdb, sdf) = inpaint_cli_phase(
+            torch, K, ds, tmp)
+        inpaint_quality_phase(torch, ds, make_model("cuda"))
+        optimize_launches, optimize_checks = optimize_phase(torch, K, tmp,
+                                                            pdb, sdf)
+    diversify_path_check(torch, make_model, ds[CLI_POCKET])
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -1252,9 +1722,12 @@ def main() -> int:
                   shape=results[name]["shape"],
                   guided_launches=guided_launches[name],
                   cli_launches=cli_launches[name],
-                  cli={label: {k: res[k] for k in (
-                      "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                      "bound_by")} for label, res in cli_checks[name].items()},
+                  cli={label: {k: res[k] for k in CALL_KEYS}
+                       for label, res in cli_checks[name].items()},
+                  inpaint_launches=inpaint_launches[name],
+                  optimize_launches=optimize_launches[name],
+                  inpaint={k: inpaint_checks[name][k] for k in CALL_KEYS},
+                  optimize={k: optimize_checks[name][k] for k in CALL_KEYS},
                   fanout={k: fanout[name][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "blocks", "rows_per_block")})

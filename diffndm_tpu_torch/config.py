@@ -3,10 +3,10 @@
 The same field names and defaults as the JAX package's ``config.py`` for
 what this package runs: the EGNN denoiser, the diffusion schedule, the
 model's feature sizes, sampling with or without SPSA / ATP guidance and
-the RL noise adjustment, and the output filters.  Reference-style YAML files (``configs/*.yml``, a checkpoint's
-``hparams.yaml``) are read by a small
-parser for the subset of YAML those files use, so the package needs no
-YAML library.
+the RL noise adjustment, RePaint inpainting, and the output filters.
+Reference-style YAML files (``configs/*.yml``, a checkpoint's
+``hparams.yaml``) are read by a small parser for the subset of YAML those
+files use, so the package needs no YAML library.
 """
 
 from __future__ import annotations
@@ -134,6 +134,24 @@ class RLConfig:
 
 
 @dataclass(frozen=True)
+class InpaintConfig:
+    """RePaint inpainting: the defaults of an ``inpaint`` call and the
+    cadences of the guidance hooks inside its loop."""
+    resamplings: int = 1
+    jump_length: int = 1           # the loop steps one at a time: must be 1
+    center: str = "ligand"         # 'ligand' | 'pocket'
+    # SPSA hook: active for spsa_low <= s <= spsa_high, first resampling
+    # only, zeta = spsa.zeta0 * s / spsa_zeta_denom
+    spsa_low: int = 12
+    spsa_high: int = 16
+    spsa_zeta_denom: float = 1200.0
+    # ATP hook, after the resamplings of step s: s <= atp_start_step and
+    # s % atp_every == 0
+    atp_start_step: int = 10
+    atp_every: int = 2
+
+
+@dataclass(frozen=True)
 class SampleConfig:
     """Sampling settings: guidance, the RL adjustment, the output filters,
     the noise temperature of the reverse steps (1.0 = the model's own) and
@@ -143,6 +161,7 @@ class SampleConfig:
     spsa: SPSAConfig = field(default_factory=SPSAConfig)
     atp: ATPConfig = field(default_factory=ATPConfig)
     rl: RLConfig = field(default_factory=RLConfig)
+    inpaint: InpaintConfig = field(default_factory=InpaintConfig)
     sanitize: bool = False
     relax_iter: int = 0
     largest_frag: bool = False
@@ -155,6 +174,11 @@ class SampleConfig:
             raise NotImplementedError(
                 "w_vina needs the docking scorer, which this package does "
                 "not have")
+        if self.inpaint.jump_length != 1:
+            raise NotImplementedError("inpaint.jump_length must be 1")
+        if self.inpaint.center not in ("ligand", "pocket"):
+            raise ValueError(f"inpaint.center must be 'ligand' or "
+                             f"'pocket', got {self.inpaint.center!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ the cutoff to the reference ligand (an SDF file, or ``<chain>:<resi>`` of
 a residue of the structure itself, which is then left out).  Its atoms
 (full-atom: every heavy atom whose element the encoder knows; CA: one
 node per residue, typed by amino acid) become a ``NodeBatch`` repeated
-once per sample and padded to a multiple of ``pad_multiple`` rows.
+once per sample and padded to a multiple of ``pad_multiple`` rows.  A
+single ligand becomes a padded one-sample batch the same way (the inputs
+of inpainting and of the evolutionary optimizer).
 """
 
 from __future__ import annotations
@@ -76,10 +78,29 @@ def prepare_pocket(residues: Sequence[Residue], type_encoder: dict,
                     continue
                 coords.append(a.coord)
                 types.append(t)
+    return _typed_batch(coords, types, len(type_encoder), repeats,
+                        pad_to(len(coords), pad_multiple), device)
+
+
+def ligand_node_batch(coords: np.ndarray, types: np.ndarray,
+                      type_encoder: dict, pad_multiple: int = 8,
+                      n_total: Optional[int] = None,
+                      device="cpu") -> NodeBatch:
+    """One ligand -> a padded 1-sample float32 NodeBatch [1, N, F] with
+    F = len(type_encoder); N is ``n_total`` if given, else the atom count
+    rounded up to ``pad_multiple``."""
+    n_pad = n_total if n_total is not None else pad_to(len(coords),
+                                                       pad_multiple)
+    return _typed_batch(coords, types, len(type_encoder), 1, n_pad, device)
+
+
+def _typed_batch(coords, types, n_feat: int, repeats: int, n_pad: int,
+                 device) -> NodeBatch:
+    """n atoms (coordinates, type indices) -> a float32 NodeBatch
+    [repeats, n_pad, n_feat], one-hot types, zeros in the padding."""
     coords = np.asarray(coords, np.float32)
     types = np.asarray(types, np.int64)
-    n, n_feat = len(coords), len(type_encoder)
-    n_pad = pad_to(n, pad_multiple)
+    n = len(coords)
     x = np.zeros((repeats, n_pad, 3), np.float32)
     h = np.zeros((repeats, n_pad, n_feat), np.float32)
     mask = np.zeros((repeats, n_pad), np.float32)

@@ -67,6 +67,28 @@ class CondDiffusion:
         h = xh[..., self.n_dims:] * nh + bh
         return torch.cat([x, h], -1) * mask[..., None]
 
+    # -- schedule shortcut -----------------------------------------------------
+    def gamma_int(self, step) -> torch.Tensor:
+        """gamma at integer step indices (0..T), any shape."""
+        return self.schedule.at_step(step)
+
+    # -- q(z_t | x) -------------------------------------------------------------
+    def noised_representation(self, xh_lig, xh_pocket, lig_mask,
+                              pocket_mask, gamma_t, noise=None,
+                              generator=None):
+        """Noise the ligand at gamma_t [B], then re-centre both parts on
+        the noisy ligand's centre of mass.  Returns (z_t_lig,
+        xh_pocket_shifted, eps)."""
+        a, s = _b11(S.alpha(gamma_t)), _b11(S.sigma(gamma_t))
+        eps = draw_noise(xh_lig, noise, generator) * lig_mask[..., None]
+        z_t = a * xh_lig + s * eps
+        nd = self.n_dims
+        zx, px = remove_mean_ligand(z_t[..., :nd], xh_pocket[..., :nd],
+                                    lig_mask, pocket_mask)
+        z_t = torch.cat([zx, z_t[..., nd:]], -1)
+        xh_pocket = torch.cat([px, xh_pocket[..., nd:]], -1)
+        return z_t, xh_pocket, eps
+
     # -- z ~ N(mu, sigma) in the ligand-COM-free subspace --------------------
     def sample_normal_zero_com(self, mu_lig, xh_pocket, sigma, lig_mask,
                                pocket_mask, noise=None, generator=None):
@@ -117,6 +139,16 @@ class CondDiffusion:
         z_s, xh_pocket = self.sample_normal_zero_com(
             mu, xh_pocket, sigma, lig_mask, pocket_mask, noise, generator)
         return z_s, xh_pocket, log_prob, eps_pre
+
+    def sample_p_zt_given_zs(self, z_s_lig, xh_pocket, lig_mask, pocket_mask,
+                             gamma_t, gamma_s, noise=None, generator=None):
+        """The forward re-noising s -> t of RePaint's resampling:
+        z_t ~ N(alpha_t|s z_s, sigma_t|s), re-centred.  gamma_t, gamma_s:
+        [B]."""
+        _, sig_ts, alpha_ts = S.sigma_and_alpha_t_given_s(gamma_t, gamma_s)
+        return self.sample_normal_zero_com(_b11(alpha_ts) * z_s_lig,
+                                           xh_pocket, sig_ts, lig_mask,
+                                           pocket_mask, noise, generator)
 
     # -- x0 prediction ----------------------------------------------------------
     def xh_given_zt_and_epsilon(self, z_t, eps, gamma_t):

@@ -6,7 +6,9 @@ implementation's checkpoint), prepares pockets from the processed dataset
 or from a PDB file and a reference ligand, generates ligands (unguided,
 or with the SPSA / ATP guidance the sample config enables, scored by the
 chemistry reward oracle; optionally adjusted and trained by the RL
-AdjustNet) and turns the result into filtered molecules.
+AdjustNet), completes fixed fragments (RePaint inpainting, optionally
+guided), diversifies ligands by partial noising and denoising, and turns
+the result into filtered molecules.
 
 The JAX package picks a sorted-band column window per PDB pocket
 (``DIFFNDM_AUTO_BAND``).  The window provably drops only pairs beyond the
@@ -38,6 +40,9 @@ from diffndm_tpu_torch.data.pocket import (get_pocket_from_ligand,
 from diffndm_tpu_torch.device import resolve_device
 from diffndm_tpu_torch.diffusion import schedules as S
 from diffndm_tpu_torch.diffusion.core import CondDiffusion
+from diffndm_tpu_torch.diffusion.diversify import (DiversifyNoise,
+                                                   DiversifySampler)
+from diffndm_tpu_torch.diffusion.inpaint import InpaintNoise, InpaintSampler
 from diffndm_tpu_torch.diffusion.node_distribution import (DistributionNodes,
                                                            default_histogram)
 from diffndm_tpu_torch.diffusion.sampler import (ConditionalSampler,
@@ -80,11 +85,15 @@ class DiffNDM:
             size_histogram if size_histogram is not None
             else default_histogram())
         sc = self.sample_cfg
+        self.scorer = scorer
         self.oracle = None
         if sc.spsa.enabled or sc.atp.enabled or sc.rl.train:
             self.oracle = RewardOracle(self.dataset_info, scorer=scorer)
         self.sampler = ConditionalSampler(self.core, self.dynamics,
                                           self.sample_cfg, self.oracle)
+        self.inpaint_sampler = InpaintSampler(self.core, self.dynamics,
+                                              self.sample_cfg, self.oracle)
+        self.diversify_sampler = DiversifySampler(self.core, self.dynamics)
         self.adjust_state: Optional[AdjustNetState] = None
 
     @classmethod
@@ -103,6 +112,14 @@ class DiffNDM:
         raw state dict of it); see ``convert.load_reference_checkpoint``."""
         self.dynamics.load_state_dict(
             load_reference_checkpoint(path, self.cfg), strict=True)
+
+    def ensure_oracle(self) -> RewardOracle:
+        """The reward oracle, built at first use with the model's scorer
+        and handed to the samplers."""
+        if self.oracle is None:
+            self.oracle = RewardOracle(self.dataset_info, scorer=self.scorer)
+            self.sampler.oracle = self.inpaint_sampler.oracle = self.oracle
+        return self.oracle
 
     def ensure_adjust(self) -> AdjustNetState:
         """The AdjustNet, made at first use (input width 3 + atom_nf, the
@@ -189,6 +206,37 @@ class DiffNDM:
                                         generator=generator,
                                         optimize=optimize,
                                         collect_rl=collect_rl)
+
+    def inpaint(self, ligand: NodeBatch, lig_fixed: torch.Tensor,
+                pocket: NodeBatch, seed: int = 0,
+                timesteps: Optional[int] = None,
+                resamplings: Optional[int] = None, svdd: bool = False,
+                spsa: Optional[bool] = None, center: Optional[str] = None,
+                noise: Optional[InpaintNoise] = None) -> SampleResult:
+        """RePaint completion of the fixed atoms ``lig_fixed`` [B, NL] of
+        ``ligand`` in ``pocket``, ATP-guided with ``svdd`` and
+        SPSA-guided with ``spsa`` (default ``sample_cfg.spsa.enabled``),
+        the oracle built at first need; a generator on the model's device
+        seeded with ``seed``.  See ``InpaintSampler.inpaint``."""
+        if svdd or (self.sample_cfg.spsa.enabled if spsa is None else spsa):
+            self.ensure_oracle()
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return self.inpaint_sampler.inpaint(
+            ligand.to(self.device), lig_fixed.to(self.device),
+            pocket.to(self.device), timesteps=timesteps,
+            resamplings=resamplings, svdd=svdd, spsa=spsa, center=center,
+            generator=generator, noise=noise)
+
+    def diversify(self, ligand: NodeBatch, pocket: NodeBatch,
+                  noising_steps: int, seed: int = 0,
+                  noise: Optional[DiversifyNoise] = None) -> SampleResult:
+        """Partial noise-then-denoise of each ligand over noising_steps
+        steps, the noise from a generator on the model's device seeded
+        with ``seed``.  See ``DiversifySampler.diversify``."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return self.diversify_sampler.diversify(
+            ligand.to(self.device), pocket.to(self.device), noising_steps,
+            generator=generator, noise=noise)
 
     def generate_ligands(self, pdb_file: str, ref_ligand: str,
                          seed: int = 0,

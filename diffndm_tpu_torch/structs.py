@@ -66,6 +66,12 @@ def to_lists(batch: NodeBatch):
             for i in range(x.shape[0])]
 
 
+def repeat_batch(batch: NodeBatch, k: int) -> NodeBatch:
+    """Tile a batch k times along the sample axis ([B] -> [k*B])."""
+    return NodeBatch(*(a.repeat((k,) + (1,) * (a.dim() - 1))
+                       for a in batch))
+
+
 def pad_nodes(batch: NodeBatch, n_target: int) -> NodeBatch:
     """Grow the node axis to n_target with zero padding."""
     n = batch.x.shape[1]

@@ -132,7 +132,8 @@ def test_yaml_reader_and_model_config_match(path):
             getattr(ref.diffusion, f.name), f.name
 
 
-@pytest.mark.parametrize("name", ["SPSAConfig", "ATPConfig", "RLConfig"])
+@pytest.mark.parametrize("name", ["SPSAConfig", "ATPConfig", "RLConfig",
+                                  "InpaintConfig"])
 def test_guidance_config_defaults_equal_jax(name):
     """Field by field: the same names, in the same order, with the same
     defaults, so that a default changed on one side is caught."""
@@ -146,13 +147,13 @@ def test_guidance_config_defaults_equal_jax(name):
 
 def test_sample_config_fields_equal_jax_where_ported():
     """The port's SampleConfig is the subset of the JAX one that
-    sampling, guidance, the RL adjustment and the output filters read;
-    the TPU kernel banding knob and the inpainting fields are not
-    ported."""
+    sampling, guidance, the RL adjustment, inpainting and the output
+    filters read; the TPU kernel banding knob is not ported."""
     ref = {f.name: f for f in dataclasses.fields(jcfg.SampleConfig)}
     ours = dataclasses.fields(tcfg.SampleConfig)
     assert [f.name for f in ours] == ["n_samples", "timesteps", "spsa",
-                                      "atp", "rl", "sanitize", "relax_iter",
+                                      "atp", "rl", "inpaint", "sanitize",
+                                      "relax_iter",
                                       "largest_frag", "noise_scale",
                                       "lig_pad_multiple",
                                       "pocket_pad_multiple"]

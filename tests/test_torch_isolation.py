@@ -54,7 +54,9 @@ def test_sources_found():
                    "chem/native.py", "guidance/oracle.py",
                    "guidance/spsa.py", "guidance/atp.py", "data/pdb.py",
                    "data/pocket.py", "data/dataset.py", "cli/generate.py",
-                   "models/adjust_net.py"):
+                   "models/adjust_net.py", "diffusion/inpaint.py",
+                   "diffusion/diversify.py", "cli/inpaint.py",
+                   "cli/optimize.py", "cli/fix_ligand.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
@@ -106,6 +108,27 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_new_clis_raise_without_a_gpu(monkeypatch, tmp_path):
+    """The inpaint and optimize CLIs left at their ``cuda`` default raise
+    with no GPU; ``--objective vina`` raises on any device, since the
+    docking scorer is not ported."""
+    from diffndm_tpu_torch.cli import inpaint, optimize
+
+    missing = str(tmp_path / "missing.npz")
+    inp = [missing, "--pdbfile", "p.pdb", "--outfile", "o.sdf",
+           "--fix_atoms", "frag.sdf"]
+    opt = [missing, "--pdbfile", "p.pdb", "--ref_ligand", "l.sdf",
+           "--outfile", "o.sdf"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inpaint.main(inp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        optimize.main(opt)
+    for device in ("cuda", "cpu"):
+        with pytest.raises(NotImplementedError, match="Queue A item 15"):
+            optimize.main(opt + ["--objective", "vina", "--device", device])
 
 
 @pytest.mark.parametrize("change", [
