@@ -14,7 +14,9 @@ Phases, each of which fails the run on any fault or mismatch:
    configs/crossdock_fullatom_cond.yml (B=20, N=344, H=256, 5 A cutoff)
    and over a sweep of small ragged shapes and options; kernel time,
    plain time and the card's bound for the same work; every kernel output
-   is computed twice and must come out bit-identical;
+   is computed twice and must come out bit-identical; and the guard of
+   the kernels' missing backward: a denoiser forward in grad mode, and
+   each wrapper alone with a weight that requires grad, must raise;
 3. path check: a 10-step fixed-noise trajectory through the kernels on
    the card against the plain path on the CPU;
 4. main path: 2 test pockets x 16 samples at T=500 from the committed
@@ -28,7 +30,11 @@ Phases, each of which fails the run on any fault or mismatch:
 6. fan-out and oracle: the kernels against their plain versions on the
    inputs of one fused SPSA forward captured from the guided run
    ([k*2B, N, H] = [320, 80, 192]); the native scorer against the Python
-   scorer on one 320-molecule population of that run;
+   scorer on one 320-molecule population of that run, each with one
+   worker and with min(8, cores) (threads for the native scorer, spawned
+   processes for the Python one), rewards bit-equal; then one guided
+   pocket batch with the oracle on that many workers and one with a
+   single worker, in turn: seconds and the oracle's share;
 7. quality: 8 test pockets x 16 samples, unguided and guided, scored by
    the evaluation protocol of the JAX package's guided-lift script
    (largest fragment, sizes floored at 4) beside that script's committed
@@ -63,7 +69,16 @@ Phases, each of which fails the run on any fault or mismatch:
    noising steps, 2 generations, QED): launch counts, the kernels on the
    calls of the first diversify forward, best and mean QED and seconds
    per generation; and a 10-step fixed-noise diversify on the card
-   against the CPU.
+   against the CPU;
+13. sweep: the port's sweep CLI in-process over four test pockets
+   written as PDB + SDF pairs: (a) the four in one batch of 64 rows at
+   T=500, (b) per pocket with oversampling and --sanitize (two pockets),
+   (c) inpainting with ATP at T=60 x 10 (two pockets); no retry and no
+   skipped pocket, launch counts that follow from the generations run,
+   the kernels against their plain versions on the calls of (a)'s first
+   forward ([64, N, 192]), the evaluate CLI's AGGREGATE line of each
+   output, (a) again with --resume skipping every pocket, and the step
+   phase's measurement on (a)'s 64-row batch.
 
 ``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes
@@ -150,6 +165,9 @@ INPAINT_CHECK = dict(spsa=dict(num_probes=2, zeta0=5.0),
 # optimize phase (the JAX CLI's defaults but 2 generations) and the
 # diversify path check
 OPT_POPULATION, OPT_STEPS, OPT_GENERATIONS, T_DIVERSIFY_CHECK = 100, 100, 2, 10
+# sweep phase: four test pockets (40, 36, 36 and 26 atoms; ligands of 28,
+# 21, 24 and 17), one batch of 4 x N_SAMPLES rows in mode (a)
+SWEEP_POCKETS = (220, 48, 300, 5)
 
 # published H100 SXM peaks (dense TF32 on the tensor cores, HBM3).  The
 # kernels split each product into three TF32 products; the bound counts
@@ -173,6 +191,11 @@ WRAPPERS = {"gcl_messages": "gcl_messages",
             "edge_vector_reduce": "edge_vector_reduce",
             "edge_vector_reduce_pair": "edge_vector_reduce"}
 SOURCE = "diffndm_tpu_torch/csrc/egnn_edge.cu"
+# the gradient guard: a weight of the first kernel call of a forward, and
+# W2's position among each wrapper's arguments
+GUARD_WEIGHT = "egnn.e_block_0.gcl_0.edge_l2_kernel"
+W2_ARG = {"gcl_messages": 6, "edge_vector_reduce": 8,
+          "edge_vector_reduce_pair": 8}
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -332,6 +355,22 @@ def describe(res):
 # phases
 # ---------------------------------------------------------------------------
 
+def first_state(torch, model, pocket, sizes):
+    """The denoiser's arguments at the main path's first state (t = 1)."""
+    from diffndm_tpu_torch.diffusion.core import init_ligand_from_pocket
+
+    core = model.core
+    nx, nh = core.cfg.norm_values
+    lig_mask = model.sampler.ligand_mask(sizes, model.device)
+    p_x = pocket.x / nx * pocket.mask[..., None]
+    p_h = (pocket.h - core.cfg.norm_biases[1]) / nh * pocket.mask[..., None]
+    g = torch.Generator(device=model.device).manual_seed(SEED)
+    z, xh_p = init_ligand_from_pocket(core, p_x, p_h, lig_mask, pocket.mask,
+                                      generator=g)
+    t = torch.ones(z.shape[0], device=model.device)
+    return z, xh_p, t, lig_mask, pocket.mask
+
+
 def capture_kernel_calls(torch, K, model, pocket, sizes):
     """The kernel calls of one denoiser forward on the main path's first
     state (t = 1): the wrappers' arguments, recorded as given."""
@@ -344,26 +383,76 @@ def capture_kernel_calls(torch, K, model, pocket, sizes):
             return originals[name](*args, **kw)
         return fn
 
-    from diffndm_tpu_torch.diffusion.core import init_ligand_from_pocket
-
-    core = model.core
-    nx, nh = core.cfg.norm_values
-    lig_mask = model.sampler.ligand_mask(sizes, model.device)
-    p_x = pocket.x / nx * pocket.mask[..., None]
-    p_h = (pocket.h - core.cfg.norm_biases[1]) / nh * pocket.mask[..., None]
-    g = torch.Generator(device=model.device).manual_seed(SEED)
-    z, xh_p = init_ligand_from_pocket(core, p_x, p_h, lig_mask, pocket.mask,
-                                      generator=g)
-    t = torch.ones(z.shape[0], device=model.device)
+    state = first_state(torch, model, pocket, sizes)
     for n in WRAPPERS:
         setattr(K, n, recorder(n))
     try:
         with torch.no_grad():
-            model.dynamics(z, xh_p, t, lig_mask, pocket.mask)
+            model.dynamics(*state)
     finally:
         for n, f in originals.items():
             setattr(K, n, f)
     return calls
+
+
+def guard_phase(torch, K, model, pocket, sizes):
+    """The kernels have no backward, so the wrappers refuse to run where
+    autograd would need one: a denoiser forward in grad mode (its weights
+    require grad, as parameters do) raises the guard's RuntimeError and
+    the same forward under no_grad runs; so does each wrapper alone, on
+    the calls of that forward with one argument requiring grad."""
+    state = first_state(torch, model, pocket, sizes)
+    weight = dict(model.dynamics.named_parameters())[GUARD_WEIGHT]
+    if not weight.requires_grad:
+        raise AssertionError(f"{GUARD_WEIGHT} does not require grad")
+    refused = []
+
+    def expect_refusal(label, fn):
+        try:
+            with torch.enable_grad():
+                fn()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused.append(label)
+            return
+        raise AssertionError(f"[kernels] {label} ran in grad mode with an "
+                             f"input that requires grad")
+
+    expect_refusal("forward", lambda: model.dynamics(*state))
+    with torch.no_grad():
+        out = model.dynamics(*state)
+    calls = capture_kernel_calls(torch, K, model, pocket, sizes)
+    first = {n: next(c for c in calls if c[0] == n)
+             for n in ("gcl_messages", "edge_vector_reduce_pair")}
+    first["edge_vector_reduce"] = _single_set(
+        first["edge_vector_reduce_pair"])
+    for wrapper in WRAPPERS:
+        _, args, kw = first[wrapper]
+        args = list(args)
+        i = W2_ARG[wrapper]         # W2, or the pair's second W2
+        args[i] = ((args[i][0], args[i][1].clone().requires_grad_())
+                   if wrapper.endswith("_pair")
+                   else args[i].clone().requires_grad_())
+        expect_refusal(wrapper, lambda: getattr(K, wrapper)(*args, **kw))
+        with torch.no_grad():
+            getattr(K, wrapper)(*args, **kw)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(v).all()) for v in out)
+    log(f"[kernels] guard: in grad mode, refused: {refused} (the forward "
+        f"with {GUARD_WEIGHT} requiring grad, then each wrapper with one "
+        f"weight requiring grad); under no_grad each ran, forward outputs "
+        f"finite: {finite}")
+    if refused != ["forward", *WRAPPERS] or not finite:
+        raise AssertionError("the gradient guard did not behave")
+
+
+def _single_set(pair_call):
+    """An edge_vector_reduce call made of a pair call's first weight set
+    (difference direction)."""
+    _, args, kw = pair_call
+    single = [args[0][0], args[1][0], *args[2:7], *(w[0] for w in args[7:])]
+    return "edge_vector_reduce", single, dict(kw, cross=False)
 
 
 def flagship_inputs(torch, name, device):
@@ -506,10 +595,9 @@ def kernel_phase(torch, K, model, pocket, sizes):
             f"{describe(res)}")
         if wrapper == "edge_vector_reduce_pair":
             # one weight set alone, the launch an earlier design made twice
-            single = [args[0][0], args[1][0], *args[2:7],
-                      *(w[0] for w in args[7:])]
+            _, single, single_kw = _single_set(mine[0])
             alone = check_kernel(torch, K, "edge_vector_reduce", single,
-                                 dict(kw, cross=False), reps=50)
+                                 single_kw, reps=50)
             log(f"[kernels] main path edge_vector_reduce, first set alone: "
                 f"{describe(alone)}")
         if wrapper == "gcl_messages":
@@ -833,29 +921,87 @@ def fanout_phase(torch, K, calls):
 
 def oracle_phase(model, population):
     """The native scorer against the Python scorer on one fan-out
-    population of the guided run."""
+    population of the guided run, each with one worker and with
+    oracle_workers() of them.  Returns that worker count."""
     from diffndm_tpu_torch.guidance.oracle import RewardOracle
 
     coords, types, mask, weights = population
-    python = RewardOracle(model.dataset_info, scorer="python")
-    native = RewardOracle(model.dataset_info, scorer="native")
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        r_nat = native.score_batch_types(coords, types, mask, weights)
-        times.append(1e3 * (time.perf_counter() - t0))
-    t0 = time.perf_counter()
-    r_py = python.score_batch_types(coords, types, mask, weights)
-    py_ms = 1e3 * (time.perf_counter() - t0)
-    equal = bool(np.array_equal(r_nat, r_py))
+    n_workers = oracle_workers()
+    rewards, ms = {}, {}
+    for scorer, workers, reps in (("native", 1, 5),
+                                  ("native", n_workers, 5),
+                                  ("python", 1, 1),
+                                  ("python", n_workers, 1)):
+        with RewardOracle(model.dataset_info, scorer=scorer,
+                          num_workers=workers) as oracle:
+            # warm: the pools start, and the first call fills caches
+            oracle.score_batch_types(coords, types, mask, weights)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                r = oracle.score_batch_types(coords, types, mask, weights)
+                times.append(1e3 * (time.perf_counter() - t0))
+        rewards[scorer, workers] = r
+        ms[scorer, workers] = float(np.median(times))
+    ref = rewards["native", 1]
+    equal = all(np.array_equal(r, ref) for r in rewards.values())
     log(f"[oracle] one fused SPSA population of {len(coords)} molecules "
-        f"({int((r_nat > 0).sum())} valid): native rewards equal the Python "
-        f"scorer's bit for bit: {equal}; native {np.median(times):.2f} ms, "
-        f"Python {py_ms:.1f} ms per {len(coords)} molecules (host, one "
-        f"thread)")
+        f"({int((ref > 0).sum())} valid): native and Python rewards, with 1 "
+        f"and {n_workers} workers (os.cpu_count() {os.cpu_count()}), equal "
+        f"bit for bit: {equal}; ms per {len(coords)} molecules (host): "
+        + ", ".join(f"{scorer} x{w} {v:.2f}" for (scorer, w), v in
+                    ms.items())
+        + f"; native speed-up with {n_workers} threads "
+        f"{ms['native', 1] / ms['native', n_workers]:.2f}x")
     if not equal:
-        raise AssertionError("the native scorer disagrees with the Python "
-                             "scorer")
+        raise AssertionError("the rewards differ between scorers or worker "
+                             "counts")
+    return n_workers
+
+
+def oracle_workers() -> int:
+    return min(8, os.cpu_count() or 1)
+
+
+def guided_workers_phase(torch, make_model, guided_cfg, pocket, n_lig,
+                         n_workers):
+    """One guided pocket batch with the oracle on n_workers workers (as
+    DIFFNDM_ORACLE_WORKERS sets it), then the same batch with one, in
+    turn: seconds and oracle share of each."""
+    rows = {}
+    for workers in (n_workers, 1):
+        os.environ["DIFFNDM_ORACLE_WORKERS"] = str(workers)
+        try:
+            model = make_model("cuda", guided_cfg)
+        finally:
+            del os.environ["DIFFNDM_ORACLE_WORKERS"]
+        with model:
+            oracle = model.oracle
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = torch.Generator(device=model.device).manual_seed(SEED)
+            res = model.sample_given_pocket(pocket, n_lig, timesteps=T_MAIN,
+                                            generator=g)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows[workers] = dict(seconds=wall, share=oracle.seconds / wall,
+                             oracle_s=oracle.seconds, calls=oracle.n_calls,
+                             scored=oracle.n_scored,
+                             x=res.ligand.x.cpu(), finite=bool(
+                                 torch.isfinite(res.ligand.x).all()))
+    a, b = rows[n_workers], rows[1]
+    same = bool(torch.equal(a["x"], b["x"]))
+    log(f"[guided] workers: one pocket batch ({N_SAMPLES} samples, "
+        + "; ".join(f"{w} worker{'s' * (w > 1)}: {r['seconds']:.3f} s, "
+                    f"oracle {r['oracle_s']:.3f} s = {r['share']:.3f} of "
+                    f"the wall, {r['calls']} calls, {r['scored']} molecules"
+                    for w, r in rows.items())
+        + f"); coordinates equal bit for bit: {same}")
+    if not (a["finite"] and b["finite"] and a["calls"] == b["calls"]
+            and a["scored"] == b["scored"]):
+        raise AssertionError("[guided] the batch with oracle workers "
+                             "differs from the one-worker batch")
+    return rows
 
 
 def quality_rows(torch, ds, models, seed):
@@ -1003,7 +1149,7 @@ def step_phase(torch, K, model, pocket, sizes):
         f"{1 - busy / plain_wall:.3f})")
 
 
-def write_pocket_files(pair, decoder, tmp):
+def write_pocket_files(pair, decoder, tmp, names=("pocket.pdb", "ref.sdf")):
     """A PDB file with one ALA residue per pocket atom (the element from
     the one-hot decoder, two-letter ones in capitals as PDB files write
     them) and the ligand as the reference SDF.  Returns their paths."""
@@ -1017,7 +1163,7 @@ def write_pocket_files(pair, decoder, tmp):
         lines.append(f"ATOM  {i + 1:>5} {el:<4} ALA A{i + 1:>4}    "
                      f"{c[0]:8.3f}{c[1]:8.3f}{c[2]:8.3f}  1.00  0.00"
                      f"          {el:>2}")
-    pdb, sdf = os.path.join(tmp, "pocket.pdb"), os.path.join(tmp, "ref.sdf")
+    pdb, sdf = (os.path.join(tmp, n) for n in names)
     with open(pdb, "w") as f:
         f.write("\n".join(lines + ["END"]) + "\n")
     write_sdf(sdf, [Molecule([decoder[int(t)] for t in
@@ -1608,6 +1754,142 @@ def diversify_path_check(torch, make_model, pair):
                              "the plain path")
 
 
+def sweep_phase(torch, K, ds, tmp):
+    """The sweep CLI in this process over SWEEP_POCKETS written as PDB +
+    SDF pairs (the ligands with perceived bonds, which the inpainting
+    fragments need): (a) --batch_pockets 4 at T=500, (b) per pocket with
+    oversampling and --sanitize, (c) --inpaint with ATP at T=60 x 10;
+    each output directory through the evaluate CLI; (a) again with
+    --resume.  Returns the launch counts of (a) and the kernels' checks on
+    the calls of its first forward."""
+    from diffndm_tpu_torch.chem.bonds import build_molecule
+    from diffndm_tpu_torch.chem.io import read_sdf, write_sdf
+    from diffndm_tpu_torch.chem.sanitize import is_valid
+    from diffndm_tpu_torch.cli import evaluate, sweep
+    from diffndm_tpu_torch.config import SampleConfig
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.diffusion.inpaint import count_inpaint_forwards
+    from diffndm_tpu_torch.diffusion.sampler import count_forwards
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.structs import concat_batches
+
+    info = dataset_params["crossdock_full"]
+    test_dir = os.path.join(tmp, "pockets")
+    os.makedirs(test_dir)
+    for idx in SWEEP_POCKETS:
+        pair = ds[idx]
+        _, sdf = write_pocket_files(pair, info["atom_decoder"], test_dir,
+                                    (f"p{idx:03d}.pdb", f"p{idx:03d}.sdf"))
+        write_sdf(sdf, [build_molecule(pair.lig_coords,
+                                       pair.lig_one_hot.argmax(1), info)])
+    n_layers = v3b_layers()
+    per_gen = count_forwards(SampleConfig(), T_MAIN) * n_layers
+    per_inpaint = count_inpaint_forwards(SampleConfig(), T_INPAINT,
+                                         R_INPAINT, True, False) * n_layers
+    modes = [("a", ["--batch_pockets", str(len(SWEEP_POCKETS))],
+              len(SWEEP_POCKETS), per_gen),
+             ("b", ["--max_pockets", "2", "--oversample_maxiter", "2",
+                    "--sanitize"], 2, per_gen),
+             ("c", ["--inpaint", "--SVDD", "1", "--max_pockets", "2",
+                    "--timesteps", str(T_INPAINT), "--resamplings",
+                    str(R_INPAINT)], 2, per_inpaint)]
+    # host seconds of each generation call, the device work included, and
+    # the model that made it
+    gen_s, models = [], []
+    originals = {m: getattr(DiffNDM, m) for m in
+                 ("generate_ligands", "generate_ligands_multi", "inpaint")}
+
+    def timed(method):
+        def fn(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[method](self, *args, **kw)
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            models.append(self)
+            return out
+        return fn
+
+    checks, launches_a = None, None
+    for label, flags, n_pockets, per_call in modes:
+        outdir = os.path.join(tmp, f"sweep_{label}")
+        argv = [WEIGHTS, "--config", os.path.join(RUN, "hparams.yaml"),
+                "--test_dir", test_dir, "--outdir", outdir, "--n_samples",
+                str(N_SAMPLES), "--seed", str(SEED), *flags]
+        log(f"[sweep] ({label}) python -m diffndm_tpu_torch.cli.sweep "
+            f"{' '.join(argv)}")
+        calls, recorders, wrappers = first_forward_recorder(K, n_layers)
+        if label == "a":
+            for n, f in recorders.items():
+                setattr(K, n, f)
+        for m in originals:
+            setattr(DiffNDM, m, timed(m))
+        gen_s.clear()
+        K.reset_launches()
+        try:
+            summary = sweep.main(argv)
+        finally:
+            for n, f in wrappers.items():
+                setattr(K, n, f)
+            for m, f in originals.items():
+                setattr(DiffNDM, m, f)
+        launches = dict(K.LAUNCHES)
+        want = {k: summary["generations"] * per_call for k in KERNELS}
+        outputs = sorted(f for f in os.listdir(outdir) if f.endswith(".sdf"))
+        mols = [read_sdf(os.path.join(outdir, f)) for f in outputs]
+        n_valid = [sum(map(is_valid, m)) for m in mols]
+        n_mols = sum(len(m) for m in mols)
+        with open(os.path.join(outdir, "pocket_times.txt")) as f:
+            times = f.read().splitlines()
+        aggregate = evaluate.main([outdir, "--expected_per_file",
+                                   str(N_SAMPLES)]).splitlines()[-1]
+        wall = sum(gen_s)
+        log(f"[sweep] ({label}) {summary}: {len(gen_s)} generation calls "
+            f"{[round(t, 3) for t in gen_s]} s, {wall / len(outputs):.3f} s "
+            f"per pocket, {n_mols / wall:.3f} ligands/s; molecules per "
+            f"pocket {[len(m) for m in mols]}, valid per pocket {n_valid}; "
+            f"pocket_times.txt {times}; launches {launches} (expected "
+            f"{want})")
+        log(f"[sweep] ({label}) evaluate: {aggregate}")
+        if summary["retries"] or summary["skipped"] or \
+                len(outputs) != n_pockets:
+            raise AssertionError(f"[sweep] ({label}) retried, skipped or "
+                                 f"missed a pocket: {summary}")
+        if launches != want or (label == "a" and summary["generations"]
+                                != 1):
+            raise AssertionError(f"[sweep] ({label}) launch counts "
+                                 f"{launches} != {want}")
+        if not aggregate.startswith("AGGREGATE over "):
+            raise AssertionError(f"[sweep] ({label}) no valid molecule")
+        if label == "a":
+            launches_a = launches
+            checks = check_first_forward(torch, K, "sweep (a)", calls,
+                                         n_layers, reps=20)
+            del calls
+            if any(c["shape"][0] != len(SWEEP_POCKETS) * N_SAMPLES
+                   for c in checks.values()):
+                raise AssertionError("[sweep] (a) ran in more than one "
+                                     "batch")
+            K.reset_launches()
+            again = sweep.main(argv + ["--resume"])
+            log(f"[sweep] (a) again with --resume: {again}; launches "
+                f"{dict(K.LAUNCHES)}")
+            if again["resumed"] != len(SWEEP_POCKETS) or again[
+                    "generations"] or any(K.LAUNCHES.values()):
+                raise AssertionError("[sweep] --resume did not skip every "
+                                     "pocket")
+            # where a step of the 64-row batch spends its time
+            model = models[0]
+            pocket = concat_batches([model.pocket_from_pdb(
+                os.path.join(test_dir, f"p{i:03d}.pdb"),
+                os.path.join(test_dir, f"p{i:03d}.sdf"), N_SAMPLES)
+                for i in sorted(SWEEP_POCKETS)])
+            step_phase(torch, K, model, pocket, model.sample_ligand_sizes(
+                pocket, torch.Generator().manual_seed(SEED)))
+        models.clear()
+    return launches_a, checks
+
+
 def main() -> int:
     import torch
 
@@ -1683,6 +1965,7 @@ def main() -> int:
         inpaint_quality_spread(torch, ds, make_model("cuda"))
         return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
+    guard_phase(torch, K, model, pockets[0], sizes[0])
     if opts.only == "kernels":
         log("[kernels] done (--only kernels: no result)")
         return 0
@@ -1695,7 +1978,9 @@ def main() -> int:
         torch, K, guided, pockets, sizes)
     fanout = fanout_phase(torch, K, calls)
     del calls
-    oracle_phase(guided, population)
+    n_workers = oracle_phase(guided, population)
+    guided_workers_phase(torch, make_model, guided_cfg, pockets[0], sizes[0],
+                         n_workers)
     quality_phase(torch, ds, {"unguided": model, "guided": guided})
     step_phase(torch, K, model, pockets[0], sizes[0])
     del guided
@@ -1710,6 +1995,8 @@ def main() -> int:
         optimize_launches, optimize_checks = optimize_phase(torch, K, tmp,
                                                             pdb, sdf)
     diversify_path_check(torch, make_model, ds[CLI_POCKET])
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep_launches, sweep_checks = sweep_phase(torch, K, ds, tmp)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -1726,6 +2013,8 @@ def main() -> int:
                        for label, res in cli_checks[name].items()},
                   inpaint_launches=inpaint_launches[name],
                   optimize_launches=optimize_launches[name],
+                  sweep_launches=sweep_launches[name],
+                  sweep={k: sweep_checks[name][k] for k in CALL_KEYS},
                   inpaint={k: inpaint_checks[name][k] for k in CALL_KEYS},
                   optimize={k: optimize_checks[name][k] for k in CALL_KEYS},
                   fanout={k: fanout[name][k] for k in (

@@ -273,3 +273,11 @@ class Molecule:
         w += MONOISOTOPIC_MASS["H"] * sum(
             self.implicit_h(i) for i in range(self.n_atoms))
         return w
+
+    def canonical_smiles_like(self) -> str:
+        """The identity key of uniqueness and novelty: not SMILES syntax
+        but a Weisfeiler-Lehman canonical hash of the heavy-atom graph
+        (``fingerprints.wl_canonical_key``), equal for isomorphic graphs."""
+        from diffndm_tpu_torch.chem.fingerprints import wl_canonical_key
+
+        return wl_canonical_key(self)

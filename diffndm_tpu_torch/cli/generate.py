@@ -79,6 +79,11 @@ def load_model(args):
     from diffndm_tpu_torch.model import DiffNDM
 
     device = resolve_device(args.device)
+    # pockets batched together (the sweep's --batch_pockets) must not
+    # select ATP candidates across pockets: a prune selects within each
+    # pocket's n_samples rows
+    group_size = (args.n_samples if getattr(args, "batch_pockets", 1) > 1
+                  else None)
     sample_cfg = SampleConfig(
         n_samples=args.n_samples, timesteps=args.timesteps,
         sanitize=args.sanitize, relax_iter=(200 if args.relax else 0),
@@ -87,7 +92,8 @@ def load_model(args):
         largest_frag=not args.all_frags, noise_scale=args.noise_scale,
         spsa=SPSAConfig(enabled=bool(args.SPSA), w_vina=args.w_vina,
                         w_connectivity=args.w_connectivity),
-        atp=ATPConfig(enabled=bool(args.SVDD), w_vina=args.w_vina,
+        atp=ATPConfig(enabled=bool(args.SVDD), group_size=group_size,
+                      w_vina=args.w_vina,
                       w_connectivity=args.w_connectivity),
         rl=RLConfig(enabled=bool(args.optimize),
                     train=bool(args.path_save)))
@@ -136,18 +142,20 @@ def main(argv=None):
     num_nodes = (np.full((args.n_samples,), args.num_nodes_lig)
                  if args.num_nodes_lig else None)
     loops = max(1, args.rl_loops if args.path_save else 1)
-    for loop in range(loops):
-        t0 = time.perf_counter()
-        mols, _ = model.generate_ligands(args.pdbfile, args.ref_ligand,
-                                         seed=args.seed + loop,
-                                         num_nodes_lig=num_nodes)
-        seconds = time.perf_counter() - t0
-        if args.path_save:
-            model.adjust_state.save(args.path_save)
-            loss, grad_norm, reward = model.adjust_state.history[-1]
-            print(f"[loop {loop}] {seconds:.3f} s; REINFORCE loss {loss:.6g}, "
-                  f"grad norm {grad_norm:.6g}, reward {reward:.6g}; saved "
-                  f"AdjustNet checkpoint to {args.path_save}")
+    with model:                     # releases the oracle's workers
+        for loop in range(loops):
+            t0 = time.perf_counter()
+            mols, _ = model.generate_ligands(args.pdbfile, args.ref_ligand,
+                                             seed=args.seed + loop,
+                                             num_nodes_lig=num_nodes)
+            seconds = time.perf_counter() - t0
+            if args.path_save:
+                model.adjust_state.save(args.path_save)
+                loss, grad_norm, reward = model.adjust_state.history[-1]
+                print(f"[loop {loop}] {seconds:.3f} s; REINFORCE loss "
+                      f"{loss:.6g}, grad norm {grad_norm:.6g}, reward "
+                      f"{reward:.6g}; saved AdjustNet checkpoint to "
+                      f"{args.path_save}")
     write_sdf(args.outfile, mols)
     n_ok = sum(m is not None for m in mols)
     print(f"wrote {n_ok}/{len(mols)} molecules to {args.outfile}")

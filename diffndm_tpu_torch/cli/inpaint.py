@@ -148,10 +148,12 @@ def main(argv=None):
     pocket = model.pocket_from_pdb(args.pdbfile, ref, args.n_samples)
 
     t0 = time.perf_counter()
-    res = model.inpaint(ligand, lig_fixed, pocket, seed=args.seed,
-                        timesteps=args.timesteps,
-                        resamplings=args.resamplings, svdd=bool(args.svdd),
-                        spsa=bool(args.spsa), center=args.center)
+    with model:                     # releases the oracle's workers
+        res = model.inpaint(ligand, lig_fixed, pocket, seed=args.seed,
+                            timesteps=args.timesteps,
+                            resamplings=args.resamplings,
+                            svdd=bool(args.svdd), spsa=bool(args.spsa),
+                            center=args.center)
     mols = model.result_to_molecules(res)
     seconds = time.perf_counter() - t0
     write_sdf(args.outfile, mols)

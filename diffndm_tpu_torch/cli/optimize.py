@@ -57,7 +57,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--objective vina needs the docking scorer (chem/scoring "
             "VinaScorer), which this package does not have yet: ROADMAP "
-            "Queue A item 15")
+            "Queue A, docking search")
     from diffndm_tpu_torch.chem.io import read_sdf, write_sdf
     from diffndm_tpu_torch.chem.metrics import MoleculeProperties
     from diffndm_tpu_torch.cli.generate import load_model

@@ -121,6 +121,18 @@ class DiffNDM:
             self.sampler.oracle = self.inpaint_sampler.oracle = self.oracle
         return self.oracle
 
+    def close(self) -> None:
+        """Release the reward oracle's worker pools, if it has any
+        (``DIFFNDM_ORACLE_WORKERS``); the model stays usable."""
+        if self.oracle is not None:
+            self.oracle.close()
+
+    def __enter__(self) -> "DiffNDM":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def ensure_adjust(self) -> AdjustNetState:
         """The AdjustNet, made at first use (input width 3 + atom_nf, the
         rest of ``sample_cfg.rl``, seed 0) on the model's device."""

@@ -20,7 +20,10 @@ wrapper given CPU tensors computes its plain PyTorch version
 ``LAUNCHES`` counts launches per kernel (the pair launches the
 ``edge_vector_reduce`` kernel once).  On the card the product by W2 runs
 on the tensor cores as a three-term TF32 split, which keeps fp32-level
-accuracy; the plain versions are plain fp32.
+accuracy; the plain versions are plain fp32.  The kernels have no
+backward yet: on the card a wrapper raises when grad mode is on and an
+argument requires grad (``refuse_grad``) rather than return a result
+with no gradient; the plain versions are differentiable.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/`` at the repository
@@ -163,6 +166,21 @@ def _launch(name: str, device: torch.device, entry, *args) -> None:
             err = entry(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
+
+
+def refuse_grad(name: str, *args) -> None:
+    """Raise when autograd would need a gradient through a kernel: grad
+    mode is on and a tensor argument (or one of a pair) requires grad."""
+    if not torch.is_grad_enabled():
+        return
+    for arg in args:
+        for t in (arg if isinstance(arg, (tuple, list)) else (arg,)):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                raise RuntimeError(
+                    f"{name}: the hand-written CUDA kernels have no backward "
+                    "yet, and an input requires grad; run under "
+                    "torch.no_grad(), or on the CPU, where the plain "
+                    "versions are differentiable")
 
 
 def _check_cuda(name: str, tensors: dict, shapes: dict) -> dict:
@@ -367,6 +385,7 @@ def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
                                   batt, attention, norm_factor)
     if a.device.type != "cuda":
         raise ValueError(f"gcl_messages: unsupported device {a.device}")
+    refuse_grad("gcl_messages", a, b, d2c, d2i, adj, we, w2, b2, watt, batt)
     bsz, n, h = a.shape
     _hidden_ok("gcl_messages", h, n)
     if batt is None:
@@ -401,6 +420,8 @@ def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
                                         n_rows)
     if a.device.type != "cuda":
         raise ValueError(f"edge_vector_reduce: unsupported device {a.device}")
+    refuse_grad("edge_vector_reduce", a, b, d2c, d2i, adj, x, center, we, w2,
+                b2, wout)
     bsz, n, h = a.shape
     _hidden_ok("edge_vector_reduce", h, n)
     ptr = _check_cuda("edge_vector_reduce",
@@ -449,6 +470,7 @@ def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
                                              norm_factor, n_rows)
     if a[0].device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a[0].device}")
+    refuse_grad(name, a, b, d2c, d2i, adj, x, center, we, w2, b2, wout)
     bsz, n, h = a[0].shape
     _hidden_ok(name, h, n)
     shapes = _shapes(bsz, n, h)

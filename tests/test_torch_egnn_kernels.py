@@ -150,6 +150,34 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     assert K.LAUNCHES == {"gcl_messages": 0, "edge_vector_reduce": 0}
 
 
+def test_refuse_grad_guards_the_kernels_missing_backward():
+    """The CUDA branch of every wrapper calls ``refuse_grad`` (no GPU here
+    to reach it): it raises when grad mode is on and any tensor argument,
+    or a tensor of a pair, requires grad, and passes under no_grad or
+    when none does.  The CPU branch is untouched: the plain versions stay
+    differentiable through the wrappers."""
+    d = make_inputs(1, 9, seed=3)
+    args = as_torch(d, GCL_KEYS)
+    K.refuse_grad("gcl_messages", *args)
+    w2 = args[6].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward yet.*no_grad"):
+        K.refuse_grad("gcl_messages", *args[:6], w2, *args[7:])
+    with pytest.raises(RuntimeError, match="edge_vector_reduce_pair"):
+        K.refuse_grad("edge_vector_reduce_pair", (args[0], args[1]),
+                      (args[2], w2))
+    with torch.no_grad():
+        K.refuse_grad("gcl_messages", *args[:6], w2, *args[7:])
+    K.refuse_grad("gcl_messages", w2.detach(), None, 1.5)
+    with torch.enable_grad():
+        out = K.gcl_messages(*args[:6], w2, *args[7:])
+        pair = pair_args(d, make_inputs(1, 9, seed=5))
+        pair[-3] = (pair[-3][0], pair[-3][1].clone().requires_grad_())
+        vec = K.edge_vector_reduce_pair(*pair)
+    assert out.grad_fn is not None and vec.grad_fn is not None
+    (out.sum() + vec.sum()).backward()
+    assert w2.grad is not None and pair[-3][1].grad is not None
+
+
 @pytest.mark.parametrize("tanh", [True, False])
 @pytest.mark.parametrize("n_rows", [None, 13, 0])
 def test_pair_is_the_sum_of_its_two_single_calls(tanh, n_rows):

@@ -56,7 +56,9 @@ def test_sources_found():
                    "data/pocket.py", "data/dataset.py", "cli/generate.py",
                    "models/adjust_net.py", "diffusion/inpaint.py",
                    "diffusion/diversify.py", "cli/inpaint.py",
-                   "cli/optimize.py", "cli/fix_ligand.py"):
+                   "cli/optimize.py", "cli/fix_ligand.py",
+                   "chem/fingerprints.py", "cli/evaluate.py",
+                   "cli/sweep.py", "cli/debug.py", "cli/plot.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
@@ -127,7 +129,7 @@ def test_new_clis_raise_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         optimize.main(opt)
     for device in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match="Queue A item 15"):
+        with pytest.raises(NotImplementedError, match="Queue A, docking search"):
             optimize.main(opt + ["--objective", "vina", "--device", device])
 
 
