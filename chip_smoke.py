@@ -6,17 +6,20 @@
 Phases, each of which fails the run on any fault or mismatch:
 
 1. identity: the card (nvidia-smi name and power limit) and the builds,
-   side by side, of the CUDA kernels from diffndm_tpu_torch/csrc (nvcc)
-   and of the native reward scorer (host g++);
+   side by side, of the CUDA kernels and their backward from
+   diffndm_tpu_torch/csrc (nvcc) and of the native reward scorer (g++);
 2. kernels: each EGNN edge-chain kernel against its plain PyTorch version
    on the card, on the inputs the main path gives it (captured from one
    denoiser forward), at the flagship shapes of
    configs/crossdock_fullatom_cond.yml (B=20, N=344, H=256, 5 A cutoff)
    and over a sweep of small ragged shapes and options; kernel time,
    plain time and the card's bound for the same work; every kernel output
-   is computed twice and must come out bit-identical; and the guard of
-   the kernels' missing backward: a denoiser forward in grad mode, and
-   each wrapper alone with a weight that requires grad, must raise;
+   is computed twice and must come out bit-identical; then the backward
+   kernels (through the wrappers' autograd Functions) against the plain
+   backward, per gradient tensor, on the calls of one v3b training
+   forward at each training shape [16, 72/80/88/96, 192] (the first call
+   of each also against autograd through the plain forward) and at the
+   flagship shapes, bit-identical on repeat, timed beside their bound;
 3. path check: a 10-step fixed-noise trajectory through the kernels on
    the card against the plain path on the CPU;
 4. main path: 2 test pockets x 16 samples at T=500 from the committed
@@ -78,14 +81,24 @@ Phases, each of which fails the run on any fault or mismatch:
    the kernels against their plain versions on the calls of (a)'s first
    forward ([64, N, 192]), the evaluate CLI's AGGREGATE line of each
    output, (a) again with --resume skipping every pocket, and the step
-   phase's measurement on (a)'s 64-row batch.
+   phase's measurement on (a)'s 64-row batch;
+14. train: a fixed-noise training update from v3b's raw state on the
+   card against the CPU (loss, gradients, the optimizer); the port's
+   train CLI in-process resuming v3b for 40 micro-steps on a 40-batch
+   cut of virtual_v3's training split, so that one epoch, the val loss
+   and the chemistry dashboard run once: launch counts per micro-step,
+   val batch and dashboard sampling, the loss beside the JAX run's, the
+   best and last checkpoints read back; then one micro-step profiled (ms,
+   device busy, idle share) and its peak memory beside the plain
+   chain's.
 
 ``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes
 (both for work on the kernels).  ``--only quality`` runs phase 7 alone
 over five seeds and prints how far each metric moves with the random
 stream (what a change to the kernels' arithmetic has to exceed), then
-does the same for phase 11.  None of the three prints a result line.
+does the same for phase 11.  ``--only train`` runs phases 1, 2 and 14.
+None of the four prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -191,11 +204,27 @@ WRAPPERS = {"gcl_messages": "gcl_messages",
             "edge_vector_reduce": "edge_vector_reduce",
             "edge_vector_reduce_pair": "edge_vector_reduce"}
 SOURCE = "diffndm_tpu_torch/csrc/egnn_edge.cu"
-# the gradient guard: a weight of the first kernel call of a forward, and
-# W2's position among each wrapper's arguments
-GUARD_WEIGHT = "egnn.e_block_0.gcl_0.edge_l2_kernel"
-W2_ARG = {"gcl_messages": 6, "edge_vector_reduce": 8,
-          "edge_vector_reduce_pair": 8}
+# the backward kernels (csrc/egnn_edge_bwd.cu), the forward each
+# differentiates, and the gate against the plain backward: per gradient
+# tensor, max |kernel - plain| <= BWD_RTOL * max |plain| + BWD_ATOL (sums
+# over up to B * N^2 edges, taken in another order)
+BWD_KERNELS = {"gcl_messages_bwd": "gcl_messages",
+               "edge_vector_reduce_bwd": "edge_vector_reduce"}
+BWD_SOURCE = "diffndm_tpu_torch/csrc/egnn_edge_bwd.cu"
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
+# CUDA-core fp32 peak of an H100 SXM: the backward kernels run on it; the
+# bound takes the TF32 tensor-core rate all the same (the work could run
+# there), as the forward's does
+PEAK_FP32_FLOPS = 67e12
+# train phase: v3b's training set and raw state, the batch shapes of its
+# padding (ligands to 8, pockets to 64 rows), the CLI run's length and cut
+TRAIN_STATE = os.path.join(REPO, "diffndm_tpu_torch", "assets",
+                           "virtual_cond_v3b_last.npz")
+TRAIN_N = (72, 80, 88, 96)
+TRAIN_STEPS, TRAIN_EPOCH_BATCHES = 40, 40
+TRAIN_CHECK_B = 4             # the card-vs-CPU step: rows of the N=80 batch
+TRAIN_RTOL = 1e-5
+TRAIN_LOSS_MAX = 0.15         # the CLI run's mean loss (JAX: 0.099-0.100)
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -242,6 +271,15 @@ def call_cost(name, args, kw):
         extra = bsz * n * 3 + bsz * 3
     return (n_sets * edges * per_edge,
             4 * (node + planes + weights + extra + out))
+
+
+def forward_launches(K):
+    """The forward kernels' launch counts; a backward kernel launched
+    while sampling (which runs under no_grad) fails the run."""
+    if any(K.LAUNCHES[k] for k in BWD_KERNELS):
+        raise AssertionError(f"a backward kernel launched while sampling: "
+                             f"{K.LAUNCHES}")
+    return {k: K.LAUNCHES[k] for k in KERNELS}
 
 
 def bound_ms(ops, nbytes):
@@ -393,58 +431,6 @@ def capture_kernel_calls(torch, K, model, pocket, sizes):
         for n, f in originals.items():
             setattr(K, n, f)
     return calls
-
-
-def guard_phase(torch, K, model, pocket, sizes):
-    """The kernels have no backward, so the wrappers refuse to run where
-    autograd would need one: a denoiser forward in grad mode (its weights
-    require grad, as parameters do) raises the guard's RuntimeError and
-    the same forward under no_grad runs; so does each wrapper alone, on
-    the calls of that forward with one argument requiring grad."""
-    state = first_state(torch, model, pocket, sizes)
-    weight = dict(model.dynamics.named_parameters())[GUARD_WEIGHT]
-    if not weight.requires_grad:
-        raise AssertionError(f"{GUARD_WEIGHT} does not require grad")
-    refused = []
-
-    def expect_refusal(label, fn):
-        try:
-            with torch.enable_grad():
-                fn()
-        except RuntimeError as e:
-            if "no backward" not in str(e):
-                raise
-            refused.append(label)
-            return
-        raise AssertionError(f"[kernels] {label} ran in grad mode with an "
-                             f"input that requires grad")
-
-    expect_refusal("forward", lambda: model.dynamics(*state))
-    with torch.no_grad():
-        out = model.dynamics(*state)
-    calls = capture_kernel_calls(torch, K, model, pocket, sizes)
-    first = {n: next(c for c in calls if c[0] == n)
-             for n in ("gcl_messages", "edge_vector_reduce_pair")}
-    first["edge_vector_reduce"] = _single_set(
-        first["edge_vector_reduce_pair"])
-    for wrapper in WRAPPERS:
-        _, args, kw = first[wrapper]
-        args = list(args)
-        i = W2_ARG[wrapper]         # W2, or the pair's second W2
-        args[i] = ((args[i][0], args[i][1].clone().requires_grad_())
-                   if wrapper.endswith("_pair")
-                   else args[i].clone().requires_grad_())
-        expect_refusal(wrapper, lambda: getattr(K, wrapper)(*args, **kw))
-        with torch.no_grad():
-            getattr(K, wrapper)(*args, **kw)
-    torch.cuda.synchronize()
-    finite = all(bool(torch.isfinite(v).all()) for v in out)
-    log(f"[kernels] guard: in grad mode, refused: {refused} (the forward "
-        f"with {GUARD_WEIGHT} requiring grad, then each wrapper with one "
-        f"weight requiring grad); under no_grad each ran, forward outputs "
-        f"finite: {finite}")
-    if refused != ["forward", *WRAPPERS] or not finite:
-        raise AssertionError("the gradient guard did not behave")
 
 
 def _single_set(pair_call):
@@ -709,7 +695,7 @@ def main_path(torch, K, model, pockets, sizes):
             raise AssertionError(f"ligand shape {tuple(res.ligand.x.shape)}"
                                  f" != {expect}")
         mols += model.result_to_molecules(res)
-    launches = dict(K.LAUNCHES)
+    launches = forward_launches(K)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ligands.sdf")
         write_sdf(path, mols)
@@ -870,7 +856,7 @@ def guided_phase(torch, K, model, pockets, sizes):
         del oracle.score_batch_types
         for n, f in originals.items():
             setattr(K, n, f)
-    launches = dict(K.LAUNCHES)
+    launches = forward_launches(K)
 
     events = guidance_events(cfg, T_MAIN)
     forwards = count_forwards(cfg, T_MAIN)
@@ -1230,14 +1216,15 @@ def cli_phase(torch, K, ds, tmp):
         return fn
 
     def generate_ligands(self, *args, **kw):
-        before = dict(K.LAUNCHES)
+        before = forward_launches(K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mols, res = originals[0](self, *args, **kw)
         torch.cuda.synchronize()
         loops.append(dict(
             seconds=time.perf_counter() - t0, mols=mols, result=res,
-            launches={k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()},
+            launches={k: v - before[k]
+                      for k, v in forward_launches(K).items()},
             weights=[p.detach().clone() for p in
                      self.adjust_state.module.parameters()]))
         return mols, res
@@ -1270,7 +1257,7 @@ def cli_phase(torch, K, ds, tmp):
         DiffNDM.generate_ligands, AdjustNetState.reinforce = originals
         for n, f in wrappers.items():
             setattr(K, n, f)
-    launches = dict(K.LAUNCHES)
+    launches = forward_launches(K)
     pdb_pocket_check(torch, model, ds[CLI_POCKET], pdb, sdf)
 
     cfg, oracle = model.sample_cfg, model.oracle
@@ -1540,7 +1527,7 @@ def inpaint_cli_phase(torch, K, ds, tmp):
         DiffNDM.inpaint, inpaint_module.repaint_combine = originals
         for n, f in wrappers.items():
             setattr(K, n, f)
-    launches = dict(K.LAUNCHES)
+    launches = forward_launches(K)
     model = runs[0]["model"]
     forwards = count_inpaint_forwards(SampleConfig(), T_INPAINT, R_INPAINT,
                                       True, False)
@@ -1692,7 +1679,7 @@ def optimize_phase(torch, K, tmp, pdb, sdf):
     finally:
         for n, f in wrappers.items():
             setattr(K, n, f)
-    launches = dict(K.LAUNCHES)
+    launches = forward_launches(K)
     want = {k: OPT_GENERATIONS * (OPT_STEPS + 1) * n_layers for k in KERNELS}
     n_best = len(read_sdf(out_sdf))
     log(f"[optimize] population {OPT_POPULATION}, {OPT_STEPS} noising "
@@ -1833,7 +1820,7 @@ def sweep_phase(torch, K, ds, tmp):
                 setattr(K, n, f)
             for m, f in originals.items():
                 setattr(DiffNDM, m, f)
-        launches = dict(K.LAUNCHES)
+        launches = forward_launches(K)
         want = {k: summary["generations"] * per_call for k in KERNELS}
         outputs = sorted(f for f in os.listdir(outdir) if f.endswith(".sdf"))
         mols = [read_sdf(os.path.join(outdir, f)) for f in outputs]
@@ -1890,14 +1877,583 @@ def sweep_phase(torch, K, ds, tmp):
     return launches_a, checks
 
 
+# ---------------------------------------------------------------------------
+# backward kernels
+# ---------------------------------------------------------------------------
+
+def bwd_cost(name, args, kw):
+    """(operations, bytes) of one backward call: the three products and
+    the O(H) work of every edge with a nonzero adjacency among the rows
+    computed, per weight set; every input (the forward's and the output
+    gradient) read once, every gradient written once."""
+    pair = name == "edge_vector_reduce_pair"
+    a, adj = (args[0][0] if pair else args[0]), args[4]
+    bsz, n, h = a.shape
+    n_sets = 2 if pair else 1
+    rows = kw.get("n_rows")
+    rows = n if rows is None else max(0, min(n, rows))
+    edges = int((adj[:, :rows] != 0).sum())
+    per_edge = 6 * h * h + 24 * h
+    node = n_sets * 2 * (bsz * rows * h + bsz * n * h)    # a, b; da, db
+    planes = 3 * bsz * rows * n + 2 * bsz * rows * n      # in; dd2c, dd2i
+    weights = 2 * n_sets * (h * h + 5 * h)
+    if name == "gcl_messages":
+        extra = 2 * bsz * n * h                           # gout
+    else:
+        extra = 2 * (bsz * n * 3 + bsz * 3) + bsz * n * 3
+    return (n_sets * edges * per_edge,
+            4 * (node + planes + weights + extra))
+
+
+def bwd_inputs(torch, name, args):
+    """The differentiable inputs of a wrapper call, as fresh leaves that
+    require grad, and a function that calls the wrapper (or its plain
+    version) on them."""
+    pair = name == "edge_vector_reduce_pair"
+    leaves = []
+
+    def leaf(t):
+        t = t.detach().clone().requires_grad_()
+        leaves.append(t)
+        return t
+
+    new = []
+    for i, a in enumerate(args):
+        if i == 4 or a is None:                 # adj, or a missing batt
+            new.append(a)
+        elif isinstance(a, (tuple, list)):
+            new.append(tuple(leaf(t) for t in a))
+        else:
+            new.append(leaf(a))
+    return new, leaves, pair
+
+
+def bwd_compare(torch, label, got, ref):
+    """Largest share of the per-tensor gate used; raises past it."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err = float((g - r).abs().max())
+        lim = BWD_RTOL * float(r.abs().max()) + BWD_ATOL
+        if not bool(torch.isfinite(g).all()) or err > lim:
+            raise AssertionError(
+                f"{label}: gradient {i} disagrees with the plain backward: "
+                f"max abs {err:.3e} > {lim:.3e}")
+        worst = max(worst, err / lim)
+    return worst
+
+
+def check_backward(torch, K, name, args, kw, gout, against_autograd, reps):
+    """The kernel backward (through the wrapper's Function) against the
+    plain backward, twice for bit identity, optionally against autograd
+    through the plain forward; timed where ``reps``."""
+    new, leaves, pair = bwd_inputs(torch, name, args)
+    plain_fwd = getattr(K, name + "_plain")
+
+    def kernel_grads():
+        with torch.enable_grad():
+            out = getattr(K, name)(*new, **kw)
+            return torch.autograd.grad(out, leaves, gout)
+
+    got, again = kernel_grads(), kernel_grads()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} backward: two launches differ in "
+                             f"their bits")
+    detached = [tuple(t.detach() for t in a) if isinstance(a, (tuple, list))
+                else (a.detach() if a is not None else None) for a in args]
+    bwd_plain = getattr(K, name.replace("_pair", "") + (
+        "_pair" if pair else "") + "_backward_plain")
+    ref = bwd_plain(gout, *detached, **kw)
+    flat = []
+    for i, r in enumerate(ref):
+        if i == 4 or r is None:
+            continue
+        flat += list(r) if isinstance(r, tuple) else [r]
+    share = bwd_compare(torch, f"{name} backward", got, flat)
+    auto_share = None
+    if against_autograd:
+        with torch.enable_grad():
+            out = plain_fwd(*new, **kw)
+            auto = torch.autograd.grad(out, leaves, gout)
+        auto_share = bwd_compare(torch, f"{name} backward vs autograd", got,
+                                 auto)
+    res = dict(max_abs_err=max(float((g - r).abs().max())
+                               for g, r in zip(got, flat)),
+               tolerance_share=share, autograd_share=auto_share,
+               shape=list((args[0][0] if pair else args[0]).shape))
+    if reps:
+        fn = (K._gcl_messages_backward_cuda if name == "gcl_messages"
+              else None)
+        if fn is not None:
+            opts = (kw.get("attention", True), kw.get("norm_factor", 100.0))
+            call = lambda: fn(gout, *args[:10], *opts, [True] * 10)
+        else:
+            sets = ([tuple(a[s] for a in (args[0], args[1], *args[7:]))
+                     for s in (0, 1)] if pair else
+                    [tuple(args[i] for i in (0, 1, 7, 8, 9, 10))])
+            call = lambda: K._edge_vector_reduce_backward_cuda(
+                gout, sets, *args[2:7], kw.get("tanh", True),
+                kw.get("coords_range", 15.0), kw.get("norm_constant", 1.0),
+                kw.get("cross", False), kw.get("norm_factor", 100.0),
+                kw.get("n_rows"), (True, True))
+        res["ms"] = time_ms(torch, call, reps)
+        res["plain_ms"] = time_ms(torch, lambda: bwd_plain(
+            gout, *detached, **kw), max(2, reps // 10), warmup=1, rounds=3)
+        ops, nbytes = bwd_cost(name, args, kw)
+        res["bound_ms"], res["bound_by"] = bound_ms(ops, nbytes)
+        res["fp32_core_ms"] = 1e3 * ops / PEAK_FP32_FLOPS
+        res["tflops"] = ops / res["ms"] / 1e9
+        res["blocks"], res["rows_per_block"] = K.bwd_launch_grid(
+            *res["shape"], kw.get("n_rows"), 2 if pair else 1)
+    return res
+
+
+def describe_bwd(res):
+    text = (f"max abs {res['max_abs_err']:.3e}, at most "
+            f"{res['tolerance_share']:.3f} of the gate")
+    if res["autograd_share"] is not None:
+        text += (f" ({res['autograd_share']:.3f} against autograd through "
+                 f"the plain forward)")
+    if "ms" in res:
+        text += (f"; backward {res['ms']:.4f} ms per call (2 launches, "
+                 f"{res['tflops']:.1f} TFLOP/s), plain {res['plain_ms']:.4f}"
+                 f" ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+                 f"TF32 tensor cores; {res['fp32_core_ms']:.4f} ms at the "
+                 f"fp32 CUDA-core peak); grid {res['blocks']} blocks of "
+                 f"{res['rows_per_block']} rows")
+    return text
+
+
+def train_batches(torch, device):
+    """One v3b training batch (16 complexes of virtual_v3's training set,
+    in the loader's first epoch) per N in TRAIN_N."""
+    from diffndm_tpu_torch.data.dataset import (BucketedLoader,
+                                                ProcessedLigandPocketDataset)
+
+    ds = ProcessedLigandPocketDataset(os.path.join(DATA, "train.npz"))
+    found = {}
+    for lig, poc in BucketedLoader(ds, N_SAMPLES, drop_feature_cols=1):
+        n = lig.x.shape[1] + poc.x.shape[1]
+        if n in TRAIN_N and n not in found:
+            found[n] = (lig.to(device), poc.to(device))
+        if len(found) == len(TRAIN_N):
+            break
+    if sorted(found) != sorted(TRAIN_N):
+        raise AssertionError(f"no training batch of N in {TRAIN_N}: "
+                             f"{sorted(found)}")
+    return ds, found
+
+
+def make_trainer(torch, device, raw=None):
+    """v3b's model and Trainer on ``device``, resumed from its raw
+    training state."""
+    from diffndm_tpu_torch.config import (load_yaml, model_config_from_yaml,
+                                          train_config_from_yaml)
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.train.trainer import Trainer
+
+    raw = raw or load_yaml(os.path.join(RUN, "hparams.yaml"))
+    model = DiffNDM(model_config_from_yaml(raw), device=device)
+    trainer = Trainer(model.core, model.dynamics,
+                      train_config_from_yaml(raw),
+                      lj_rm=dataset_params[model.cfg.dataset][
+                          "lennard_jones_rm"])
+    trainer.load_checkpoint(TRAIN_STATE)
+    return model, trainer
+
+
+def step_draws(torch, lig, seed):
+    rng = np.random.default_rng(seed)
+    b, nl = lig.x.shape[:2]
+    t_int = torch.from_numpy(rng.integers(0, 501, size=b).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal(
+        (b, nl, 3 + lig.h.shape[-1])).astype(np.float32))
+    return t_int, noise
+
+
+def capture_train_calls(torch, K, trainer, lig, poc):
+    """The wrapper calls of one training forward (the loss at a drawn t)."""
+    calls = []
+    originals = {n: getattr(K, n) for n in WRAPPERS}
+
+    def recorder(name):
+        def fn(*args, **kw):
+            calls.append((name, args, kw))
+            return originals[name](*args, **kw)
+        return fn
+
+    for n in WRAPPERS:
+        setattr(K, n, recorder(n))
+    try:
+        with torch.no_grad():
+            trainer._loss(lig, poc, True, *step_draws(torch, lig, SEED))
+    finally:
+        for n, f in originals.items():
+            setattr(K, n, f)
+    return calls
+
+
+def backward_phase(torch, K, batches, trainer, device):
+    """Each backward kernel against the plain backward on the calls of one
+    training forward at each training shape (the first call of each kind
+    also against autograd through the plain forward, and timed), and at
+    the flagship shapes."""
+    results = {}
+    for n in TRAIN_N:
+        lig, poc = batches[n]
+        calls = capture_train_calls(torch, K, trainer, lig, poc)
+        counts = {w: sum(1 for c in calls if c[0] == w) for w in WRAPPERS}
+        if counts != {"gcl_messages": 5, "edge_vector_reduce": 0,
+                      "edge_vector_reduce_pair": 5}:
+            raise AssertionError(f"[backward] a training forward made "
+                                 f"{counts} wrapper calls")
+        for wrapper in ("gcl_messages", "edge_vector_reduce_pair"):
+            mine = [c for c in calls if c[0] == wrapper]
+            worst, first = 0.0, None
+            for i, (_, args, kw) in enumerate(mine):
+                g = torch.Generator(device=device).manual_seed(SEED + i)
+                shape = (args[0][0] if wrapper.endswith("_pair")
+                         else args[0]).shape
+                gout = torch.randn(
+                    (*shape[:2], 3 if wrapper.endswith("_pair")
+                     else shape[2]), generator=g, device=device) * 1e-2
+                res = check_backward(torch, K, wrapper, args, kw, gout,
+                                     i == 0, 10 if i == 0 else 0)
+                worst = max(worst, res["tolerance_share"])
+                first = first or res
+            first["tolerance_share"] = worst
+            kernel = "gcl_messages_bwd" if wrapper == "gcl_messages" \
+                else "edge_vector_reduce_bwd"
+            results.setdefault(kernel, {})[n] = first
+            log(f"[backward] training N={n} {wrapper} {first['shape']} "
+                f"({len(mine)} calls checked, gate {BWD_RTOL} x max|plain| "
+                f"+ {BWD_ATOL}): {describe_bwd(first)}")
+        del calls
+    for wrapper, kernel in (("gcl_messages", "gcl_messages_bwd"),
+                            ("edge_vector_reduce_pair",
+                             "edge_vector_reduce_bwd")):
+        args, kw = flagship_inputs(torch, wrapper, device)
+        pair = wrapper.endswith("_pair")
+        shape = (args[0][0] if pair else args[0]).shape
+        gout = torch.randn((*shape[:2], 3 if pair else shape[2]),
+                           generator=torch.Generator(device=device)
+                           .manual_seed(SEED), device=device) * 1e-2
+        res = check_backward(torch, K, wrapper, args, kw, gout, True, 3)
+        results[kernel]["flagship"] = res
+        log(f"[backward] flagship {wrapper} {res['shape']} {kw}: "
+            f"{describe_bwd(res)}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def train_path_check(torch, batches):
+    """One fixed-noise training micro-step pair (one optimizer update at
+    accumulate_grad_batches 2) from v3b's raw state on the card and on the
+    CPU: the same rows, t and noise.  Gated: the loss within TRAIN_RTOL;
+    every clipped gradient tensor within the backward kernels' gate
+    (BWD_RTOL of its largest entry + BWD_ATOL); the gradient norm within
+    BWD_RTOL; and the optimizer on the card, fed the CPU's clipped
+    gradients, giving the CPU's parameters, EMA and clip buffer within
+    TRAIN_RTOL.  Reported, not gated: the card's parameters after its own
+    update.  Adam's first update is about sign(g) * lr for every element,
+    so an element whose gradient lies within the kernels' accepted error
+    of zero moves by up to 2 * lr differently on the two devices."""
+    from diffndm_tpu_torch.structs import NodeBatch
+
+    lig, poc = batches[80]
+    rows = slice(0, TRAIN_CHECK_B)
+    cut = [NodeBatch(*(a[rows].cpu() for a in nb)) for nb in (lig, poc)]
+    draws = [step_draws(torch, cut[0], SEED + 20 + i) for i in range(2)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, trainer = make_trainer(torch, device)
+        grads, update = [], trainer.opt.update
+
+        def recording(params, g, _grads=grads, _update=update):
+            _grads.append([t.detach().cpu().clone() for t in g])
+            return _update(params, g)
+
+        trainer.opt.update = recording
+        infos = [trainer.train_step(*cut, *d) for d in draws]
+        if trainer.opt.count != 1:
+            raise AssertionError("[train] the two micro-steps made no update")
+        out[device] = dict(
+            infos=infos, grads=grads, trainer=trainer,
+            state=[t.detach().cpu() for t in trainer.params + trainer.ema]
+            + [trainer.gradnorm_buf.cpu()])
+    g, c = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0])
+                   for a, b in zip(g["infos"], c["infos"]))
+    norm_rel = max(abs(a[1]["grad_norm"] - b[1]["grad_norm"])
+                   / b[1]["grad_norm"] for a, b in zip(g["infos"], c["infos"]))
+    grad_share = max(
+        float((a - b).abs().max()) / (BWD_RTOL * float(b.abs().max())
+                                      + BWD_ATOL)
+        for ga, gb in zip(g["grads"], c["grads"]) for a, b in zip(ga, gb))
+    # the optimizer on the card, fed the CPU's clipped gradients
+    _, replay = make_trainer(torch, "cuda")
+    for grads in c["grads"]:
+        replay.apply_gradients([t.cuda() for t in grads])
+    replay_state = [t.detach().cpu() for t in replay.params + replay.ema]
+
+    def rel(xs, ys):
+        return max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(xs, ys))
+
+    replay_rel = rel(replay_state, c["state"][:-1])
+    buf_rel = rel(g["state"][-1:], c["state"][-1:])
+    own_rel = rel(g["state"][:-1], c["state"][:-1])
+    # where the card's own update differs most, and that element's
+    # gradient on both devices (the mean of the two micro-steps)
+    names = c["trainer"].names
+    worst = max(range(len(names)), key=lambda i: float(
+        (g["state"][i] - c["state"][i]).abs().max()))
+    k = int((g["state"][worst] - c["state"][worst]).abs().argmax())
+    gm = [sum(gr[worst].flatten()[k] for gr in d["grads"]) / 2
+          for d in (g, c)]
+    scale = max(float(gr[worst].abs().max()) for gr in c["grads"])
+    log(f"[train] fixed-noise step, card vs CPU ({TRAIN_CHECK_B} rows of the "
+        f"N=80 batch, v3b's raw state, 2 micro-steps = 1 update): losses "
+        f"{[round(a[0], 6) for a in g['infos']]} / "
+        f"{[round(b[0], 6) for b in c['infos']]} (max rel {loss_rel:.2e}, "
+        f"gate {TRAIN_RTOL}); grad norms "
+        f"{[round(a[1]['grad_norm'], 6) for a in g['infos']]} / "
+        f"{[round(b[1]['grad_norm'], 6) for b in c['infos']]} (max rel "
+        f"{norm_rel:.2e}, gate {BWD_RTOL}; the clip buffers max rel "
+        f"{buf_rel:.2e}); clipped gradients at most "
+        f"{grad_share:.3f} of the gate {BWD_RTOL} x max|g| + {BWD_ATOL}; "
+        f"the card's optimizer on the CPU's gradients: params and EMA max "
+        f"rel {replay_rel:.2e} (gate {TRAIN_RTOL})")
+    log(f"[train] not gated: the card's params and EMA after its own update "
+        f"max rel {own_rel:.2e} of each tensor's largest entry; the worst "
+        f"element, in {names[worst]}, has a mean gradient "
+        f"{float(gm[0]):.3e} (card) / {float(gm[1]):.3e} (CPU) against "
+        f"the tensor's largest {scale:.3e}")
+    if not (loss_rel <= TRAIN_RTOL and norm_rel <= BWD_RTOL
+            and buf_rel <= BWD_RTOL and grad_share <= 1.0
+            and replay_rel <= TRAIN_RTOL):
+        raise AssertionError("[train] the card's training step disagrees "
+                             "with the CPU's")
+
+
+def write_split(path, pairs):
+    """Complexes in the reference's flat npz format."""
+    np.savez(path, names=np.array([p.name for p in pairs]),
+             lig_coords=np.concatenate([p.lig_coords for p in pairs]),
+             lig_one_hot=np.concatenate([p.lig_one_hot for p in pairs]),
+             lig_mask=np.concatenate([np.full(len(p.lig_coords), i)
+                                      for i, p in enumerate(pairs)]),
+             pocket_coords=np.concatenate([p.pocket_coords for p in pairs]),
+             pocket_one_hot=np.concatenate([p.pocket_one_hot for p in pairs]),
+             pocket_mask=np.concatenate([np.full(len(p.pocket_coords), i)
+                                         for i, p in enumerate(pairs)]))
+
+
+def train_cli_phase(torch, K, ds, tmp):
+    """The train CLI in this process, resuming v3b from its raw state on a
+    training split cut to TRAIN_EPOCH_BATCHES batches, so that the epoch
+    ends at step TRAIN_STEPS and the eval runs once.  Launch counts per
+    micro-step, val batch and dashboard sampling; the loss; the
+    checkpoints written and read back."""
+    import shutil
+
+    from diffndm_tpu_torch.cli import train as train_cli
+    from diffndm_tpu_torch.convert import params_from_jax
+    from diffndm_tpu_torch.diffusion.sampler import count_forwards
+    from diffndm_tpu_torch.config import SampleConfig
+    from diffndm_tpu_torch.train.eval_dashboard import ChemistryDashboard
+    from diffndm_tpu_torch.train.trainer import Trainer, load_train_state
+
+    datadir = os.path.join(tmp, "data")
+    os.makedirs(datadir)
+    write_split(os.path.join(datadir, "train.npz"),
+                ds.pairs[:TRAIN_EPOCH_BATCHES * N_SAMPLES])
+    for name in ("val.npz", "size_distribution.npy"):
+        shutil.copy(os.path.join(DATA, name), datadir)
+    argv = ["--config", os.path.join(RUN, "hparams.yaml"), "--resume",
+            TRAIN_STATE, "--max_steps", str(TRAIN_STEPS), "--set",
+            f"logdir={tmp}", "--set", "eval_epochs=1", "--set",
+            f"datadir={datadir}"]
+    log(f"[train] python -m diffndm_tpu_torch.cli.train {' '.join(argv)}")
+    records = {"train": [], "eval": [], "dashboard": []}
+    originals = (Trainer.train_step, Trainer.eval_step,
+                 ChemistryDashboard.sample_and_analyze)
+
+    def counted(kind, fn):
+        def wrapper(*args, **kw):
+            before = dict(K.LAUNCHES)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            records[kind].append(dict(
+                launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES},
+                ms=1e3 * (time.perf_counter() - t0),
+                peak=torch.cuda.max_memory_allocated(), out=out))
+            return out
+        return wrapper
+
+    Trainer.train_step = counted("train", originals[0])
+    Trainer.eval_step = counted("eval", originals[1])
+    ChemistryDashboard.sample_and_analyze = counted("dashboard",
+                                                    originals[2])
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = train_cli.main(argv)
+    finally:
+        (Trainer.train_step, Trainer.eval_step,
+         ChemistryDashboard.sample_and_analyze) = originals
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
+                "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
+    per_eval = {"gcl_messages": 10, "edge_vector_reduce": 10,
+                "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
+    sample_forwards = count_forwards(SampleConfig(), T_MAIN)
+    per_dash = {"gcl_messages": 5 * sample_forwards,
+                "edge_vector_reduce": 5 * sample_forwards,
+                "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
+    bad = ([r["launches"] for r in records["train"]
+            if r["launches"] != per_step]
+           + [r["launches"] for r in records["eval"]
+              if r["launches"] != per_eval]
+           + [r["launches"] for r in records["dashboard"]
+              if r["launches"] != per_dash])
+    losses = [r["out"][0] for r in records["train"]]
+    ms = [r["ms"] for r in records["train"]]
+    peaks = [r["peak"] for r in records["train"]]
+    val = summary["val_losses"]
+    outdir = summary["outdir"]
+    with open(os.path.join(RUN, "training_metrics.jsonl")) as f:
+        jax_rows = [json.loads(line) for line in f]
+    jax_last = [r["loss"] for r in jax_rows if r["split"] == "train"][-5:]
+    with open(os.path.join(outdir, "metrics.jsonl")) as f:
+        val_rec = [json.loads(line) for line in f
+                   if '"split": "val"' in line][-1]
+    log(f"[train] {len(losses)} micro-steps at [{N_SAMPLES}, N, 192] in "
+        f"{wall:.1f} s (load, eval and checkpoints included); loss per "
+        f"step {[round(v, 4) for v in losses]}; mean "
+        f"{float(np.mean(losses)):.5f} (the JAX run's last five epochs: "
+        f"{[round(v, 5) for v in jax_last]}; gate <= {TRAIN_LOSS_MAX}); "
+        f"ms per micro-step (host clock, synchronised) median "
+        f"{float(np.median(ms)):.2f}, min {min(ms):.2f}, max {max(ms):.2f} "
+        f"(first {ms[0]:.2f}); peak device memory per micro-step "
+        f"{max(peaks) / 2**20:.1f} MiB")
+    log(f"[train] eval: {len(records['eval'])} val batches, val loss "
+        f"{val}; dashboard ({len(records['dashboard'])} sampling of "
+        f"{N_SAMPLES} pockets at T={T_MAIN}, "
+        f"{[round(r['ms'] / 1e3, 2) for r in records['dashboard']]} s): "
+        f"{ {k: round(v, 4) for k, v in val_rec.items() if k not in ('step', 'split', 'time', 'epoch')} }")
+    log(f"[train] launches {launches}: per micro-step {per_step}, per val "
+        f"batch {per_eval}, per dashboard sampling {per_dash}; mismatches "
+        f"{bad[:3]}")
+    if bad or len(records["train"]) != TRAIN_STEPS or not records["eval"] \
+            or len(records["dashboard"]) != 1:
+        raise AssertionError("[train] launch counts or phases off")
+    if not all(np.isfinite(losses)) or np.mean(losses) > TRAIN_LOSS_MAX \
+            or not all(np.isfinite(val)):
+        raise AssertionError("[train] the loss is not finite or too high")
+    for name in ("best.npz", "last.npz"):
+        params, ema, step = load_train_state(os.path.join(outdir, name))
+        model_cfg_state = params_from_jax(ema)
+        if step != 59988 + TRAIN_STEPS or any(
+                not bool(torch.isfinite(v).all())
+                for v in model_cfg_state.values()):
+            raise AssertionError(f"[train] {name} did not load back")
+    log(f"[train] best.npz and last.npz written at step "
+        f"{59988 + TRAIN_STEPS} and read back; the EMA weights load into "
+        f"the model")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"[train] a kernel was not launched: "
+                             f"{launches}")
+    return launches, dict(ms=ms, peaks=peaks, losses=losses)
+
+
+def train_step_profile(torch, K, batches):
+    """Where a micro-step's time goes at [16, 96, 192]: host ms per
+    micro-step, the profiler's device busy time and the kernels' share;
+    peak device memory per micro-step with the kernels and with the plain
+    chain (autograd through the plain versions, which keeps the [B, N, N,
+    H] planes)."""
+    lig, poc = batches[96]
+    _, trainer = make_trainer(torch, "cuda")
+    draws = step_draws(torch, lig, SEED + 30)
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(lig, poc, *draws)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    steps(2)
+    host = steps(10)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms = steps(5)
+    busy_us, ours, n_dev = 0.0, {"fwd": 0.0, "bwd": 0.0}, 0
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            dur = ev.time_range.elapsed_us()
+            busy_us += dur
+            n_dev += 1
+            if "edge_chain_bwd" in ev.name:
+                ours["bwd"] += dur
+            elif "edge_chain" in ev.name:
+                ours["fwd"] += dur
+    peaks = {}
+    for label in ("kernels", "plain chain"):
+        originals = {n: getattr(K, n) for n in WRAPPERS}
+        if label == "plain chain":
+            for n in WRAPPERS:
+                setattr(K, n, getattr(K, n + "_plain"))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            trainer.train_step(lig, poc, *draws)
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        finally:
+            for n, f in originals.items():
+                setattr(K, n, f)
+    if n_dev == 0:
+        log("[train] the profiler recorded no device activity: idle share "
+            "not measured")
+        busy = None
+    else:
+        busy = busy_us / 1e3 / 5
+        log(f"[train] micro-step at [{N_SAMPLES}, 96, 192]: {host:.3f} ms by "
+            f"the host clock; profiler: {n_dev / 5:.0f} device activities "
+            f"per micro-step, device busy {busy:.3f} ms of {prof_ms:.3f}, of "
+            f"which the forward kernels {ours['fwd'] / 5e3:.3f} and the "
+            f"backward kernels {ours['bwd'] / 5e3:.3f}; idle share "
+            f"{1 - busy / prof_ms:.3f}")
+    log(f"[train] peak device memory of a micro-step above its inputs: "
+        f"{peaks['kernels']:.1f} MiB through the kernels (Functions that "
+        f"save their inputs), {peaks['plain chain']:.1f} MiB through the "
+        f"plain chain (a memory comparison only)")
+    return dict(host_ms=host, busy_ms=busy, peaks=peaks)
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["kernels", "phases", "quality"],
+    parser.add_argument("--only", choices=["kernels", "phases", "quality",
+                                           "train"],
                         default=None, help="stop after the kernel phase, "
-                        "print the kernels' cycles per phase, or run the "
-                        "quality evaluation alone over several seeds")
+                        "print the kernels' cycles per phase, run the "
+                        "quality evaluation alone over several seeds, or "
+                        "run the backward checks and the train phase alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1919,12 +2475,14 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # the two compilers side by side
+    with ThreadPoolExecutor(3) as pool:     # the compilers side by side
         builds = [pool.submit(K.build_library),
+                  pool.submit(K.build_library, source=K.BWD_SOURCE),
                   pool.submit(native.build_library)]
-        so, scorer_so = (b.result() for b in builds)
-    log(f"[identity] kernels and reward scorer built in "
+        so, bwd_so, scorer_so = (b.result() for b in builds)
+    log(f"[identity] kernels, backward kernels and reward scorer built in "
         f"{time.perf_counter() - t0:.1f} s: {os.path.relpath(so, REPO)}, "
+        f"{os.path.relpath(bwd_so, REPO)}, "
         f"{os.path.relpath(scorer_so, REPO)}")
     # the compiler's report, per instantiation edge_chain_mma<H, VEC>
     kernel = None
@@ -1934,6 +2492,16 @@ def main() -> int:
         if m:
             name = "edge_vector_reduce" if m[2] == "1" else "gcl_messages"
             kernel = f"{name} H={int(m[1])}"
+        elif kernel and ("registers" in line or "spill" in line):
+            log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
+    kernel = None
+    for line in bwd_so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function .*edge_chain_bwd(ILi(\d+)"
+                      r"ELb([01])E|_reduce)", line)
+        if m:
+            kernel = (f"backward reduce" if m[2] is None else
+                      f"{'edge_vector_reduce' if m[3] == '1' else 'gcl_messages'}"
+                      f" backward H={int(m[2])}")
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
 
@@ -1965,9 +2533,18 @@ def main() -> int:
         inpaint_quality_spread(torch, ds, make_model("cuda"))
         return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
-    guard_phase(torch, K, model, pockets[0], sizes[0])
+    train_ds, batches = train_batches(torch, model.device)
+    bwd_results = backward_phase(torch, K, batches,
+                                 make_trainer(torch, "cuda")[1], model.device)
     if opts.only == "kernels":
         log("[kernels] done (--only kernels: no result)")
+        return 0
+    if opts.only == "train":
+        train_path_check(torch, batches)
+        with tempfile.TemporaryDirectory() as tmp:
+            train_cli_phase(torch, K, train_ds, tmp)
+        train_step_profile(torch, K, batches)
+        log("[train] done (--only train: no result)")
         return 0
     path_check(torch, make_model, ds[POCKETS[0]])
     launches = main_path(torch, K, model, pockets, sizes)
@@ -1997,6 +2574,10 @@ def main() -> int:
     diversify_path_check(torch, make_model, ds[CLI_POCKET])
     with tempfile.TemporaryDirectory() as tmp:
         sweep_launches, sweep_checks = sweep_phase(torch, K, ds, tmp)
+    train_path_check(torch, batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, _ = train_cli_phase(torch, K, train_ds, tmp)
+    train_step_profile(torch, K, batches)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -2021,6 +2602,23 @@ def main() -> int:
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "blocks", "rows_per_block")})
              for name, src in KERNELS.items()]
+    for name, forward in BWD_KERNELS.items():
+        at = bwd_results[name]
+        main_res = at[88]
+        table.append(dict(
+            name=name, route="cuda", source=BWD_SOURCE,
+            replaces=KERNELS[forward], launches=train_launches[name],
+            note="the backward of the forward kernel's function; the TPU "
+            "kernel has no VJP (JAX differentiates its dense path)",
+            max_abs_err=max(r["max_abs_err"] for r in at.values()),
+            ms=main_res["ms"], plain_ms=main_res["plain_ms"],
+            bound_ms=main_res["bound_ms"], bound_by=main_res["bound_by"],
+            library_ms=None, bound_peak="tf32 495 TFLOP/s, 3.35 TB/s",
+            shape=main_res["shape"], launches_per_call=2,
+            shapes={str(k): {c: r[c] for c in (
+                "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
+                "bound_ms", "bound_by", "fp32_core_ms", "blocks")}
+                for k, r in at.items()}))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The same field names and defaults as the JAX package's ``config.py`` for
 what this package runs: the EGNN denoiser, the diffusion schedule, the
 model's feature sizes, sampling with or without SPSA / ATP guidance and
-the RL noise adjustment, RePaint inpainting, and the output filters.
+the RL noise adjustment, RePaint inpainting, the output filters, and
+training.
 Reference-style YAML files (``configs/*.yml``, a checkpoint's
 ``hparams.yaml``) are read by a small parser for the subset of YAML those
 files use, so the package needs no YAML library.
@@ -37,6 +38,10 @@ class EGNNConfig:
     edge_embedding_dim: Optional[int] = None
     update_pocket_coords: bool = False  # conditional mode freezes the pocket
     condition_time: bool = True
+    # recompute each block's edge tensors in the backward instead of
+    # keeping them: the edge-chain kernels' backward already saves only
+    # their inputs, so this is read and has nothing left to save
+    remat: bool = False
 
 
 @dataclass(frozen=True)
@@ -45,8 +50,12 @@ class DiffusionConfig:
     timesteps: int = 500
     noise_schedule: str = "polynomial_2"
     noise_precision: float = 5.0e-4
+    loss_type: str = "l2"  # 'l2' | 'vlb'
     norm_values: Sequence[float] = (1.0, 4.0)
     norm_biases: Sequence[float] = (0.0, 0.0)
+    # the one-hot column of the virtual atom type, whose coordinate error
+    # the loss masks (data/virtual.py); None = no virtual nodes
+    virtual_node_idx: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -181,6 +190,27 @@ class SampleConfig:
                              f"'pocket', got {self.inpaint.center!r}")
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training: AdamW with amsgrad and decoupled weight decay, the
+    adaptive gradient clip, gradient accumulation, the Lennard-Jones
+    auxiliary loss, the eval cadence and the EMA of the weights (0 = off)."""
+    lr: float = 1e-3
+    weight_decay: float = 1e-12
+    amsgrad: bool = True
+    batch_size: int = 16
+    n_epochs: int = 1000
+    clip_grad: bool = True
+    accumulate_grad_batches: int = 4
+    auxiliary_loss: bool = False
+    aux_max_weight: float = 1e-3
+    aux_schedule: str = "linear"
+    aux_clamp_lj: float = 3.0
+    eval_epochs: int = 50
+    seed: int = 0
+    ema_decay: float = 0.0
+
+
 # ---------------------------------------------------------------------------
 # YAML subset: nested block mappings, inline [a, b] lists, block "- x"
 # lists, comments, quoted strings; scalars resolve like yaml.safe_load
@@ -198,6 +228,8 @@ def _scalar(text: str):
     if text.startswith("[") and text.endswith("]"):
         inner = text[1:-1].strip()
         return [_scalar(v) for v in inner.split(",")] if inner else []
+    if text == "{}":
+        return {}
     low = text.lower()
     if low in ("null", "~", ""):
         return None
@@ -288,11 +320,13 @@ def model_config_from_yaml(raw: dict) -> ModelConfig:
         edge_cutoff_interaction=eg.get("edge_cutoff_interaction"),
         edge_embedding_dim=eg.get("edge_embedding_dim"),
         update_pocket_coords=raw.get("mode", "pocket_conditioning") == "joint",
+        remat=eg.get("remat", False),
     )
     diffusion = DiffusionConfig(
         timesteps=di.get("diffusion_steps", 500),
         noise_schedule=di.get("diffusion_noise_schedule", "polynomial_2"),
         noise_precision=di.get("diffusion_noise_precision", 5e-4),
+        loss_type=di.get("diffusion_loss_type", "l2"),
         norm_values=tuple(di.get("normalize_factors", (1.0, 4.0))),
     )
     dataset = raw.get("dataset", "crossdock")
@@ -318,3 +352,69 @@ def model_config_from_yaml(raw: dict) -> ModelConfig:
         egnn=egnn,
         diffusion=diffusion,
     )
+
+
+def train_config_from_yaml(raw: dict) -> TrainConfig:
+    """The training settings of a reference-style YAML dict, read as the
+    JAX package's train CLI reads them."""
+    lp = raw.get("loss_params") or {}
+    return TrainConfig(
+        lr=float(raw.get("lr", 1e-3)),
+        batch_size=int(raw.get("batch_size", 16)),
+        n_epochs=int(raw.get("n_epochs", 1000)),
+        clip_grad=bool(raw.get("clip_grad", True)),
+        accumulate_grad_batches=int(raw.get("accumulate_grad_batches", 1)),
+        auxiliary_loss=bool(raw.get("auxiliary_loss", False)),
+        aux_max_weight=float(lp.get("max_weight", 1e-3)),
+        aux_schedule=lp.get("schedule", "linear"),
+        aux_clamp_lj=float(lp.get("clamp_lj", 3.0)),
+        eval_epochs=int(raw.get("eval_epochs", 50)),
+        ema_decay=float(raw.get("ema_decay", 0.0)),
+    )
+
+
+def _yaml_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return repr(v)
+    if isinstance(v, float):
+        text = repr(v)
+        if "e" in text and "." not in text:     # YAML 1.1 wants the dot
+            text = text.replace("e", ".0e")
+        return text
+    text = str(v)
+    if _scalar(text) == text and text.strip() == text and not any(
+            c in text for c in ":#[]{},&*!|>'\"%@`"):
+        return text
+    for quote in ("'", '"'):
+        if quote not in text and "\\" not in text:
+            return quote + text + quote
+    raise ValueError(f"dump_yaml: cannot quote {text!r}")
+
+
+def dump_yaml(data: dict, indent: int = 0) -> str:
+    """A dict of scalars, lists of scalars and nested dicts as block YAML
+    (keys sorted, as ``yaml.safe_dump`` writes them), which ``parse_yaml``
+    and PyYAML both read back to the same dict."""
+    pad = " " * indent
+    lines = []
+    for key in sorted(data):
+        value = data[key]
+        if isinstance(value, dict):
+            if value:
+                lines.append(f"{pad}{key}:")
+                lines.append(dump_yaml(value, indent + 2).rstrip("\n"))
+            else:
+                lines.append(f"{pad}{key}: {{}}")
+        elif isinstance(value, (list, tuple)):
+            if value:
+                lines.append(f"{pad}{key}:")
+                lines.extend(f"{pad}- {_yaml_scalar(v)}" for v in value)
+            else:
+                lines.append(f"{pad}{key}: []")
+        else:
+            lines.append(f"{pad}{key}: {_yaml_scalar(value)}")
+    return "\n".join(lines) + "\n"

@@ -3,8 +3,9 @@
 A self-contained copy of the subset of the JAX package's ``constants.py``
 that bond perception, molecule building and the full-atom pocket encoding
 read: bond-length tables (pm), OpenBabel covalent radii and bond caps,
-allowed valences, masses, the 11-type atom decoder and the standard amino
-acids that pocket extraction from a PDB file keeps.
+allowed valences, masses, the 11-type atom decoder, the standard amino
+acids that pocket extraction from a PDB file keeps, and the Lennard-Jones
+r_m table of the training loss's auxiliary term.
 """
 
 from __future__ import annotations
@@ -115,7 +116,33 @@ _LIG_DECODER_11 = ["C", "N", "O", "S", "B", "Br", "Cl", "P", "I", "F",
                    "others"]
 
 
-def _make_params(atom_decoder, aa_decoder):
+# pm, multi-bond covalent radii (the Lennard-Jones table's fallback)
+COVALENT_RADII = {
+    "H": 32, "C": 60, "N": 54, "O": 53, "F": 53, "B": 73, "Al": 111,
+    "Si": 102, "P": 94, "S": 94, "Cl": 93, "As": 106, "Br": 109, "I": 125,
+    "Hg": 133, "Bi": 135,
+}
+
+
+def _lj_table(decoder: list) -> np.ndarray:
+    """Lennard-Jones r_m (pm): the shortest tabulated bond length of a
+    bondable pair, else the sum of covalent radii."""
+    k = len(decoder)
+    tables = [_sym_table(t, decoder) for t in (BONDS1, BONDS2, BONDS3)]
+    out = np.zeros((k, k), dtype=np.float32)
+    for i in range(k):
+        for j in range(k):
+            cands = [t[i, j] for t in tables if t[i, j] > 0]
+            if cands:
+                out[i, j] = min(cands)
+            else:
+                ri = COVALENT_RADII.get(decoder[i], 0)
+                rj = COVALENT_RADII.get(decoder[j], 0)
+                out[i, j] = ri + rj if (ri and rj) else 0.0
+    return out
+
+
+def _make_params(atom_decoder, aa_decoder, atom_hist):
     bond_decoder = [a for a in atom_decoder if a != "others"]
 
     def padded(tab):
@@ -131,6 +158,9 @@ def _make_params(atom_decoder, aa_decoder):
         "bonds1": padded(_sym_table(BONDS1, bond_decoder)),
         "bonds2": padded(_sym_table(BONDS2, bond_decoder)),
         "bonds3": padded(_sym_table(BONDS3, bond_decoder)),
+        "lennard_jones_rm": padded(_lj_table(bond_decoder)),
+        # ligand atom counts of the training set (the dashboard's type KL)
+        "atom_hist": dict(atom_hist),
         # trailing decoder entries that are padding types, not elements
         "_pad_types": len(atom_decoder) - len(bond_decoder),
     }
@@ -139,5 +169,8 @@ def _make_params(atom_decoder, aa_decoder):
 # full-atom CrossDocked encoding: ligand and pocket share the 11-type
 # decoder, whose last ("others") column is dropped at model level
 dataset_params = {
-    "crossdock_full": _make_params(_LIG_DECODER_11, _LIG_DECODER_11),
+    "crossdock_full": _make_params(
+        _LIG_DECODER_11, _LIG_DECODER_11,
+        {"C": 1570767, "N": 273858, "O": 396837, "S": 26352, "B": 0,
+         "Br": 0, "Cl": 15058, "P": 25994, "I": 0, "F": 30687, "others": 0}),
 }

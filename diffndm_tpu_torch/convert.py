@@ -55,6 +55,24 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``: a state_dict of the port's
+    EGNNDynamics -> the flat JAX tree (``params/<module>/kernel`` for an
+    ``nn.Linear`` weight, transposed back; explicit parameters under their
+    own names)."""
+    out = {}
+    for key, value in state.items():
+        value = value.detach().cpu().numpy().astype(np.float32)
+        if key.endswith(".weight"):
+            path, value = key[:-len(".weight")] + "/kernel", value.T
+        elif key.endswith(".bias"):
+            path = key[:-len(".bias")] + "/bias"
+        else:
+            path = key
+        out["params/" + path.replace(".", "/")] = np.ascontiguousarray(value)
+    return out
+
+
 def adjust_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The flax AdjustNet tree (``fc1``/``fc2`` Dense layers, optionally
     under ``"params"``) -> the state_dict of ``models.adjust_net.AdjustNet``."""

@@ -1,13 +1,17 @@
 """Processed ligand-pocket dataset: the reference's single npz per split
 (flat node arrays with per-node sample indices), split per complex and
-optionally centred on the joint centre of mass."""
+optionally centred on the joint centre of mass; padded batches in shape
+buckets for training (``BucketedLoader``: the JAX package's batches, in
+its order, from the same seed)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from diffndm_tpu_torch.structs import NodeBatch, from_lists
 
 
 @dataclasses.dataclass
@@ -53,3 +57,68 @@ class ProcessedLigandPocketDataset:
 
     def __getitem__(self, idx) -> LigandPocketPair:
         return self.pairs[idx]
+
+    def size_histogram(self, smooth_sigma: float = 1.0) -> np.ndarray:
+        """The smoothed joint (ligand size, pocket size) histogram."""
+        from diffndm_tpu_torch.diffusion.node_distribution import \
+            smoothed_histogram
+
+        return smoothed_histogram([len(p.lig_coords) for p in self.pairs],
+                                  [len(p.pocket_coords) for p in self.pairs],
+                                  smooth_sigma)
+
+
+def collate_padded(pairs: List[LigandPocketPair], lig_pad: int = 8,
+                   pocket_pad: int = 64, drop_feature_cols: int = 0
+                   ) -> Tuple[NodeBatch, NodeBatch]:
+    """(ligand, pocket) NodeBatches of a list of pairs, each padded to a
+    multiple of its pad; ``drop_feature_cols`` trailing one-hot columns
+    (the padding types) are dropped."""
+    def prep(oh):
+        return oh[:, :oh.shape[1] - drop_feature_cols] \
+            if drop_feature_cols else oh
+
+    ligand = from_lists([p.lig_coords for p in pairs],
+                        [prep(p.lig_one_hot) for p in pairs],
+                        pad_multiple=lig_pad)
+    pocket = from_lists([p.pocket_coords for p in pairs],
+                        [prep(p.pocket_one_hot) for p in pairs],
+                        pad_multiple=pocket_pad)
+    return ligand, pocket
+
+
+class BucketedLoader:
+    """Padded batches of complexes of similar joint size: the complexes
+    sorted by size, cut into batches, the batches shuffled per epoch by
+    ``np.random.default_rng(seed)``; the last batch is filled cyclically.
+    Batches lie on the CPU."""
+
+    def __init__(self, dataset: ProcessedLigandPocketDataset,
+                 batch_size: int, lig_pad: int = 8, pocket_pad: int = 64,
+                 shuffle: bool = True, seed: int = 0,
+                 drop_feature_cols: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.lig_pad = lig_pad
+        self.pocket_pad = pocket_pad
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.drop_feature_cols = drop_feature_cols
+        sizes = np.array([len(p.lig_coords) + len(p.pocket_coords)
+                          for p in dataset.pairs])
+        self.order = np.argsort(sizes)
+
+    def __len__(self):
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self) -> Iterator[Tuple[NodeBatch, NodeBatch]]:
+        batches = [self.order[i:i + self.batch_size]
+                   for i in range(0, len(self.order), self.batch_size)]
+        if self.shuffle:
+            self.rng.shuffle(batches)
+        for idxs in batches:
+            pairs = [self.dataset[int(i)] for i in idxs]
+            while len(pairs) < self.batch_size:
+                pairs = pairs + pairs[: self.batch_size - len(pairs)]
+            yield collate_padded(pairs, self.lig_pad, self.pocket_pad,
+                                 self.drop_feature_cols)

@@ -1,6 +1,7 @@
-"""Conditional variational-DDPM sampling math over padded batches.
+"""Conditional variational-DDPM math over padded batches.
 
-The sampling half of the JAX package's ``CondDiffusion``.  Per-sample
+The JAX package's ``CondDiffusion``: sampling, and the likelihood terms
+of the training loss (KL prior, the t = 0 reconstruction).  Per-sample
 gammas are [B] tensors broadcast as [B, 1, 1].  Every function that draws
 noise takes it as an optional ``noise`` argument (the replay tests feed
 the noise JAX drew); otherwise it draws from the given
@@ -9,6 +10,7 @@ the noise JAX drew); otherwise it draws from the given
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -17,7 +19,8 @@ import torch.nn.functional as F
 from diffndm_tpu_torch.config import DiffusionConfig
 from diffndm_tpu_torch.diffusion import schedules as S
 from diffndm_tpu_torch.diffusion.schedules import GammaSchedule
-from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
+from diffndm_tpu_torch.ops.segment import (masked_mean, remove_mean_ligand,
+                                           sum_except_batch)
 
 # eps_fn(xh_lig, xh_pocket, t, lig_mask, pocket_mask) -> (eps_lig, eps_pocket)
 EpsFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
@@ -194,6 +197,68 @@ class CondDiffusion:
         ml = lig_mask[..., None]
         mp = pocket_mask[..., None]
         return x_lig * ml, h_onehot * ml, x_pocket * mp, h_pocket * mp
+
+    # -- loss terms -------------------------------------------------------------
+    def subspace_dimensionality(self, num_nodes):
+        """Degrees of freedom of the ligand coordinates: (N - 1) * 3 in the
+        ligand-COM-free subspace."""
+        return (num_nodes - 1) * self.n_dims
+
+    def kl_prior(self, xh_lig, lig_mask, num_nodes):
+        """KL(q(z_T | x) || N(0, 1)) of the ligand, [B]."""
+        b = xh_lig.shape[0]
+        gamma_T = self.gamma_int(torch.full((b,), self.schedule.timesteps,
+                                            device=xh_lig.device))
+        mu = _b11(S.alpha(gamma_T)) * xh_lig
+        mu_x, mu_h = mu[..., :self.n_dims], mu[..., self.n_dims:]
+        sigma_T = S.sigma(gamma_T)
+
+        def gaussian_kl(mu_norm2, q_sigma, d):
+            return (d * torch.log(1.0 / q_sigma)
+                    + 0.5 * (d * q_sigma ** 2 + mu_norm2) - 0.5 * d)
+
+        kl_h = gaussian_kl(sum_except_batch(mu_h ** 2, lig_mask), sigma_T,
+                           1.0)
+        kl_x = gaussian_kl(sum_except_batch(mu_x ** 2, lig_mask), sigma_T,
+                           self.subspace_dimensionality(num_nodes))
+        return kl_x + kl_h
+
+    def log_constants_p_x_given_z0(self, num_nodes):
+        """The normalising constants of p(x | z0), [B]."""
+        gamma_0 = self.schedule.table[0]
+        dof = self.subspace_dimensionality(num_nodes)
+        return dof * (-0.5 * gamma_0 - 0.5 * math.log(2 * math.pi))
+
+    def log_pxh_given_z0_without_constants(self, lig_h_onehot, z0_lig,
+                                           eps_lig, net_lig, lig_mask,
+                                           gamma_0, epsilon=1e-10):
+        """The t = 0 reconstruction terms (log_p_x, log_p_h), each [B].
+        lig_h_onehot: the clean ligand's normalised one-hot features;
+        gamma_0: [B]."""
+        nh = self.cfg.norm_values[1]
+        bh = self.cfg.norm_biases[1]
+        nd = self.n_dims
+        sq = (eps_lig[..., :nd] - net_lig[..., :nd]) ** 2
+        vidx = self.cfg.virtual_node_idx
+        if vidx is not None:
+            sq = sq * (1.0 - lig_h_onehot[..., vidx:vidx + 1])
+        log_p_x = -0.5 * sum_except_batch(sq, lig_mask)
+
+        sigma_0_cat = _b11(S.sigma(gamma_0)) * nh
+        onehot = lig_h_onehot * nh + bh
+        centered = z0_lig[..., nd:] * nh + bh - 1.0
+
+        def cdf(v):
+            return 0.5 * (1.0 + torch.erf(v / math.sqrt(2)))
+
+        # fp32 rounding can make the difference slightly negative when both
+        # tails saturate; clamp before the log
+        cdf_diff = (cdf((centered + 0.5) / sigma_0_cat)
+                    - cdf((centered - 0.5) / sigma_0_cat))
+        log_ph = torch.log(cdf_diff.clamp_min(0.0) + epsilon)
+        log_probs = log_ph - torch.logsumexp(log_ph, dim=-1, keepdim=True)
+        log_p_h = sum_except_batch(log_probs * onehot, lig_mask)
+        return log_p_x, log_p_h
 
 
 def init_ligand_from_pocket(core: CondDiffusion, pocket_x, pocket_h,

@@ -29,6 +29,19 @@ class DistributionNodes:
         return torch.multinomial(probs, 1, generator=generator)[:, 0].numpy()
 
 
+def smoothed_histogram(n_lig, n_pocket, smooth_sigma: float = 1.0
+                       ) -> np.ndarray:
+    """The joint (ligand size, pocket size) histogram of a dataset,
+    Gaussian-smoothed, as the data processing writes it."""
+    from scipy.ndimage import gaussian_filter
+
+    idx = np.stack([np.asarray(n_lig), np.asarray(n_pocket)], axis=1)
+    hist = np.zeros((idx[:, 0].max() + 1, idx[:, 1].max() + 1))
+    for i, j in idx:
+        hist[i, j] += 1
+    return gaussian_filter(hist, sigma=smooth_sigma)
+
+
 def default_histogram(max_lig: int = 48, max_pocket: int = 600) -> np.ndarray:
     """A synthetic joint size histogram for when no processed dataset is
     at hand: ligand sizes ~N(24, 8), pocket sizes ~N(350, 120), mildly

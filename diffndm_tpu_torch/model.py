@@ -32,7 +32,7 @@ from diffndm_tpu_torch.config import (ModelConfig, SampleConfig, load_yaml,
                                       model_config_from_yaml)
 from diffndm_tpu_torch.constants import dataset_params
 from diffndm_tpu_torch.convert import (load_reference_checkpoint,
-                                       params_from_jax)
+                                       params_from_jax, params_to_jax)
 from diffndm_tpu_torch.data.dataset import LigandPocketPair
 from diffndm_tpu_torch.data.pdb import parse_pdb
 from diffndm_tpu_torch.data.pocket import (get_pocket_from_ligand,
@@ -106,6 +106,16 @@ class DiffNDM:
         with np.load(path) as f:
             tree = {k: f[k] for k in f.files}
         self.dynamics.load_state_dict(params_from_jax(tree), strict=True)
+
+    def set_params(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy a state_dict of the denoiser (the trainer's EMA weights,
+        say) into the model's own parameters."""
+        self.dynamics.load_state_dict(state, strict=True)
+
+    def save_params_npz(self, path: str) -> None:
+        """The denoiser's weights as the flat JAX tree that
+        ``load_params_npz`` reads."""
+        np.savez(path, **params_to_jax(self.dynamics.state_dict()))
 
     def load_reference_checkpoint(self, path: str) -> None:
         """Load the reference implementation's Lightning ``.ckpt`` (or a

@@ -20,14 +20,21 @@ wrapper given CPU tensors computes its plain PyTorch version
 ``LAUNCHES`` counts launches per kernel (the pair launches the
 ``edge_vector_reduce`` kernel once).  On the card the product by W2 runs
 on the tensor cores as a three-term TF32 split, which keeps fp32-level
-accuracy; the plain versions are plain fp32.  The kernels have no
-backward yet: on the card a wrapper raises when grad mode is on and an
-argument requires grad (``refuse_grad``) rather than return a result
-with no gradient; the plain versions are differentiable.
+accuracy; the plain versions are plain fp32.
 
-The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/`` at the repository
-root, cached by a hash of the source and flags, and loaded with ctypes.
+In grad mode each wrapper goes through a ``torch.autograd.Function``
+(``_GclMessages``, ``_EdgeVectorReduce``) that saves only its inputs and
+whose backward recomputes the chain: on the card the hand-written kernels
+of ``csrc/egnn_edge_bwd.cu`` (two launches per backward, counted under
+``gcl_messages_bwd`` / ``edge_vector_reduce_bwd``), on the CPU the plain
+backward (``*_backward_plain``), which writes the same formula out in
+PyTorch.  The JAX package's Pallas kernels have no VJP; these give the
+gradient that XLA autodiff gives of its dense path.
+
+The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
+shared libraries with a plain C interface under ``build/`` at the
+repository root (one per source), cached by a hash of the source and
+flags, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "egnn_edge.cu"
+BWD_SOURCE = SOURCE.with_name("egnn_edge_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,7 +63,8 @@ SUPPORTED_HIDDEN = (128, 192, 256)
 MAX_NODES = 4096
 
 # kernel launches per wrapper; reset with reset_launches()
-LAUNCHES = {"gcl_messages": 0, "edge_vector_reduce": 0}
+LAUNCHES = {"gcl_messages": 0, "edge_vector_reduce": 0,
+            "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
 
 # memory budget of one row chunk of the plain [B, T, N, H] chain
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -82,26 +91,27 @@ def _flags(profile: bool) -> tuple:
     return NVCC_FLAGS + (("-DEGNN_PROFILE",) if profile else ())
 
 
-def library_path(profile: bool = False) -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def library_path(profile: bool = False, source: Path = SOURCE) -> Path:
+    tag = hashlib.sha256(source.read_bytes()
                          + " ".join(_flags(profile)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"egnn_edge-{tag}.so"
+    return BUILD_DIR / f"{source.stem}-{tag}.so"
 
 
-def build_library(profile: bool = False) -> Path:
-    """Compile csrc/egnn_edge.cu unless this source's build exists.
-    The compiler's register/spill report lands beside it (``.log``).
-    ``profile`` builds the variant with cycle counters per phase."""
-    so = library_path(profile)
+def build_library(profile: bool = False, source: Path = SOURCE) -> Path:
+    """Compile ``source`` (the forward kernels unless ``BWD_SOURCE``)
+    unless its build exists.  The compiler's register/spill report lands
+    beside it (``.log``).  ``profile`` builds the variant with cycle
+    counters per phase (forward only)."""
+    so = library_path(profile, source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run([_nvcc(), *_flags(profile), "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+                           str(source)], capture_output=True, text=True)
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     os.replace(tmp, so)
     return so
 
@@ -131,6 +141,19 @@ def _load(profile: bool) -> ctypes.CDLL:
 
 def _library() -> ctypes.CDLL:
     return _load(PROFILE_BUILD)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library(source=BWD_SOURCE)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.egnn_bwd_layout.argtypes = [i] * 5 + [p]
+    lib.egnn_bwd_layout.restype = i
+    lib.egnn_bwd_edges.argtypes = [p] * 6
+    lib.egnn_bwd_edges.restype = i
+    lib.egnn_bwd_reduce.argtypes = [p] * 5
+    lib.egnn_bwd_reduce.restype = i
+    return lib
 
 
 def launch_grid(name: str, bsz: int, n: int, h: int,
@@ -166,21 +189,6 @@ def _launch(name: str, device: torch.device, entry, *args) -> None:
             err = entry(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (error {err})")
-
-
-def refuse_grad(name: str, *args) -> None:
-    """Raise when autograd would need a gradient through a kernel: grad
-    mode is on and a tensor argument (or one of a pair) requires grad."""
-    if not torch.is_grad_enabled():
-        return
-    for arg in args:
-        for t in (arg if isinstance(arg, (tuple, list)) else (arg,)):
-            if isinstance(t, torch.Tensor) and t.requires_grad:
-                raise RuntimeError(
-                    f"{name}: the hand-written CUDA kernels have no backward "
-                    "yet, and an input requires grad; run under "
-                    "torch.no_grad(), or on the CPU, where the plain "
-                    "versions are differentiable")
 
 
 def _check_cuda(name: str, tensors: dict, shapes: dict) -> dict:
@@ -294,22 +302,63 @@ def split_w2(w2: torch.Tensor) -> torch.Tensor:
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _row_chunk(bsz: int, n: int, h: int) -> int:
-    return max(1, min(n, _PLAIN_CHUNK_ELEMS // max(1, bsz * n * h)))
+def _row_chunk(bsz: int, n: int, h: int,
+               elems: int = _PLAIN_CHUNK_ELEMS) -> int:
+    return max(1, min(n, elems // max(1, bsz * n * h)))
+
+
+def _edge_pre(a, b, d2c, d2i, we):
+    """u1 = a_i + b_j + d2c*we0 + d2i*we1 for a row chunk: a [B, T, H],
+    d2c/d2i [B, T, N] -> [B, T, N, H]."""
+    return (a[:, :, None, :] + b[:, None, :, :]
+            + d2c[..., None] * we[0] + d2i[..., None] * we[1])
 
 
 def _edge_messages(a, b, d2c, d2i, we, w2, b2):
-    """m = silu(silu(a_i + b_j + d2c*we0 + d2i*we1) @ W2 + b2) for a row
-    chunk: a [B, T, H], d2c/d2i [B, T, N] -> [B, T, N, H]."""
-    z = (a[:, :, None, :] + b[:, None, :, :]
-         + d2c[..., None] * we[0] + d2i[..., None] * we[1])
-    return F.silu(F.silu(z) @ w2 + b2)
+    """m = silu(silu(u1) @ W2 + b2) for a row chunk -> [B, T, N, H]."""
+    return F.silu(F.silu(_edge_pre(a, b, d2c, d2i, we)) @ w2 + b2)
+
+
+def _direction(xr, xc, center, cross: bool, norm_constant: float):
+    """v_ij of rows xr [B, T, 1, 3] against columns xc [B, 1, N, 3]: the
+    normalised difference, or the normalised cross product about center
+    [B, 1, 3].  Returns (v [B, T, N, 3], back), where back maps the
+    gradient of v to those of x_i and x_j.  The cross norm has no
+    gradient where the cross product is 0 (self-edges), as in the JAX
+    dense path's double ``where``; its value is unchanged."""
+    if cross:
+        ctr = center[:, :, None, :]
+        p, q = xr - ctr, xc - ctr
+        v = torch.linalg.cross(p, q)
+        n2 = (v * v).sum(-1, keepdim=True)
+        pos = n2 > 0
+        one = torch.ones_like(n2)
+        norm = torch.where(pos, torch.sqrt(torch.where(pos, n2, one)),
+                           torch.zeros_like(n2))
+        den = norm + norm_constant
+
+        def back(gv):
+            k = torch.where(pos, (gv * v).sum(-1, keepdim=True)
+                            / (den * den * torch.where(pos, norm, one)),
+                            torch.zeros_like(n2))
+            dv = gv / den - k * v
+            return (torch.linalg.cross(q.expand_as(dv), dv),
+                    torch.linalg.cross(dv, p.expand_as(dv)))
+        return v / den, back
+    d = xr - xc
+    r = torch.sqrt((d * d).sum(-1, keepdim=True) + 1e-8)
+    den = r + norm_constant
+
+    def back(gv):
+        dd = gv / den - (gv * d).sum(-1, keepdim=True) / (den * den * r) * d
+        return dd, -dd
+    return d / den, back
 
 
 def gcl_messages_plain(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
                        attention: bool = True, norm_factor: float = 100.0):
     bsz, n, h = a.shape
-    out = torch.empty((bsz, n, h), dtype=torch.float32, device=a.device)
+    out = torch.empty((bsz, n, h), dtype=a.dtype, device=a.device)
     step = _row_chunk(bsz, n, h)
     for i0 in range(0, n, step):
         i1 = min(n, i0 + step)
@@ -333,7 +382,7 @@ def edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                              n_rows: Optional[int] = None):
     bsz, n, h = a.shape
     rows = _clamp_rows(n, n_rows)
-    out = torch.zeros((bsz, n, 3), dtype=torch.float32, device=a.device)
+    out = torch.zeros((bsz, n, 3), dtype=a.dtype, device=a.device)
     step = _row_chunk(bsz, n, h)
     for i0 in range(0, rows, step):
         i1 = min(rows, i0 + step)
@@ -343,17 +392,8 @@ def edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
         if tanh:
             phi = torch.tanh(phi) * coords_range
         w = phi * adj[:, i0:i1]
-        xr = x[:, i0:i1, None, :]                      # [B, T, 1, 3]
-        xc = x[:, None, :, :]                          # [B, 1, N, 3]
-        if cross:
-            v = torch.linalg.cross(xr - center[:, :, None, :],
-                                   xc - center[:, :, None, :])
-            norm = torch.sqrt((v * v).sum(-1, keepdim=True))
-            v = v / (norm + norm_constant)
-        else:
-            d = xr - xc
-            radial = (d * d).sum(-1, keepdim=True)
-            v = d / (torch.sqrt(radial + 1e-8) + norm_constant)
+        v, _ = _direction(x[:, i0:i1, None, :], x[:, None, :, :], center,
+                          cross, norm_constant)
         out[:, i0:i1] = (v * w[..., None]).sum(dim=2) / norm_factor
     return out
 
@@ -372,20 +412,157 @@ def edge_vector_reduce_pair_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# plain backward: the formulas the backward kernels compute
 # ---------------------------------------------------------------------------
 
-def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
-                 attention: bool = True, norm_factor: float = 100.0):
-    """a, b: [B, N, H] node projections (edge_dst bias folded into b);
-    d2c/d2i/adj: [B, N, N]; we: [2, H]; w2: [H, H]; b2: [H]; watt: [H, 1];
-    batt: [1] or None.  Returns [B, N, H] float32."""
-    if a.device.type == "cpu":
-        return gcl_messages_plain(a, b, d2c, d2i, adj, we, w2, b2, watt,
-                                  batt, attention, norm_factor)
-    if a.device.type != "cuda":
-        raise ValueError(f"gcl_messages: unsupported device {a.device}")
-    refuse_grad("gcl_messages", a, b, d2c, d2i, adj, we, w2, b2, watt, batt)
+def _dsilu(v: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(v)
+    return s * (1.0 + v * (1.0 - s))
+
+
+def _zeros(*tensors):
+    return [torch.zeros_like(t) for t in tensors]
+
+
+def _chain_backward(dm, u1, s, u, w2, we, d2c, d2i, grads, i0, i1):
+    """From dm, the gradient of m over a row chunk [B, T, N, H], to the
+    chain's inputs: adds into grads = [da, db, dd2c, dd2i, dwe, dw2, db2]
+    (dd2c and dd2i rows i0:i1 are written)."""
+    da, db, dd2c, dd2i, dwe, dw2, db2 = grads
+    h = u.shape[-1]
+    du = dm * _dsilu(u)
+    db2 += du.sum((0, 1, 2))
+    dw2 += s.reshape(-1, h).T @ du.reshape(-1, h)
+    dz = (du @ w2.T) * _dsilu(u1)
+    da[:, i0:i1] += dz.sum(2)
+    db += dz.sum(1)
+    dd2c[:, i0:i1] = dz @ we[0]
+    dd2i[:, i0:i1] = dz @ we[1]
+    dwe[0] += (dz * d2c[..., None]).sum((0, 1, 2))
+    dwe[1] += (dz * d2i[..., None]).sum((0, 1, 2))
+
+
+def gcl_messages_backward_plain(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
+                                batt=None, attention: bool = True,
+                                norm_factor: float = 100.0):
+    """The gradients of ``gcl_messages_plain``'s output, given its
+    gradient gout [B, N, H], with respect to its arguments, in their
+    order: (a, b, d2c, d2i, None for adj, we, w2, b2, watt, batt or
+    None).  With g = gout_i * adj_ij / norm_factor per edge:
+    dm = g * gate + (g . m) * gate * (1 - gate) * watt, then the chain.
+    Recomputed in row chunks; nothing of [B, N, N, H] size is kept."""
+    bsz, n, h = a.shape
+    da, db, dd2c, dd2i, dwe, dw2, db2, dwatt = _zeros(a, b, d2c, d2i, we, w2,
+                                                      b2, watt)
+    dbatt = None if batt is None else torch.zeros_like(batt)
+    grads = [da, db, dd2c, dd2i, dwe, dw2, db2]
+    step = _row_chunk(bsz, n, h, _PLAIN_CHUNK_ELEMS // 8)
+    for i0 in range(0, n, step):
+        i1 = min(n, i0 + step)
+        d2c_c, d2i_c = d2c[:, i0:i1], d2i[:, i0:i1]
+        u1 = _edge_pre(a[:, i0:i1], b, d2c_c, d2i_c, we)
+        s = F.silu(u1)
+        u = s @ w2 + b2
+        m = F.silu(u)
+        g = gout[:, i0:i1, None, :] * (adj[:, i0:i1, :, None] / norm_factor)
+        if attention:
+            att = m @ watt
+            if batt is not None:
+                att = att + batt
+            gate = torch.sigmoid(att)
+            datt = (g * m).sum(-1, keepdim=True) * gate * (1.0 - gate)
+            dm = g * gate + datt * watt[:, 0]
+            dwatt += (datt * m).sum((0, 1, 2))[:, None]
+            if dbatt is not None:
+                dbatt += datt.sum()
+        else:
+            dm = g
+        _chain_backward(dm, u1, s, u, w2, we, d2c_c, d2i_c, grads, i0, i1)
+    return da, db, dd2c, dd2i, None, dwe, dw2, db2, dwatt, dbatt
+
+
+def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
+                                      we, w2, b2, wout, tanh: bool = True,
+                                      coords_range: float = 15.0,
+                                      norm_constant: float = 1.0,
+                                      cross: bool = False,
+                                      norm_factor: float = 100.0,
+                                      n_rows: Optional[int] = None):
+    """The gradients of ``edge_vector_reduce_plain``'s output, given its
+    gradient gout [B, N, 3], with respect to its arguments, in their
+    order: (a, b, d2c, d2i, None for adj, x, center, we, w2, b2, wout).
+    Per edge: dphi = adj / norm_factor * (gout_i . v_ij), through the
+    tanh to dm = dphi' * wout, then the chain; and the direction's own
+    gradient, w * gout_i with w = adj * phi / norm_factor, to x_i, x_j
+    and (cross) the centre.  Rows at or beyond n_rows give nothing."""
+    bsz, n, h = a.shape
+    rows = _clamp_rows(n, n_rows)
+    da, db, dd2c, dd2i, dx, dcenter, dwe, dw2, db2, dwout = _zeros(
+        a, b, d2c, d2i, x, center, we, w2, b2, wout)
+    grads = [da, db, dd2c, dd2i, dwe, dw2, db2]
+    step = _row_chunk(bsz, n, h, _PLAIN_CHUNK_ELEMS // 8)
+    for i0 in range(0, rows, step):
+        i1 = min(rows, i0 + step)
+        d2c_c, d2i_c = d2c[:, i0:i1], d2i[:, i0:i1]
+        u1 = _edge_pre(a[:, i0:i1], b, d2c_c, d2i_c, we)
+        s = F.silu(u1)
+        u = s @ w2 + b2
+        m = F.silu(u)
+        dot = (m @ wout)[..., 0]                       # [B, T, N]
+        phi = torch.tanh(dot) * coords_range if tanh else dot
+        v, back = _direction(x[:, i0:i1, None, :], x[:, None, :, :], center,
+                             cross, norm_constant)
+        g = gout[:, i0:i1, None, :]                    # [B, T, 1, 3]
+        av = adj[:, i0:i1] / norm_factor
+        dphi = av * (g * v).sum(-1)
+        if tanh:
+            dphi = dphi * coords_range * (1.0 - torch.tanh(dot) ** 2)
+        dm = dphi[..., None] * wout[:, 0]
+        dwout += (dphi[..., None] * m).sum((0, 1, 2))[:, None]
+        gp, gq = back((av * phi)[..., None] * g)
+        dx[:, i0:i1] += gp.sum(2)
+        dx += gq.sum(1)
+        if cross:
+            dcenter -= (gp.sum((1, 2)) + gq.sum((1, 2)))[:, None, :]
+        _chain_backward(dm, u1, s, u, w2, we, d2c_c, d2i_c, grads, i0, i1)
+    return da, db, dd2c, dd2i, None, dx, dcenter, dwe, dw2, db2, dwout
+
+
+# argument positions of the vector reduction shared by both sets
+_VEC_SHARED = (2, 3, 5, 6)
+
+
+def edge_vector_reduce_pair_backward_plain(gout, a, b, d2c, d2i, adj, x,
+                                           center, we, w2, b2, wout,
+                                           tanh: bool = True,
+                                           coords_range: float = 15.0,
+                                           norm_constant: float = 1.0,
+                                           norm_factor: float = 100.0,
+                                           n_rows: Optional[int] = None):
+    """``edge_vector_reduce_backward_plain`` of the pair: the per-set
+    gradients (a, b, we, w2, b2, wout) as pairs, the shared ones (d2c,
+    d2i, x, center) summed over the two sets."""
+    parts = [edge_vector_reduce_backward_plain(
+        gout, a[s], b[s], d2c, d2i, adj, x, center, we[s], w2[s], b2[s],
+        wout[s], tanh, coords_range, norm_constant, bool(s), norm_factor,
+        n_rows) for s in (0, 1)]
+    return tuple(None if p0 is None else
+                 (p0 + p1 if i in _VEC_SHARED else (p0, p1))
+                 for i, (p0, p1) in enumerate(zip(*parts)))
+
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+def _ptrs(*tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
+
+
+def _gcl_messages_cuda(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
+                       attention, norm_factor):
     bsz, n, h = a.shape
     _hidden_ok("gcl_messages", h, n)
     if batt is None:
@@ -404,24 +581,9 @@ def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
     return out
 
 
-def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
-                       tanh: bool = True, coords_range: float = 15.0,
-                       norm_constant: float = 1.0, cross: bool = False,
-                       norm_factor: float = 100.0,
-                       n_rows: Optional[int] = None):
-    """Returns [B, N, 3] = sum_j adj_ij * phi_ij * v_ij / norm_factor.
-
-    x: [B, N, 3]; center: [B, 1, 3] (joint COM, used when cross=True);
-    n_rows: only rows < n_rows are computed, the rest are zero."""
-    if a.device.type == "cpu":
-        return edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we,
-                                        w2, b2, wout, tanh, coords_range,
-                                        norm_constant, cross, norm_factor,
-                                        n_rows)
-    if a.device.type != "cuda":
-        raise ValueError(f"edge_vector_reduce: unsupported device {a.device}")
-    refuse_grad("edge_vector_reduce", a, b, d2c, d2i, adj, x, center, we, w2,
-                b2, wout)
+def _edge_vector_reduce_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
+                             wout, tanh, coords_range, norm_constant, cross,
+                             norm_factor, n_rows):
     bsz, n, h = a.shape
     _hidden_ok("edge_vector_reduce", h, n)
     ptr = _check_cuda("edge_vector_reduce",
@@ -444,33 +606,10 @@ def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
     return out
 
 
-def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
-                            b: Sequence[torch.Tensor], d2c, d2i, adj, x,
-                            center, we: Sequence[torch.Tensor],
-                            w2: Sequence[torch.Tensor],
-                            b2: Sequence[torch.Tensor],
-                            wout: Sequence[torch.Tensor], tanh: bool = True,
-                            coords_range: float = 15.0,
-                            norm_constant: float = 1.0,
-                            norm_factor: float = 100.0,
-                            n_rows: Optional[int] = None):
-    """``edge_vector_reduce(..., cross=False)`` with the first weight set
-    plus ``edge_vector_reduce(..., cross=True)`` with the second, over the
-    same graph, in one launch.  ``a``, ``b``, ``we``, ``w2``, ``b2`` and
-    ``wout`` are pairs of tensors (taken as they are: stacking them would
-    cost more launches than the pair saves).  Returns [B, N, 3]."""
+def _edge_vector_reduce_pair_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
+                                  wout, tanh, coords_range, norm_constant,
+                                  norm_factor, n_rows):
     name = "edge_vector_reduce_pair"
-    for key, pair in dict(a=a, b=b, we=we, w2=w2, b2=b2, wout=wout).items():
-        if len(pair) != 2:
-            raise ValueError(f"{name}: {key} must be a pair of tensors")
-    if a[0].device.type == "cpu":
-        return edge_vector_reduce_pair_plain(a, b, d2c, d2i, adj, x, center,
-                                             we, w2, b2, wout, tanh,
-                                             coords_range, norm_constant,
-                                             norm_factor, n_rows)
-    if a[0].device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {a[0].device}")
-    refuse_grad(name, a, b, d2c, d2i, adj, x, center, we, w2, b2, wout)
     bsz, n, h = a[0].shape
     _hidden_ok(name, h, n)
     shapes = _shapes(bsz, n, h)
@@ -496,3 +635,282 @@ def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
             float(coords_range), float(norm_constant), float(norm_factor))
     LAUNCHES["edge_vector_reduce"] += 1
     return out[0] + out[1]
+
+
+def _bwd_layout(bsz: int, n: int, h: int, rows: int, n_sets: int) -> tuple:
+    """(rows per block, blocks per batch element and set, floats per
+    block's partial record) of a backward launch at these sizes."""
+    out = (ctypes.c_int * 3)()
+    err = _bwd_library().egnn_bwd_layout(bsz, n, h, rows, n_sets, out)
+    if err != 0:
+        raise ValueError(f"backward kernels: unsupported sizes B={bsz} "
+                         f"N={n} H={h} rows={rows}")
+    return tuple(out)
+
+
+def bwd_launch_grid(bsz: int, n: int, h: int, n_rows: Optional[int] = None,
+                    n_sets: int = 1) -> tuple:
+    """(blocks, rows per block) of the first of a backward's two
+    launches."""
+    rows = _clamp_rows(n, n_rows)
+    if rows == 0:
+        return 0, 0
+    per_block, per_batch, _ = _bwd_layout(bsz, n, h, rows, n_sets)
+    return per_batch * bsz * n_sets, per_block
+
+
+def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
+                                batt, attention, norm_factor, needs):
+    """Two launches: every block's edges, then the fixed-order sums of
+    the blocks' partial records.  Gradients in argument order, None where
+    ``needs`` says none is wanted (d2c and d2i are then not written)."""
+    bsz, n, h = a.shape
+    dev = a.device
+    if gout.dtype != torch.float32 or gout.device != dev:
+        raise ValueError("gcl_messages backward: the output gradient must "
+                         "be float32 on the inputs' device")
+    lib = _bwd_library()
+    _, per_batch, rec = _bwd_layout(bsz, n, h, n, 1)
+    part = torch.empty(bsz * per_batch * rec, dtype=torch.float32,
+                       device=dev)
+    gout = gout.contiguous()
+    da, db, dwe, dw2, db2, dwatt = (torch.empty_like(t)
+                                    for t in (a, b, we, w2, b2, watt))
+    dd2c = torch.zeros_like(d2c) if needs[2] else None
+    dd2i = torch.zeros_like(d2i) if needs[3] else None
+    batt_t = batt if batt is not None else torch.zeros(
+        (1,), dtype=torch.float32, device=dev)
+    dbatt = torch.empty_like(batt_t)
+    ints = (ctypes.c_int * 8)(bsz, n, h, n, 1, 0, int(bool(attention)), 0)
+    floats = (ctypes.c_float * 3)(0.0, 0.0, float(norm_factor))
+    w2t = w2.t().contiguous()
+    _launch("gcl_messages backward", dev, lib.egnn_bwd_edges,
+            _ptrs(a, b, we, w2, w2t, b2, watt, da, dd2c, dd2i),
+            _ptrs(*[None] * 10),
+            _ptrs(gout, d2c, d2i, adj, None, None, batt_t, part), ints,
+            floats)
+    LAUNCHES["gcl_messages_bwd"] += 1
+    _launch("gcl_messages backward", dev, lib.egnn_bwd_reduce,
+            _ptrs(dw2, db, db2, dwe, dwatt), _ptrs(*[None] * 5),
+            _ptrs(part, None, None, dbatt, None, None), ints)
+    LAUNCHES["gcl_messages_bwd"] += 1
+    return da, db, dd2c, dd2i, None, dwe, dw2, db2, dwatt, (
+        None if batt is None else dbatt)
+
+
+def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
+                                      tanh, coords_range, norm_constant,
+                                      cross, norm_factor, n_rows, needs):
+    """``sets``: one or two (a, b, we, w2, b2, wout); with two, the first
+    is the difference and the second the cross direction.  Returns
+    (per-set gradients [(da, db, dwe, dw2, db2, dwout)], dd2c, dd2i, dx,
+    dcenter); dd2c / dd2i None unless ``needs`` = (d2c, d2i) asks."""
+    a0 = sets[0][0]
+    bsz, n, h = a0.shape
+    dev = a0.device
+    n_sets = len(sets)
+    rows = _clamp_rows(n, n_rows)
+    planes = [torch.zeros((n_sets,) + tuple(d2c.shape), dtype=torch.float32,
+                          device=dev) if want else None for want in needs]
+    dx, dcenter = torch.zeros_like(x), torch.zeros_like(center)
+    if gout.dtype != torch.float32 or gout.device != dev:
+        raise ValueError("edge_vector_reduce backward: the output gradient "
+                         "must be float32 on the inputs' device")
+    out = [[torch.zeros_like(t) for t in s] for s in sets]
+    if rows == 0:
+        return out, *(p if p is None else p[0] for p in planes), dx, dcenter
+    lib = _bwd_library()
+    _, per_batch, rec = _bwd_layout(bsz, n, h, rows, n_sets)
+    part = torch.empty(n_sets * bsz * per_batch * rec, dtype=torch.float32,
+                       device=dev)
+    for s in range(n_sets):             # rows >= n_rows keep their zeros
+        out[s][0] = (torch.empty_like if rows == n else torch.zeros_like)(
+            sets[s][0])
+    # W2^T of each set, held until both launches are queued
+    w2t = [st[3].t().contiguous() for st in sets]
+    gout = gout.contiguous()
+    set_ptrs = [_ptrs(a, b, we, w2, w2t[s], b2, wout, out[s][0],
+                      *(p if p is None else p[s] for p in planes))
+                for s, (a, b, we, w2, b2, wout) in enumerate(sets)]
+    set_ptrs += [_ptrs(*[None] * 10)] * (2 - n_sets)
+    # the direction of the first set: its own for one set, the difference
+    # for the pair (whose second set is the cross direction)
+    ints = (ctypes.c_int * 8)(bsz, n, h, rows, n_sets, 1, int(bool(tanh)),
+                              int(bool(cross)) if n_sets == 1 else 0)
+    floats = (ctypes.c_float * 3)(float(coords_range), float(norm_constant),
+                                  float(norm_factor))
+    name = "edge_vector_reduce backward"
+    _launch(name, dev, lib.egnn_bwd_edges, *set_ptrs,
+            _ptrs(gout, d2c, d2i, adj, x, center, None, part),
+            ints, floats)
+    LAUNCHES["edge_vector_reduce_bwd"] += 1
+    red = [_ptrs(o[3], o[1], o[4], o[2], o[5]) for o in out]
+    red += [_ptrs(*[None] * 5)] * (2 - n_sets)
+    _launch(name, dev, lib.egnn_bwd_reduce, *red,
+            _ptrs(part, dx, dcenter, None, *planes), ints)
+    LAUNCHES["edge_vector_reduce_bwd"] += 1
+    return out, *(p if p is None else p[0] for p in planes), dx, dcenter
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions: the forward and backward of each wrapper
+# ---------------------------------------------------------------------------
+
+def _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
+                 norm_factor):
+    if a.device.type == "cpu":
+        return gcl_messages_plain(a, b, d2c, d2i, adj, we, w2, b2, watt,
+                                  batt, attention, norm_factor)
+    if a.device.type != "cuda":
+        raise ValueError(f"gcl_messages: unsupported device {a.device}")
+    return _gcl_messages_cuda(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
+                              attention, norm_factor)
+
+
+class _GclMessages(torch.autograd.Function):
+    """``gcl_messages`` with its backward.  Saves only its inputs; the
+    backward recomputes the chain (the CUDA kernels on the card, the plain
+    backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
+                norm_factor):
+        ctx.save_for_backward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt)
+        ctx.opts = (attention, norm_factor)
+        return _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
+                            attention, norm_factor)
+
+    @staticmethod
+    def backward(ctx, gout):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:10]
+        if saved[0].device.type == "cpu":
+            grads = gcl_messages_backward_plain(gout, *saved, *ctx.opts)
+        else:
+            grads = _gcl_messages_backward_cuda(gout, *saved, *ctx.opts,
+                                                needs)
+        return (*(g if want else None for g, want in zip(grads, needs)),
+                None, None)
+
+
+def _vec_forward(opts, d2c, d2i, adj, x, center, sets):
+    tanh, coords_range, norm_constant, cross, norm_factor, n_rows = opts
+    a = sets[0][0]
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"edge_vector_reduce: unsupported device {a.device}")
+    if len(sets) == 1:
+        fn = (edge_vector_reduce_plain if a.device.type == "cpu"
+              else _edge_vector_reduce_cuda)
+        a, b, we, w2, b2, wout = sets[0]
+        return fn(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, tanh,
+                  coords_range, norm_constant, cross, norm_factor, n_rows)
+    fn = (edge_vector_reduce_pair_plain if a.device.type == "cpu"
+          else _edge_vector_reduce_pair_cuda)
+    a, b, we, w2, b2, wout = zip(*sets)
+    return fn(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, tanh,
+              coords_range, norm_constant, norm_factor, n_rows)
+
+
+class _EdgeVectorReduce(torch.autograd.Function):
+    """``edge_vector_reduce`` (one weight set) and ``_pair`` (two) with
+    their backward.  Arguments: the options (tanh, coords_range,
+    norm_constant, cross, norm_factor, n_rows), the shared d2c, d2i, adj,
+    x, center, then six tensors per set (a, b, we, w2, b2, wout).  Saves
+    only its inputs."""
+
+    @staticmethod
+    def forward(ctx, opts, d2c, d2i, adj, x, center, *flat):
+        sets = [flat[i:i + 6] for i in range(0, len(flat), 6)]
+        ctx.save_for_backward(d2c, d2i, adj, x, center, *flat)
+        ctx.opts = opts
+        return _vec_forward(opts, d2c, d2i, adj, x, center, sets)
+
+    @staticmethod
+    def backward(ctx, gout):
+        d2c, d2i, adj, x, center, *flat = ctx.saved_tensors
+        sets = [flat[i:i + 6] for i in range(0, len(flat), 6)]
+        tanh, coords_range, norm_constant, cross, norm_factor, n_rows = \
+            ctx.opts
+        needs = ctx.needs_input_grad
+        if d2c.device.type == "cpu":
+            per_set, shared = [], None
+            for s, (a, b, we, w2, b2, wout) in enumerate(sets):
+                g = edge_vector_reduce_backward_plain(
+                    gout, a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
+                    tanh, coords_range, norm_constant,
+                    bool(s) if len(sets) == 2 else cross, norm_factor,
+                    n_rows)
+                per_set.append((g[0], g[1], g[7], g[8], g[9], g[10]))
+                parts = (g[2], g[3], g[5], g[6])
+                shared = parts if shared is None else tuple(
+                    p + q for p, q in zip(shared, parts))
+            dd2c, dd2i, dx, dcenter = shared
+        else:
+            per_set, dd2c, dd2i, dx, dcenter = \
+                _edge_vector_reduce_backward_cuda(
+                    gout, sets, d2c, d2i, adj, x, center, tanh, coords_range,
+                    norm_constant, cross, norm_factor, n_rows, needs[1:3])
+        flat_grads = [g for s in per_set for g in s]
+        out = [None, dd2c, dd2i, None, dx, dcenter, *flat_grads]
+        return tuple(g if want else None for g, want in zip(out, needs))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
+                 attention: bool = True, norm_factor: float = 100.0):
+    """a, b: [B, N, H] node projections (edge_dst bias folded into b);
+    d2c/d2i/adj: [B, N, N]; we: [2, H]; w2: [H, H]; b2: [H]; watt: [H, 1];
+    batt: [1] or None.  Returns [B, N, H] float32; differentiable with
+    respect to every argument but adj."""
+    if torch.is_grad_enabled():
+        return _GclMessages.apply(a, b, d2c, d2i, adj, we, w2, b2, watt,
+                                  batt, attention, norm_factor)
+    return _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
+                        attention, norm_factor)
+
+
+def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
+                       tanh: bool = True, coords_range: float = 15.0,
+                       norm_constant: float = 1.0, cross: bool = False,
+                       norm_factor: float = 100.0,
+                       n_rows: Optional[int] = None):
+    """Returns [B, N, 3] = sum_j adj_ij * phi_ij * v_ij / norm_factor.
+
+    x: [B, N, 3]; center: [B, 1, 3] (joint COM, used when cross=True);
+    n_rows: only rows < n_rows are computed, the rest are zero."""
+    opts = (tanh, coords_range, norm_constant, cross, norm_factor, n_rows)
+    if torch.is_grad_enabled():
+        return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center, a, b,
+                                       we, w2, b2, wout)
+    return _vec_forward(opts, d2c, d2i, adj, x, center,
+                        [(a, b, we, w2, b2, wout)])
+
+
+def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
+                            b: Sequence[torch.Tensor], d2c, d2i, adj, x,
+                            center, we: Sequence[torch.Tensor],
+                            w2: Sequence[torch.Tensor],
+                            b2: Sequence[torch.Tensor],
+                            wout: Sequence[torch.Tensor], tanh: bool = True,
+                            coords_range: float = 15.0,
+                            norm_constant: float = 1.0,
+                            norm_factor: float = 100.0,
+                            n_rows: Optional[int] = None):
+    """``edge_vector_reduce(..., cross=False)`` with the first weight set
+    plus ``edge_vector_reduce(..., cross=True)`` with the second, over the
+    same graph, in one launch.  ``a``, ``b``, ``we``, ``w2``, ``b2`` and
+    ``wout`` are pairs of tensors (taken as they are: stacking them would
+    cost more launches than the pair saves).  Returns [B, N, 3]."""
+    name = "edge_vector_reduce_pair"
+    for key, pair in dict(a=a, b=b, we=we, w2=w2, b2=b2, wout=wout).items():
+        if len(pair) != 2:
+            raise ValueError(f"{name}: {key} must be a pair of tensors")
+    opts = (tanh, coords_range, norm_constant, True, norm_factor, n_rows)
+    sets = [(a[s], b[s], we[s], w2[s], b2[s], wout[s]) for s in (0, 1)]
+    if torch.is_grad_enabled():
+        return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center,
+                                       *sets[0], *sets[1])
+    return _vec_forward(opts, d2c, d2i, adj, x, center, sets)

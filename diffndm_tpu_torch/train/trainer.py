@@ -1,0 +1,238 @@
+"""Training loop: AdamW with amsgrad, the adaptive gradient clip,
+gradient accumulation, an EMA of the weights, ``.npz`` checkpoints.
+
+The JAX package's ``train/trainer.py`` on one device, step for step:
+
+- the update is optax's ``chain(scale_by_amsgrad(), add_decayed_weights(
+  weight_decay), scale_by_learning_rate(lr))``, written out here because
+  ``torch.optim.AdamW(amsgrad=True)`` is another algorithm: optax keeps
+  the maximum of the bias-corrected second moment, torch the maximum of
+  the uncorrected one, corrected afterwards;
+- accumulation follows ``optax.MultiSteps``: a running mean of the
+  gradients over k micro-steps, the inner update on the k-th;
+- the adaptive clip runs on every micro-step: threshold 1.5 * mean + 2 *
+  std of a 50-entry buffer of accepted norms that starts at 3000.0 with
+  count 1, written at ``step % 50`` (``step`` counts micro-steps);
+- the EMA moves on every micro-step, also those that apply no update.
+
+Checkpoints are ``.npz`` files with the JAX tree's flat key names
+(``params/...``, ``ema_params/...``, ``step``), so ``convert.
+params_from_jax`` reads their weights; as in JAX they hold no optimizer
+state, and a resume starts with a fresh optimizer.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from diffndm_tpu_torch.config import TrainConfig
+from diffndm_tpu_torch.convert import params_from_jax, params_to_jax
+from diffndm_tpu_torch.diffusion.core import CondDiffusion
+from diffndm_tpu_torch.structs import NodeBatch
+from diffndm_tpu_torch.train.losses import (assemble_loss,
+                                            conditional_loss_terms)
+
+QUEUE_LEN = 50          # accepted gradient norms the clip looks back on
+QUEUE_FLUSH = 3000.0    # the buffer's initial value
+B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.scale_by_amsgrad defaults
+
+
+class AmsgradState:
+    """optax's ``MultiSteps(chain(scale_by_amsgrad(), add_decayed_weights,
+    scale_by_learning_rate))`` state for a list of parameters."""
+
+    def __init__(self, params, cfg: TrainConfig):
+        if not cfg.amsgrad:
+            raise NotImplementedError("the port trains with amsgrad only")
+        zeros = lambda: [torch.zeros_like(p) for p in params]
+        self.cfg = cfg
+        self.mu, self.nu, self.nu_max = zeros(), zeros(), zeros()
+        self.acc = zeros()       # running mean of the micro-step gradients
+        self.count = 0           # inner updates made
+        self.mini_step = 0       # micro-steps into the current window
+
+    @torch.no_grad()
+    def update(self, params, grads) -> bool:
+        """One micro-step: accumulate; on the k-th, update ``params`` in
+        place.  Returns whether it updated."""
+        k = max(1, self.cfg.accumulate_grad_batches)
+        n = self.mini_step + 1
+        for acc, g in zip(self.acc, grads):
+            acc.add_((g - acc) / n)
+        if self.mini_step < k - 1:
+            self.mini_step += 1
+            return False
+        self.count += 1
+        cfg = self.cfg
+        c1 = 1.0 - B1 ** self.count
+        c2 = 1.0 - B2 ** self.count
+        for p, g, mu, nu, nu_max in zip(params, self.acc, self.mu, self.nu,
+                                        self.nu_max):
+            mu.mul_(B1).add_((1.0 - B1) * g)
+            nu.mul_(B2).add_((1.0 - B2) * g * g)
+            torch.maximum(nu_max, nu / c2, out=nu_max)
+            u = (mu / c1) / (torch.sqrt(nu_max) + EPS)
+            if cfg.weight_decay:
+                u = u + cfg.weight_decay * p
+            p.add_(-cfg.lr * u)
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+        return True
+
+
+class Trainer:
+    """Trains ``dynamics`` (an ``EGNNDynamics``) in place on the device
+    its parameters lie on."""
+
+    def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
+                 cfg: TrainConfig, lj_rm: Optional[np.ndarray] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.core = core
+        self.module = dynamics
+        self.cfg = cfg
+        self.names = [n for n, _ in dynamics.named_parameters()]
+        self.params = [p for _, p in dynamics.named_parameters()]
+        self.device = self.params[0].device
+        self.lj_rm = (None if lj_rm is None else
+                      torch.as_tensor(lj_rm, dtype=torch.float32,
+                                      device=self.device))
+        self.generator = generator
+        self.opt = AmsgradState(self.params, cfg)
+        self.step = 0
+        self.gradnorm_buf = torch.full((QUEUE_LEN,), QUEUE_FLUSH,
+                                       device=self.device)
+        self.gradnorm_count = 1
+        self.ema = [p.detach().clone() for p in self.params]
+
+    # -----------------------------------------------------------------
+    def _loss(self, ligand: NodeBatch, pocket: NodeBatch, training: bool,
+              t_int=None, noise=None, noise0=None):
+        def eps_fn(z_lig, xh_pocket, t, lm, pm):
+            return self.module(z_lig, xh_pocket, t, lm, pm)
+
+        terms = conditional_loss_terms(self.core, eps_fn, ligand, pocket,
+                                       training, t_int, noise, noise0,
+                                       self.generator)
+        nll, info = assemble_loss(terms, self.core, ligand, pocket,
+                                  self.cfg, training, self.lj_rm)
+        return nll.mean(), info
+
+    def _clip(self, grads, gnorm: torch.Tensor) -> torch.Tensor:
+        """Scale grads in place by the adaptive clip; returns the
+        threshold."""
+        buf, cnt = self.gradnorm_buf, max(self.gradnorm_count, 1)
+        valid = torch.arange(QUEUE_LEN, device=buf.device) < cnt
+        mean = torch.where(valid, buf, 0.0).sum() / cnt
+        var = torch.where(valid, (buf - mean) ** 2, 0.0).sum() / cnt
+        max_norm = 1.5 * mean + 2.0 * torch.sqrt(var)
+        scale = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
+        for g in grads:
+            g.mul_(scale)
+        buf[self.step % QUEUE_LEN] = torch.minimum(gnorm, max_norm)
+        self.gradnorm_count = min(self.gradnorm_count + 1, QUEUE_LEN)
+        return max_norm
+
+    def train_step(self, ligand: NodeBatch, pocket: NodeBatch, t_int=None,
+                   noise=None) -> Tuple[float, Dict[str, float]]:
+        """One micro-step; draws what is not given from the generator."""
+        ligand, pocket = ligand.to(self.device), pocket.to(self.device)
+        self.module.train()
+        with torch.enable_grad():
+            loss, info = self._loss(ligand, pocket, True, t_int, noise)
+            # parameters the loss does not reach (the pocket's decoder in
+            # the conditional model) get a zero gradient, as in JAX
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.params, torch.autograd.grad(
+                         loss, self.params, allow_unused=True))]
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+            info["grad_norm"] = gnorm
+            if self.cfg.clip_grad:
+                info["clip_threshold"] = self._clip(grads, gnorm)
+        self.apply_gradients(grads)
+        return float(loss.detach()), {k: float(v.detach())
+                                      for k, v in info.items()}
+
+    @torch.no_grad()
+    def apply_gradients(self, grads) -> None:
+        """The rest of a micro-step after the clip: the optimizer (an
+        update on every k-th call), the EMA, the step count."""
+        self.opt.update(self.params, grads)
+        d = self.cfg.ema_decay
+        for e, p in zip(self.ema, self.params):
+            if d > 0.0:
+                e.mul_(d).add_((1.0 - d) * p)
+            else:
+                e.copy_(p)
+        self.step += 1
+
+    @torch.no_grad()
+    def eval_step(self, ligand: NodeBatch, pocket: NodeBatch, t_int=None,
+                  noise=None, noise0=None) -> Tuple[float, Dict[str, float]]:
+        """The VLB loss with the current (raw) parameters."""
+        ligand, pocket = ligand.to(self.device), pocket.to(self.device)
+        self.module.eval()
+        loss, info = self._loss(ligand, pocket, False, t_int, noise, noise0)
+        return float(loss), {k: float(v) for k, v in info.items()}
+
+    def ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The EMA weights under the module's parameter names."""
+        return dict(zip(self.names, self.ema))
+
+    # -- checkpoints ----------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """``path`` (``.npz`` appended if missing): params, step and, with
+        an EMA, ema_params, under the JAX tree's flat names."""
+        out = {"step": np.asarray(self.step, dtype=np.int32)}
+        trees = [("params", self.params)]
+        if self.cfg.ema_decay > 0.0:
+            trees.append(("ema_params", self.ema))
+        for prefix, tensors in trees:
+            state = {n: t.detach().cpu() for n, t in zip(self.names,
+                                                         tensors)}
+            for key, value in params_to_jax(state).items():
+                out[f"{prefix}/{key}"] = value
+        path = path if path.endswith(".npz") else path + ".npz"
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path[:-4] + f".{os.getpid()}.tmp.npz"
+        np.savez(tmp, **out)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        """params, step and ema_params (the params where a file has
+        none); the optimizer state is not restored."""
+        params, ema, step = load_train_state(path)
+        self._assign(self.params, params)
+        self._assign(self.ema, ema if ema is not None else params)
+        self.step = step
+
+    def _assign(self, targets, tree) -> None:
+        state = params_from_jax(tree)
+        if sorted(state) != sorted(self.names):
+            raise ValueError("checkpoint parameters do not match the model")
+        with torch.no_grad():
+            for name, t in zip(self.names, targets):
+                t.copy_(state[name])
+
+
+def load_train_state(path: str):
+    """(params tree, ema_params tree or None, step) of a training
+    checkpoint ``.npz``; the trees are flat, with the JAX names."""
+    if not path.endswith(".npz") and not os.path.exists(path):
+        path += ".npz"
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    trees = {"params": {}, "ema_params": {}}
+    for key, value in flat.items():
+        head, _, rest = key.partition("/")
+        if head in trees:
+            trees[head][rest] = value
+    if not trees["params"]:
+        raise ValueError(f"{path}: no params in the checkpoint")
+    return (trees["params"], trees["ema_params"] or None,
+            int(flat["step"]))

@@ -1,7 +1,9 @@
 """Weights and configuration carried from the JAX package into the port.
 
 - The committed EMA export equals, leaf by leaf and bit for bit, the
-  ``ema_params`` of the orbax checkpoint it was made from.
+  ``ema_params`` of the orbax checkpoint it was made from; so does the
+  raw training-state export (params, ema_params and step) that the
+  port's train CLI resumes from.
 - ``params_from_jax`` fills every parameter of the port's EGNNDynamics
   exactly once, from a nested or a flat tree alike.
 - The port's YAML reader and ``model_config_from_yaml`` agree with the
@@ -37,6 +39,7 @@ from diffndm_tpu_torch.models.dynamics import EGNNDynamics  # noqa: E402
 
 RUN = "examples/checkpoints/virtual_cond_v3b"
 NPZ = "diffndm_tpu_torch/assets/virtual_cond_v3b_ema.npz"
+TRAIN_STATE = "diffndm_tpu_torch/assets/virtual_cond_v3b_last.npz"
 
 
 def jax_flat(tree):
@@ -70,6 +73,31 @@ def test_committed_npz_equals_orbax_ema_params():
     # the export holds the EMA weights, not the raw ones
     raw = jax_flat(restored["params"])
     assert any(not np.array_equal(raw[k], ema[k]) for k in ema)
+
+
+def test_committed_train_state_equals_orbax_last():
+    from diffndm_tpu_torch.train.trainer import load_train_state
+
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "export_v3b_train_state", "scripts/export_v3b_train_state.py")
+    export = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(export)
+    ref = export.restore(RUN)
+    with np.load(TRAIN_STATE) as f:
+        committed = {k: f[k] for k in f.files}
+    assert sorted(committed) == sorted(ref)
+    for k, v in ref.items():
+        assert committed[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    params, ema, step = load_train_state(TRAIN_STATE)
+    assert step == int(ref["step"]) > 0
+    with np.load(NPZ) as f:       # the EMA export of the same checkpoint
+        assert sorted(ema) == sorted(f.files)
+        for k in f.files:
+            np.testing.assert_array_equal(ema[k], f[k])
+    assert params_from_jax(params).keys() == params_from_jax(ema).keys()
 
 
 def test_params_from_jax_covers_every_parameter_once():

@@ -147,35 +147,43 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     K.gcl_messages(*as_torch(d, GCL_KEYS))
     K.edge_vector_reduce(*as_torch(d, VEC_KEYS))
     K.edge_vector_reduce_pair(*pair_args(d, make_inputs(1, 9, seed=5)))
-    assert K.LAUNCHES == {"gcl_messages": 0, "edge_vector_reduce": 0}
+    assert K.LAUNCHES == {"gcl_messages": 0, "edge_vector_reduce": 0,
+                          "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
 
 
-def test_refuse_grad_guards_the_kernels_missing_backward():
-    """The CUDA branch of every wrapper calls ``refuse_grad`` (no GPU here
-    to reach it): it raises when grad mode is on and any tensor argument,
-    or a tensor of a pair, requires grad, and passes under no_grad or
-    when none does.  The CPU branch is untouched: the plain versions stay
-    differentiable through the wrappers."""
+def test_cpu_wrappers_in_grad_mode_route_backward_through_the_plain_backward(
+        monkeypatch):
+    """In grad mode every wrapper goes through its autograd Function, the
+    one the card runs with the backward kernels; on CPU tensors its
+    backward is the plain backward.  Under no_grad the result carries no
+    graph."""
+    calls = []
+    for name in ("gcl_messages_backward_plain",
+                 "edge_vector_reduce_backward_plain"):
+        fn = getattr(K, name)
+        monkeypatch.setattr(K, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
     d = make_inputs(1, 9, seed=3)
     args = as_torch(d, GCL_KEYS)
-    K.refuse_grad("gcl_messages", *args)
     w2 = args[6].clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward yet.*no_grad"):
-        K.refuse_grad("gcl_messages", *args[:6], w2, *args[7:])
-    with pytest.raises(RuntimeError, match="edge_vector_reduce_pair"):
-        K.refuse_grad("edge_vector_reduce_pair", (args[0], args[1]),
-                      (args[2], w2))
+    pair = pair_args(d, make_inputs(1, 9, seed=5))
+    pair[-3] = (pair[-3][0], pair[-3][1].clone().requires_grad_())
+    x = pair[5].clone().requires_grad_()
+    pair[5] = x
     with torch.no_grad():
-        K.refuse_grad("gcl_messages", *args[:6], w2, *args[7:])
-    K.refuse_grad("gcl_messages", w2.detach(), None, 1.5)
+        assert K.gcl_messages(*args[:6], w2, *args[7:]).grad_fn is None
     with torch.enable_grad():
         out = K.gcl_messages(*args[:6], w2, *args[7:])
-        pair = pair_args(d, make_inputs(1, 9, seed=5))
-        pair[-3] = (pair[-3][0], pair[-3][1].clone().requires_grad_())
-        vec = K.edge_vector_reduce_pair(*pair)
-    assert out.grad_fn is not None and vec.grad_fn is not None
+        vec = K.edge_vector_reduce_pair(*pair, n_rows=5)
+    assert type(out.grad_fn).__name__ == "_GclMessagesBackward"
+    assert type(vec.grad_fn).__name__ == "_EdgeVectorReduceBackward"
     (out.sum() + vec.sum()).backward()
+    # one plain backward per gcl call, one per weight set of the pair
+    assert sorted(calls) == ["edge_vector_reduce_backward_plain"] * 2 + [
+        "gcl_messages_backward_plain"]
     assert w2.grad is not None and pair[-3][1].grad is not None
+    assert x.grad is not None and float(x.grad.abs().max()) > 0
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize("tanh", [True, False])

@@ -58,7 +58,10 @@ def test_sources_found():
                    "diffusion/diversify.py", "cli/inpaint.py",
                    "cli/optimize.py", "cli/fix_ligand.py",
                    "chem/fingerprints.py", "cli/evaluate.py",
-                   "cli/sweep.py", "cli/debug.py", "cli/plot.py"):
+                   "cli/sweep.py", "cli/debug.py", "cli/plot.py",
+                   "train/losses.py", "train/trainer.py",
+                   "train/metrics_logger.py", "train/eval_dashboard.py",
+                   "data/virtual.py", "cli/train.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
