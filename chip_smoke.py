@@ -19,7 +19,9 @@ Phases, each of which fails the run on any fault or mismatch:
    backward, per gradient tensor, on the calls of one v3b training
    forward at each training shape [16, 72/80/88/96, 192] (the first call
    of each also against autograd through the plain forward) and at the
-   flagship shapes, bit-identical on repeat, timed beside their bound;
+   flagship shapes, bit-identical on repeat, timed beside their bound
+   and with the compiler's register and spill report; and over the
+   forward's sweep of small ragged shapes and options;
 3. path check: a 10-step fixed-noise trajectory through the kernels on
    the card against the plain path on the CPU;
 4. main path: 2 test pockets x 16 samples at T=500 from the committed
@@ -93,11 +95,13 @@ Phases, each of which fails the run on any fault or mismatch:
    chain's.
 
 ``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
-a build of the kernels with cycle counters, where a block's time goes
-(both for work on the kernels).  ``--only quality`` runs phase 7 alone
-over five seeds and prints how far each metric moves with the random
-stream (what a change to the kernels' arithmetic has to exceed), then
-does the same for phase 11.  ``--only train`` runs phases 1, 2 and 14.
+a build of the kernels with cycle counters, where a block's time goes in
+the forward kernels and in the vector backward, with the device time of
+each kernel a backward call launches (both for work on the kernels).
+``--only quality`` runs phase 7 alone over five seeds and prints how far
+each metric moves with the random stream (what a change to the kernels'
+arithmetic has to exceed), then does the same for phase 11.  ``--only
+train`` runs phases 1, 2 and 14.
 None of the four prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
@@ -212,9 +216,9 @@ BWD_KERNELS = {"gcl_messages_bwd": "gcl_messages",
                "edge_vector_reduce_bwd": "edge_vector_reduce"}
 BWD_SOURCE = "diffndm_tpu_torch/csrc/egnn_edge_bwd.cu"
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
-# CUDA-core fp32 peak of an H100 SXM: the backward kernels run on it; the
-# bound takes the TF32 tensor-core rate all the same (the work could run
-# there), as the forward's does
+# CUDA-core fp32 peak of an H100 SXM: the gcl_messages backward runs on
+# it; the bound takes the TF32 tensor-core rate (the vector backward runs
+# there, three TF32 products per product)
 PEAK_FP32_FLOPS = 67e12
 # train phase: v3b's training set and raw state, the batch shapes of its
 # padding (ligands to 8, pockets to 64 rows), the CLI run's length and cut
@@ -522,6 +526,30 @@ def sweep_inputs(torch, device, bsz, n, h, seed):
                 batt=t(np.array([0.1])))
 
 
+def sweep_cases(d, n):
+    """(wrapper, args, options) of every case of the edge-shape sweep on
+    ``sweep_inputs`` ``d``: n_rows in {0, 5, N}, every option on and
+    off."""
+    s0, s1 = d["sets"]
+    keys = ("we", "w2", "b2", "wvec")
+    cases = [("gcl_messages",
+              [s0["a"], s0["b"], *d["planes"], *(s0[k] for k in keys),
+               d["batt"]], dict(attention=att)) for att in (True, False)]
+    for n_rows in (0, 5, n):
+        for tanh in (True, False):
+            cases += [("edge_vector_reduce",
+                       [s0["a"], s0["b"], *d["planes"], d["x"],
+                        d["center"], *(s0[k] for k in keys)],
+                       dict(tanh=tanh, cross=cross, n_rows=n_rows))
+                      for cross in (False, True)]
+            cases.append(("edge_vector_reduce_pair",
+                          [(s0["a"], s1["a"]), (s0["b"], s1["b"]),
+                           *d["planes"], d["x"], d["center"],
+                           *((s0[k], s1[k]) for k in keys)],
+                          dict(tanh=tanh, n_rows=n_rows)))
+    return cases
+
+
 def edge_shape_sweep(torch, K, device):
     """Each wrapper against its plain version where compaction and ragged
     tiles can break: odd sizes, empty rows, n_rows in {0, 5, N}, every
@@ -529,24 +557,7 @@ def edge_shape_sweep(torch, K, device):
     n_cases, worst = 0, 0.0
     for seed, (bsz, n, h) in enumerate(SWEEP_SHAPES):
         d = sweep_inputs(torch, device, bsz, n, h, SEED + 10 + seed)
-        s0, s1 = d["sets"]
-        keys = ("we", "w2", "b2", "wvec")
-        cases = [("gcl_messages",
-                  [s0["a"], s0["b"], *d["planes"], *(s0[k] for k in keys),
-                   d["batt"]], dict(attention=att)) for att in (True, False)]
-        for n_rows in (0, 5, n):
-            for tanh in (True, False):
-                cases += [("edge_vector_reduce",
-                           [s0["a"], s0["b"], *d["planes"], d["x"],
-                            d["center"], *(s0[k] for k in keys)],
-                           dict(tanh=tanh, cross=cross, n_rows=n_rows))
-                          for cross in (False, True)]
-                cases.append(("edge_vector_reduce_pair",
-                              [(s0["a"], s1["a"]), (s0["b"], s1["b"]),
-                               *d["planes"], d["x"], d["center"],
-                               *((s0[k], s1[k]) for k in keys)],
-                              dict(tanh=tanh, n_rows=n_rows)))
-        for name, args, kw in cases:
+        for name, args, kw in sweep_cases(d, n):
             out = getattr(K, name)(*args, **kw)
             again = getattr(K, name)(*args, **kw)
             torch.cuda.synchronize()
@@ -609,8 +620,9 @@ def kernel_phase(torch, K, model, pocket, sizes):
 
 def phase_cycles(torch, K, model, pocket, sizes):
     """Where a block's cycles go, per kernel call of the main path and of
-    the flagship shapes (the build with -DEGNN_PROFILE; thread 0 of each
-    block counts, so a phase's figure is what warp 0 saw)."""
+    the flagship shapes, for the forward kernels and the vector backward
+    (the build with -DEGNN_PROFILE; thread 0 of each block counts, so a
+    phase's figure is what warp 0 saw)."""
     K.PROFILE_BUILD = True
     calls = capture_kernel_calls(torch, K, model, pocket, sizes)
     cases = []
@@ -633,6 +645,50 @@ def phase_cycles(torch, K, model, pocket, sizes):
             f"{c['wait'] / passes:.0f}, asking for them "
             f"{c['request'] / passes:.0f}, z and mma {c['mma'] / passes:.0f}, "
             f"epilogue {rest / passes:.0f}")
+    # the vector backward, on the first pair call of the main path and at
+    # the flagship shapes, under an output gradient drawn from the seed
+    for label, args, kw in (
+            ("main path", *next(c[1:] for c in calls
+                                if c[0] == "edge_vector_reduce_pair")),
+            ("flagship", *flagship_inputs(torch, "edge_vector_reduce_pair",
+                                          model.device))):
+        bsz, n, _ = args[0][0].shape
+        gout = torch.randn((bsz, n, 3), device=model.device,
+                           generator=torch.Generator(device=model.device)
+                           .manual_seed(SEED)) * 1e-2
+        sets = [tuple(a[s] for a in (args[0], args[1], *args[7:11]))
+                for s in (0, 1)]
+
+        def call():
+            K._edge_vector_reduce_backward_cuda(
+                gout, sets, *args[2:7], kw.get("tanh", True),
+                kw.get("coords_range", 15.0), kw.get("norm_constant", 1.0),
+                False, kw.get("norm_factor", 100.0), kw.get("n_rows"),
+                (True, True))
+        call()
+        K.read_bwd_profile()
+        call()
+        c = K.read_bwd_profile()
+        blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
+        rest = c["pass"] - c["loops"] - c["dw2"]
+        log(f"[phases] {label} edge_vector_reduce_pair backward "
+            f"{list(args[0][0].shape)}: {c['blocks']} blocks, {c['passes']} "
+            f"passes; cycles per block outside the passes (set-up, list, "
+            f"last writes) {(c['block'] - c['pass']) / blocks:.0f}; per "
+            f"pass: the chunk loops of (3) and (6) together "
+            f"{c['loops'] / passes:.0f}, (5) dW2 {c['dw2'] / passes:.0f}, "
+            f"epilogues and sums {rest / passes:.0f}")
+        # device time per call of each kernel the call launches
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        times = sorted(((getattr(ev, "self_device_time_total", 0)
+                         or getattr(ev, "self_cuda_time_total", 0), ev.key)
+                        for ev in prof.key_averages()), reverse=True)
+        log(f"[phases] {label} backward, device us per call: " + "; ".join(
+            f"{k[:60]} {us / 5:.1f}" for us, k in times if us > 0))
     K.PROFILE_BUILD = False
 
 
@@ -2004,7 +2060,7 @@ def check_backward(torch, K, name, args, kw, gout, against_autograd, reps):
         res["fp32_core_ms"] = 1e3 * ops / PEAK_FP32_FLOPS
         res["tflops"] = ops / res["ms"] / 1e9
         res["blocks"], res["rows_per_block"] = K.bwd_launch_grid(
-            *res["shape"], kw.get("n_rows"), 2 if pair else 1)
+            name, *res["shape"], kw.get("n_rows"))
     return res
 
 
@@ -2022,6 +2078,33 @@ def describe_bwd(res):
                  f"fp32 CUDA-core peak); grid {res['blocks']} blocks of "
                  f"{res['rows_per_block']} rows")
     return text
+
+
+def backward_shape_sweep(torch, K, device):
+    """Each backward kernel against the plain backward on the edge-shape
+    sweep's cases (``sweep_cases``): H = 128, 192 and 256, one weight set
+    and the pair, n_rows in {0, 5, N}, tanh, cross and attention on and
+    off, empty rows and columns, and an all-zero batch element, whose
+    blocks hold no edge; repeat launches bit-identical."""
+    n_cases, worst = 0, 0.0
+    for seed, (bsz, n, h) in enumerate(SWEEP_SHAPES):
+        d = sweep_inputs(torch, device, bsz, n, h, SEED + 10 + seed)
+        for name, args, kw in sweep_cases(d, n):
+            g = torch.Generator(device=device).manual_seed(SEED + n_cases)
+            gout = torch.randn((bsz, n, h if name == "gcl_messages" else 3),
+                               generator=g, device=device) * 1e-2
+            try:
+                res = check_backward(torch, K, name, args, kw, gout, False,
+                                     0)
+            except AssertionError as err:
+                raise AssertionError(f"{kw} [{bsz}, {n}, {h}]: {err}") \
+                    from err
+            worst = max(worst, res["tolerance_share"])
+            n_cases += 1
+    log(f"[backward] edge-shape sweep: {n_cases} cases at "
+        f"{[list(s) for s in SWEEP_SHAPES]}, every gradient within "
+        f"{BWD_RTOL} x max|plain| + {BWD_ATOL} (at most {worst:.3f} of the "
+        f"gate), repeat launches bit-identical")
 
 
 def train_batches(torch, device):
@@ -2097,8 +2180,8 @@ def capture_train_calls(torch, K, trainer, lig, poc):
 def backward_phase(torch, K, batches, trainer, device):
     """Each backward kernel against the plain backward on the calls of one
     training forward at each training shape (the first call of each kind
-    also against autograd through the plain forward, and timed), and at
-    the flagship shapes."""
+    also against autograd through the plain forward, and timed), at the
+    flagship shapes and over the edge-shape sweep."""
     results = {}
     for n in TRAIN_N:
         lig, poc = batches[n]
@@ -2143,6 +2226,7 @@ def backward_phase(torch, K, batches, trainer, device):
         results[kernel]["flagship"] = res
         log(f"[backward] flagship {wrapper} {res['shape']} {kw}: "
             f"{describe_bwd(res)}")
+    backward_shape_sweep(torch, K, device)
     return results
 
 
@@ -2494,16 +2578,25 @@ def main() -> int:
             kernel = f"{name} H={int(m[1])}"
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
-    kernel = None
+    kernel, vec_ptxas = None, {}
     for line in bwd_so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function .*edge_chain_bwd(ILi(\d+)"
-                      r"ELb([01])E|_reduce)", line)
+        m = re.search(r"Compiling entry function .*edge_chain_bwd(_vec|_reduce)?"
+                      r"(?:ILi(\d+)E)?", line)
         if m:
-            kernel = (f"backward reduce" if m[2] is None else
-                      f"{'edge_vector_reduce' if m[3] == '1' else 'gcl_messages'}"
+            kernel = ("backward reduce" if m[1] == "_reduce" else
+                      f"{'edge_vector_reduce' if m[1] else 'gcl_messages'}"
                       f" backward H={int(m[2])}")
-        elif kernel and ("registers" in line or "spill" in line):
-            log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
+            continue
+        if not kernel or not ("registers" in line or "spill" in line):
+            continue
+        log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
+        if kernel.startswith("edge_vector_reduce"):
+            h = kernel.split("H=")[1]
+            nums = {k: int(v) for v, k in re.findall(
+                r"(\d+) (?:bytes )?(registers|spill stores|spill loads)",
+                line)}
+            vec_ptxas.setdefault(h, {}).update(
+                {k.replace(" ", "_"): v for k, v in nums.items()})
 
     hist = np.load(os.path.join(DATA, "size_distribution.npy"))
     unguided_cfg = SampleConfig(pocket_pad_multiple=16)
@@ -2617,8 +2710,10 @@ def main() -> int:
             shape=main_res["shape"], launches_per_call=2,
             shapes={str(k): {c: r[c] for c in (
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
-                "bound_ms", "bound_by", "fp32_core_ms", "blocks")}
-                for k, r in at.items()}))
+                "bound_ms", "bound_by", "fp32_core_ms", "blocks")
+                if c in r} for k, r in at.items()},
+            **({"ptxas": vec_ptxas} if name == "edge_vector_reduce_bwd"
+               else {})))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,39 +23,118 @@
 // matrix (the recompute s @ W2, du @ W2^T and s^T du): 6*H^2 FLOPs per edge,
 // against a few bytes of edge input.
 //
-// The design (simple and exact first; the tensor cores are later work):
-//   * Two launches per backward.  egnn_bwd_edges: a block owns R rows of
+// Common to both kernels:
+//   * Two launches per backward.  The edge kernel: a block owns R rows of
 //     one batch element (every G-th row, as the forward deals them) and
 //     one weight set (blockIdx.z for the pair).  It gathers the (row,
 //     column) pairs of its rows with adj != 0 into a list in shared
-//     memory, sorted by column and then row, and walks it in tiles of TE
-//     edges.  Per tile: s into shared memory; u = s @ W2 on the CUDA cores
-//     in fp32 (a warp owns TE/8 edges, a lane H/32 columns; W2 rows read
-//     through L1); the epilogue on registers with warp sums for the dots;
-//     du into shared memory; s^T du added to the block's own dW2 partial;
-//     du @ W2^T (W2^T handed over by the wrapper, so the loads stay
-//     coalesced); dz; then the row sums (da, shared memory) and the
-//     column sums (db: one read-modify-write of the block's partial per
-//     run of equal columns, the runs of a tile having distinct columns).
+//     memory, sorted by column and then row, and walks it.  da per owned
+//     row in shared memory; db per run of equal columns (the runs of a
+//     tile have distinct columns) into the block's partial record.
 //   * No atomics.  Every sum that crosses blocks (dW2, db, the small
 //     weight vectors, dx, dcenter, the pair's two dd2c planes) goes to the
 //     block's own partial record and egnn_bwd_reduce adds the records in a
 //     fixed order: repeat launches give the same bits.
-//   * fp32 FMAs throughout (no TF32): the gradients keep fp32 accuracy.
-// Left for later: the three products on the tensor cores (the forward's
-// TF32x3 mma.sync tiles, or wgmma), W2 staged in shared memory, and fewer
-// partial bytes for small graphs.
+//
+// edge_chain_bwd<H> (gcl_messages): fp32 FMAs on the CUDA cores, tiles of
+// TE edges: s into shared memory; u = s @ W2 (a warp owns TE/8 edges, a
+// lane H/32 columns; W2 rows read through L1); the epilogue on registers;
+// du into shared memory; s^T du added to the block's dW2 partial per tile;
+// du @ W2^T (W2^T handed over by the wrapper); dz; row and column sums.
+// Next: the main loop of edge_chain_bwd_vec with the attention epilogue.
+//
+// edge_chain_bwd_vec<H> (edge_vector_reduce, one set or the pair): the
+// three products on the tensor cores, as the forward's mma.sync.m16n8k8
+// TF32 tiles in a three-term split (big*small + small*big + big*big, fp32
+// accumulators: fp32-level accuracy).  A pass covers PE = 16 * NWT edges
+// of the list: tile w (entries 16w..16w+15 of the pass) is warp w's, at
+// H=256 warps w and w + 4's.
+//   (3) u = s @ W2: each thread computes the A fragments of s it owns in
+//       registers from a_i (shared), b_j (global), we and the distances,
+//       as the forward does; W2 arrives split and packed by the wrapper
+//       (pack_w2) and streams in 16-row chunks through a ring of VSTAGES
+//       bulk copies (cp.async.bulk + mbarrier).  The warp holds its 16 x H
+//       accumulator tile, so bias, silu, the dot with wout, tanh, the
+//       direction and its x / centre gradients and du = dm * silu'(u) all
+//       run on registers (sigmoid(u) waits in du's slots of shared memory
+//       between the dot and du, so it is computed once).  du goes to
+//       shared memory (the C fragment layout is not the A layout), dwout's
+//       sums over the tile through a halving shuffle exchange into a
+//       per-tile row.
+//   (5) dW2 = s^T du over the pass, once per pass: the 8 warps as WK x WN
+//       slabs of dW2 (rows k, columns n), NH halves of a slab one after the
+//       other where the accumulators would not fit.  A = s^T is
+//       recomputed in registers (a thread's mma rows g, g+8 are k = 2g,
+//       2g+1 of an m tile, so its loads are 8 bytes wide), B = du from
+//       shared memory, both split on load.  The first pass writes the
+//       block's dW2 record, later passes add to it.
+//   (6) ds = du @ W2^T: the forward's main loop with A = du read from
+//       shared memory (float4, split on load) and W2^T, split and packed
+//       by the wrapper (pack_w2 of W2^T), streaming through the same ring
+//       after W2's last chunk.  dz = ds * silu'(u1) on registers with u1
+//       recomputed per fragment element; dd2c / dd2i are quad-shuffle dots
+//       with we0 / we1.  dz then replaces du for the row sums (da), the
+//       column runs (db) and dwe, one column per thread.
+// Shared memory (bytes) and the rows a block can own (R <= 16):
+//   H=128: NWT 8, PE 128: fixed 135,712 + R * (1,056 + 4 N)
+//   H=192: NWT 8, PE 128: fixed 196,128 + R * (1,568 + 4 N)
+//   H=256: NWT 4, PE  64: fixed 180,768 + R * (2,080 + 4 N)
+// (ring 3 x 16 x (H+4) split pairs; du PE x (H+8); we, b2, wout; per-tile
+// dwout rows, per-warp row dots; per-edge scalars; a and da rows, gout
+// and dx rows, list.)
+// At H=256 a pass of 8 tiles does not fit (the du tile alone would be
+// 135 KB beside a 100 KB ring), so a pass has 4 tiles and two warps take
+// half the n tiles of each in (3) and (6), adding their row dots through
+// shared memory; all 8 share (5).
+// Registers (ptxas -v, build/egnn_edge_bwd-*.log; chip_smoke.py prints
+// them): 255 at every H, no spill (at H=192 (5) holds 3 x 12 accumulator
+// tiles, 144 registers; at H=256 two halves of 4 x 8).  Where the time of
+// a 128-edge pass goes at H=192 (cycle counters, chip_smoke.py --only
+// phases, NVIDIA H100): the two chunk loops ~35 k cycles each, about what
+// mma.sync TF32 gives 8 warps; (5) ~46 k; the two epilogues ~15 k each;
+// the row and column sums ~13 k.
+// Left for later: wgmma (mma.sync caps the products near a third of the
+// TF32 rate after the split); a ragged last pass spread over the idle
+// warps (a block with a few edges over 128 pays a second pass; splitting
+// the n tiles at run time, as H=256 does at compile time, made the
+// predicated chunk loops 40 % slower); the epilogues overlapped with
+// another warp group's products; dW2 in registers across a block's
+// passes; fewer partial bytes for small graphs.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "egnn_mma.cuh"
+
+// -DEGNN_PROFILE: thread 0 of every block of the vector backward adds the
+// cycles it spends in four spans to g_prof (the whole block, its passes,
+// the chunk loops of products (3) and (6), product (5); see
+// PROFILE_BWD_FIELDS in ops/egnn_kernels.py); egnn_bwd_read_profile copies
+// the sums out and clears them.
+#ifdef EGNN_PROFILE
+__device__ unsigned long long g_prof[6];
+#define PROF_T(v) const long long v = clock64()
+#define PROF_ADD(i, a, b)                                               \
+    if (threadIdx.x == 0) atomicAdd(&g_prof[i], (unsigned long long)((b) - (a)))
+extern "C" int egnn_bwd_read_profile(unsigned long long* dst) {
+    const unsigned long long zero[6] = {0};
+    cudaError_t e = cudaDeviceSynchronize();
+    if (e == cudaSuccess) e = cudaMemcpyFromSymbol(dst, g_prof, sizeof(zero));
+    if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+    return (int)e;
+}
+#else
+#define PROF_T(v)
+#define PROF_ADD(i, a, b)
+#endif
 
 namespace {
 
 constexpr int NW = 8;                // warps per block
 constexpr int THREADS = 32 * NW;
 constexpr int R_MAX = 16;            // most rows a block owns
-constexpr int LIST_MAX = 8192;       // most (row, column) pairs a block lists
+constexpr int LIST_MAX = 8192;       // most (row, column) pairs a block lists (gcl)
 constexpr int SMEM_LIMIT = 232448;   // bytes a block may use on sm_90
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -71,8 +150,8 @@ struct Set {
     const float* a;       // [B, N, H]
     const float* b;       // [B, N, H]
     const float* we;      // [2, H]
-    const float* w2;      // [H, H] (k, n)
-    const float* w2t;     // [H, H] (n, k)
+    const float* w2;      // gcl [H, H] (k, n); vec pack_w2(W2)
+    const float* w2t;     // gcl [H, H] (n, k); vec pack_w2(W2^T)
     const float* b2;      // [H]
     const float* wvec;    // [H]: watt or wout
     float* da;            // [B, N, H]: rows < n_rows written
@@ -121,10 +200,29 @@ __device__ __forceinline__ float dsilu(float v) {
     return s * (1.f + v * (1.f - s));
 }
 
+__device__ __forceinline__ float silu_fast(float v) {
+    return __fdividef(v, 1.0f + __expf(-v));
+}
+
+__device__ __forceinline__ float sigm_fast(float v) {
+    return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+
+__device__ __forceinline__ float dsilu_fast(float v) {
+    const float s = sigm_fast(v);
+    return s * (1.f + v * (1.f - s));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
     return v;
+}
+
+// sum over the four lanes of a quad (the lanes that share an mma row)
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(FULL, v, 1);
+    return v + __shfl_xor_sync(FULL, v, 2);
 }
 
 // the direction of edge (row, col) and the gradient of w * v_hat . G with
@@ -167,77 +265,14 @@ __device__ __forceinline__ void direction(const float* xr, const float* xc,
     }
 }
 
-template <int H, bool VEC>
-constexpr int fixed_floats() {
-    using C = Cfg<H>;
-    return 2 * C::TE * H              // s (then dz), du (then run sums)
-           + 2 * R_MAX * H            // a rows, da rows
-           + R_MAX * (VEC ? 4 : H)    // output gradient rows
-           + C::TE * 9                // adj, d2c, d2i, direction gradients
-           + 2 * C::TE                // local row, column (ints)
-           + C::TE;                   // column of each run (ints)
-}
-
-template <int H, bool VEC>
-size_t smem_bytes(int R, int N) {
-    return 4 * ((size_t)fixed_floats<H, VEC>() + (VEC ? 3 * (size_t)N : 0)
-                + (size_t)R * N);
-}
-
-// VEC = false: gcl_messages; VEC = true: edge_vector_reduce (one or two
-// weight sets, blockIdx.z)
-template <int H, bool VEC>
-__global__ void __launch_bounds__(THREADS, 1)
-edge_chain_bwd(const Args p) {
-    using C = Cfg<H>;
-    constexpr int TE = C::TE, EPW = C::EPW, NJ = C::NJ, KG = C::KG;
-    constexpr int GW = VEC ? 4 : H;
-    extern __shared__ __align__(16) float smem[];
-    float* sS = smem;
-    float* sDU = sS + TE * H;
-    float* sA = sDU + TE * H;
-    float* sDA = sA + R_MAX * H;
-    float* sG = sDA + R_MAX * H;
-    float* eAdj = sG + R_MAX * GW;
-    float* eDc = eAdj + TE;
-    float* eDi = eDc + TE;
-    float* eEG = eDi + TE;                                 // TE x 6
-    int* eLR = reinterpret_cast<int*>(eEG + TE * 6);
-    int* eCol = eLR + TE;
-    int* runCol = eCol + TE;
-    float* sX = reinterpret_cast<float*>(runCol + TE);     // N x 3 (vec)
-    int* elist = reinterpret_cast<int*>(sX + (VEC ? 3 * p.N : 0));
-
-    const int N = p.N, G = p.G;
-    const int bi = blockIdx.y, z = blockIdx.z;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int row_limit = p.n_rows < N ? p.n_rows : N;
-    const int nrow = (row_limit - (int)blockIdx.x + G - 1) / G;   // <= R
-    auto grow = [&](int lr) { return (int)blockIdx.x + lr * G; };
-    const Set ws = z ? p.s[1] : p.s[0];
-    const Layout L = layout(H, N);
-    float* part = p.part + ((size_t)(z * p.B + bi) * G + blockIdx.x) * p.P;
-    const float inv_nf = 1.f / p.norm_factor;
-
-    // the partial sums this block adds to in place start at zero
-    for (int i = tid; i < L.vec; i += THREADS) part[i] = 0.f;
-    for (int i = tid; i < nrow * H; i += THREADS) {
-        const size_t o = ((size_t)bi * N + grow(i / H)) * H + i % H;
-        sA[i] = ws.a[o];
-        sDA[i] = 0.f;
-        if (!VEC) sG[i] = p.gout[o];
-    }
-    if (VEC) {
-        for (int i = tid; i < nrow * 3; i += THREADS)
-            sG[(i / 3) * 4 + i % 3] =
-                p.gout[((size_t)bi * N + grow(i / 3)) * 3 + i % 3];
-        for (int i = tid; i < 3 * N; i += THREADS) sX[i] = 0.f;
-    }
-
-    // ---- the block's edges, by column and then row ----
-    const float* adj_b = p.adj + (size_t)bi * N * N;
-    int* cnt = reinterpret_cast<int*>(sS);      // N + 1 counts, then sums
+// the block's (row, column) pairs with adj != 0, sorted by column and then
+// row, as (local row << 16) | column; returns their count.  cnt is scratch
+// of N + 1 + THREADS ints.
+__device__ int build_list(const float* adj_b, int N, int nrow, int G,
+                          int* cnt, int* elist) {
+    const int tid = threadIdx.x;
     int* tsum = cnt + N + 1;
+    auto grow = [&](int lr) { return (int)blockIdx.x + lr * G; };
     for (int j = tid; j < N; j += THREADS) {
         int c = 0;
         for (int lr = 0; lr < nrow; ++lr)
@@ -248,21 +283,32 @@ edge_chain_bwd(const Args p) {
     const int chunk = (N + THREADS - 1) / THREADS;
     const int j0 = tid * chunk < N ? tid * chunk : N;
     const int j1 = j0 + chunk < N ? j0 + chunk : N;
-    {
-        int s = 0;
-        for (int j = j0; j < j1; ++j) s += cnt[j];
-        tsum[tid] = s;
+    // exclusive prefix sum of the threads' counts: within each warp by
+    // shuffles, then over the warps' totals
+    const int lane = tid & 31, warp = tid >> 5;
+    int mine = 0;
+    for (int j = j0; j < j1; ++j) mine += cnt[j];
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += v;
     }
+    if (lane == 31) tsum[warp] = incl;
     __syncthreads();
     if (tid == 0) {
         int run = 0;
-        for (int t = 0; t < THREADS; ++t) {
-            const int v = tsum[t];
-            tsum[t] = run;
+        for (int w = 0; w < NW; ++w) {
+            const int v = tsum[w];
+            tsum[w] = run;
             run += v;
         }
         cnt[N] = run;
     }
+    __syncthreads();
+    const int start = tsum[warp] + incl - mine;
+    __syncthreads();                  // tsum is read before it is reused
+    tsum[tid] = start;
     __syncthreads();
     {
         int run = tsum[tid];
@@ -281,6 +327,68 @@ edge_chain_bwd(const Args p) {
                 elist[pos++] = (lr << 16) | j;
     }
     __syncthreads();
+    return n_edges;
+}
+
+// ---------------------------------------------------------------------------
+// gcl_messages: fp32 FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+
+template <int H>
+constexpr int fixed_floats() {
+    using C = Cfg<H>;
+    return 2 * C::TE * H              // s (then dz), du (then run sums)
+           + 3 * R_MAX * H            // a rows, da rows, output gradient rows
+           + C::TE * 3                // adj, d2c, d2i
+           + 2 * C::TE                // local row, column (ints)
+           + C::TE;                   // column of each run (ints)
+}
+
+template <int H>
+size_t smem_bytes(int R, int N) {
+    return 4 * ((size_t)fixed_floats<H>() + (size_t)R * N);
+}
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, 1)
+edge_chain_bwd(const Args p) {
+    using C = Cfg<H>;
+    constexpr int TE = C::TE, EPW = C::EPW, NJ = C::NJ, KG = C::KG;
+    extern __shared__ __align__(16) float smem[];
+    float* sS = smem;
+    float* sDU = sS + TE * H;
+    float* sA = sDU + TE * H;
+    float* sDA = sA + R_MAX * H;
+    float* sG = sDA + R_MAX * H;
+    float* eAdj = sG + R_MAX * H;
+    float* eDc = eAdj + TE;
+    float* eDi = eDc + TE;
+    int* eLR = reinterpret_cast<int*>(eDi + TE);
+    int* eCol = eLR + TE;
+    int* runCol = eCol + TE;
+    int* elist = runCol + TE;
+
+    const int N = p.N, G = p.G;
+    const int bi = blockIdx.y;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int nrow = (N - (int)blockIdx.x + G - 1) / G;   // <= R
+    auto grow = [&](int lr) { return (int)blockIdx.x + lr * G; };
+    const Set ws = p.s[0];
+    const Layout L = layout(H, N);
+    float* part = p.part + ((size_t)bi * G + blockIdx.x) * p.P;
+    const float inv_nf = 1.f / p.norm_factor;
+
+    // the partial sums this block adds to in place start at zero
+    for (int i = tid; i < L.vec; i += THREADS) part[i] = 0.f;
+    for (int i = tid; i < nrow * H; i += THREADS) {
+        const size_t o = ((size_t)bi * N + grow(i / H)) * H + i % H;
+        sA[i] = ws.a[o];
+        sDA[i] = 0.f;
+        sG[i] = p.gout[o];
+    }
+
+    const int n_edges = build_list(p.adj + (size_t)bi * N * N, N, nrow, G,
+                                   reinterpret_cast<int*>(sS), elist);
 
     // per-thread sums over the block's edges, columns n = lane + 32 j
     float acc_b2[NJ], acc_wv[NJ], acc_we0[NJ], acc_we1[NJ];
@@ -295,9 +403,7 @@ edge_chain_bwd(const Args p) {
         rwe1[j] = ws.we[H + n];
     }
     float acc_batt = 0.f;
-    float dctr = 0.f;                 // threads 0..2: dcenter (cross)
-    const float batt = (!VEC && p.flag_a) ? p.batt[0] : 0.f;
-    const float* ctr = VEC ? p.center + (size_t)bi * 3 : nullptr;
+    const float batt = p.flag_a ? p.batt[0] : 0.f;
     const float* b_b = ws.b + (size_t)bi * N * H;
 
     for (int t0 = 0; t0 < n_edges; t0 += TE) {
@@ -363,57 +469,27 @@ edge_chain_bwd(const Args p) {
                 m[j] = silu(u[j]);
                 dot = fmaf(m[j], rwv[j], dot);
             }
-            if (VEC || p.flag_a) dot = warp_sum(dot);
-            if (!VEC) {
-                float g[NJ];
-                float gm = 0.f;
+            if (p.flag_a) dot = warp_sum(dot);
+            float g[NJ];
+            float gm = 0.f;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                g[j] = sG[lr * H + lane + 32 * j] * av;
+                gm = fmaf(g[j], m[j], gm);
+            }
+            if (p.flag_a) {
+                gm = warp_sum(gm);
+                const float gate = sigm(dot + batt);
+                const float datt = gm * gate * (1.f - gate);
 #pragma unroll
                 for (int j = 0; j < NJ; ++j) {
-                    g[j] = sG[lr * H + lane + 32 * j] * av;
-                    gm = fmaf(g[j], m[j], gm);
+                    dm[j] = fmaf(g[j], gate, datt * rwv[j]);
+                    acc_wv[j] = fmaf(datt, m[j], acc_wv[j]);
                 }
-                if (p.flag_a) {
-                    gm = warp_sum(gm);
-                    const float gate = sigm(dot + batt);
-                    const float datt = gm * gate * (1.f - gate);
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) {
-                        dm[j] = fmaf(g[j], gate, datt * rwv[j]);
-                        acc_wv[j] = fmaf(datt, m[j], acc_wv[j]);
-                    }
-                    acc_batt += datt;
-                } else {
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) dm[j] = g[j];
-                }
+                acc_batt += datt;
             } else {
-                const int col = eCol[el];
-                const float* xr = p.x + ((size_t)bi * N + grow(lr)) * 3;
-                const float* xc = p.x + ((size_t)bi * N + col) * 3;
-                const float Gr[3] = {sG[lr * 4], sG[lr * 4 + 1], sG[lr * 4 + 2]};
-                const float th = p.flag_a ? tanhf(dot) : 0.f;
-                const float phi = p.flag_a ? th * p.coords_range : dot;
-                float vh[3], gp[3], gq[3];
-                direction(xr, xc, ctr, ws.cross, p.norm_constant, Gr,
-                          av * phi, vh, gp, gq);
-                const float dphi = av * (Gr[0] * vh[0] + Gr[1] * vh[1]
-                                         + Gr[2] * vh[2]);
-                const float dpr = p.flag_a
-                                      ? dphi * p.coords_range * (1.f - th * th)
-                                      : dphi;
 #pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                    dm[j] = dpr * rwv[j];
-                    acc_wv[j] = fmaf(dpr, m[j], acc_wv[j]);
-                }
-                if (lane == 0) {
-                    eEG[el * 6 + 0] = gp[0];
-                    eEG[el * 6 + 1] = gp[1];
-                    eEG[el * 6 + 2] = gp[2];
-                    eEG[el * 6 + 3] = gq[0];
-                    eEG[el * 6 + 4] = gq[1];
-                    eEG[el * 6 + 5] = gq[2];
-                }
+                for (int j = 0; j < NJ; ++j) dm[j] = g[j];
             }
 #pragma unroll
             for (int j = 0; j < NJ; ++j) {
@@ -538,14 +614,6 @@ edge_chain_bwd(const Args p) {
                 }
             }
         }
-        if (VEC && tid < 3) {
-            for (int e = 0; e < tn; ++e) {
-                const float gp = eEG[e * 6 + tid], gq = eEG[e * 6 + 3 + tid];
-                sX[grow(eLR[e]) * 3 + tid] += gp;
-                sX[eCol[e] * 3 + tid] += gq;
-                if (ws.cross) dctr -= gp + gq;
-            }
-        }
         __syncthreads();
         // the runs of a tile have distinct columns: their read-modify-
         // writes of the db partial are independent, four at a time
@@ -590,11 +658,778 @@ edge_chain_bwd(const Args p) {
         for (int w = 0; w < NW; ++w) s += red[NW * 4 * H + w];
         part[L.vec + 4 * H] = s;
     }
-    if (VEC) {
-        for (int i = tid; i < 3 * N; i += THREADS) part[L.x + i] = sX[i];
-        if (tid < 3) part[L.c + tid] = dctr;
+}
+
+// ---------------------------------------------------------------------------
+// edge_vector_reduce: the three products on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 16;               // rows of a packed W2 / W2^T chunk
+constexpr int VSTAGES = 3;           // ring stages
+
+template <int H>
+struct VCfg {
+    static constexpr int NWT = H <= 192 ? 8 : 4;   // edge tiles per pass
+    static constexpr int PE = 16 * NWT;            // edges per pass
+    static constexpr int LDR = H + 4;              // ring row stride (pairs)
+    // du row stride, = 8 mod 32: the B loads of (5) hit every bank once
+    static constexpr int LDU = H + 8;
+    static constexpr int NT = H / 8;               // n tiles of a 16 x H tile
+    // warps on each edge tile in (3) and (6), and the n tiles each takes
+    static constexpr int SPLIT = NW / NWT;
+    static constexpr int NTS = NT / SPLIT;
+    static constexpr int NC = H / KC;              // chunks per product
+    // (5): warps as WK (k) x WN (n) slabs of dW2, NH halves of a slab
+    static constexpr int WK = 4, WN = 2;
+    static constexpr int NH = H == 256 ? 2 : 1;
+    static constexpr int MTW = H / 16 / WK;        // m tiles of a slab
+    static constexpr int NTW = H / 8 / WN / NH;    // n tiles of a half
+};
+
+template <int H>
+constexpr int vec_fixed_floats() {
+    using C = VCfg<H>;
+    return 8                                   // ring barriers, padded
+           + VSTAGES * KC * C::LDR * 2         // W2 / W2^T ring
+           + C::PE * C::LDU                    // du, then dz, then run sums
+           + 4 * H                             // we0, we1, b2, wout
+           + C::NWT * H                        // per-tile dwout sums
+           + NW * 32                           // per-warp row dots
+           + C::PE * 12                        // adj, d2c, d2i, dx (6), runs (3)
+           + C::PE * 4;                        // row, column, run column, pad
+}
+
+// + per owned row: a and da rows, gout and dx rows (4 each); the list
+template <int H>
+size_t vec_smem_bytes(int R, int N) {
+    return 4 * ((size_t)vec_fixed_floats<H>() + (size_t)R * (2 * H + 8)
+                + (size_t)R * N);
+}
+
+// acc (16 edges x NT n tiles from column n8) += A (16 x 16 of this chunk)
+// @ chunk (16 x H, split pairs as pack_w2 lays them out); zl / zh: the
+// thread's A values of its two edges g, g + 8 at k = 4t..4t+3 of the
+// chunk.  The forward's loop.
+template <int H, int NT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
+                                          const float* stage,
+                                          const float (&zl)[4],
+                                          const float (&zh)[4], int g,
+                                          int t, int n8) {
+    constexpr int LD = H + 4, NG = 4;
+    const float2* wst = reinterpret_cast<const float2*>(stage) + n8;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        uint32_t ab[4], asml[4];
+        split_tf32(zl[2 * half], ab[0], asml[0]);
+        split_tf32(zh[2 * half], ab[1], asml[1]);
+        split_tf32(zl[2 * half + 1], ab[2], asml[2]);
+        split_tf32(zh[2 * half + 1], ab[3], asml[3]);
+        const float2* wk = wst + (half * 8 + t) * LD + g;
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += NG) {
+            uint32_t bb0[NG], bs0[NG], bb1[NG], bs1[NG];
+#pragma unroll
+            for (int j = 0; j < NG; ++j) {
+                const float2 f0 = wk[(n0 + j) * 8];
+                const float2 f1 = wk[4 * LD + (n0 + j) * 8];
+                bb0[j] = __float_as_uint(f0.x);
+                bs0[j] = __float_as_uint(f0.y);
+                bb1[j] = __float_as_uint(f1.x);
+                bs1[j] = __float_as_uint(f1.y);
+            }
+#pragma unroll
+            for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], ab, bs0[j], bs1[j]);
+#pragma unroll
+            for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], asml, bb0[j], bb1[j]);
+#pragma unroll
+            for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], ab, bb0[j], bb1[j]);
+        }
     }
 }
+
+template <int H>
+__global__ void __launch_bounds__(THREADS, 1)
+edge_chain_bwd_vec(const Args p) {
+    using C = VCfg<H>;
+    constexpr int NWT = C::NWT, PE = C::PE, LDR = C::LDR, LDU = C::LDU;
+    constexpr int NC = C::NC, SPLIT = C::SPLIT, NT = C::NTS;
+    constexpr int WK = C::WK, WN = C::WN, NH = C::NH, MTW = C::MTW,
+                  NTW = C::NTW;
+    extern __shared__ __align__(16) float smem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    float* ring = smem + 8;
+    float* sDU = ring + VSTAGES * KC * LDR * 2;
+    float* we0 = sDU + PE * LDU;
+    float* we1 = we0 + H;
+    float* b2s = we1 + H;
+    float* wvs = b2s + H;
+    float* sWV = wvs + H;                      // [NWT][H]
+    float* sRed = sWV + NWT * H;               // [NW][32]
+    float* eAdj = sRed + NW * 32;
+    float* eDc = eAdj + PE;
+    float* eDi = eDc + PE;
+    float* eEG = eDi + PE;                     // [PE][6]: gp, gq
+    float* runX = eEG + 6 * PE;                // [PE][3]
+    int* eLR = reinterpret_cast<int*>(runX + 3 * PE);
+    int* eCol = eLR + PE;
+    int* runCol = eCol + PE;
+    float* sA = reinterpret_cast<float*>(runCol + 2 * PE);
+    float* sDA = sA + p.R * H;
+    float* sG = sDA + p.R * H;                 // [R][4]
+    float* sXR = sG + 4 * p.R;                 // [R][4]
+    int* elist = reinterpret_cast<int*>(sXR + 4 * p.R);
+
+    const int N = p.N, G = p.G;
+    const int bi = blockIdx.y, z = blockIdx.z;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row_limit = p.n_rows < N ? p.n_rows : N;
+    const int nrow = (row_limit - (int)blockIdx.x + G - 1) / G;   // <= R
+    auto grow = [&](int lr) { return (int)blockIdx.x + lr * G; };
+    const Set ws = z ? p.s[1] : p.s[0];
+    const Layout L = layout(H, N);
+    float* part = p.part + ((size_t)(z * p.B + bi) * G + blockIdx.x) * p.P;
+    const float inv_nf = 1.f / p.norm_factor;
+    const float* b_b = ws.b + (size_t)bi * N * H;
+    const float* ctr = p.center + (size_t)bi * 3;
+    PROF_T(p_start);
+
+    // ring chunk q: chunk q mod 2 NC of the pass's sequence, W2's NC chunks
+    // then W2^T's, into stage q mod VSTAGES; one thread asks for each
+    constexpr uint32_t CHUNK_BYTES = KC * LDR * 2 * 4;
+    auto request_chunk = [&](int q) {
+        if (tid == 0) {
+            const int c = q % (2 * NC);
+            const float* src = (c < NC ? ws.w2 : ws.w2t)
+                               + (size_t)(c % NC) * KC * LDR * 2;
+            bulk_load(ring + (q % VSTAGES) * KC * LDR * 2, src, CHUNK_BYTES,
+                      full + q % VSTAGES);
+        }
+    };
+    if (tid == 0) {
+#pragma unroll
+        for (int s = 0; s < VSTAGES; ++s) mbar_init(full + s, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#pragma unroll
+        for (int s = 0; s < VSTAGES - 1; ++s) request_chunk(s);
+    }
+
+    for (int i = tid; i < nrow * H; i += THREADS) {
+        sA[i] = ws.a[((size_t)bi * N + grow(i / H)) * H + i % H];
+        sDA[i] = 0.f;
+    }
+    for (int i = tid; i < nrow * 4; i += THREADS) {
+        const int c = i & 3;
+        sG[i] = c < 3 ? p.gout[((size_t)bi * N + grow(i >> 2)) * 3 + c] : 0.f;
+        sXR[i] = 0.f;
+    }
+    for (int i = tid; i < H; i += THREADS) {
+        we0[i] = ws.we[i];
+        we1[i] = ws.we[H + i];
+        b2s[i] = ws.b2[i];
+        wvs[i] = ws.wvec[i];
+    }
+    // the partial sums added to run by run start at zero
+    for (int i = tid; i < N * H; i += THREADS) part[L.b + i] = 0.f;
+    for (int i = tid; i < 3 * N; i += THREADS) part[L.x + i] = 0.f;
+
+    const int n_edges = build_list(p.adj + (size_t)bi * N * N, N, nrow, G,
+                                   reinterpret_cast<int*>(sDU), elist);
+    const int n_pass = (n_edges + PE - 1) / PE;
+    const int n_chunks = n_pass * 2 * NC;
+    PROF_ADD(5, 0, 1);
+    // chunk q is here, all are done with chunk q-1's stage: refill it
+    auto next_chunk = [&](int q) {
+        mbar_wait(full + q % VSTAGES, (q / VSTAGES) & 1);
+        __syncthreads();
+        if (q + VSTAGES - 1 < n_chunks) request_chunk(q + VSTAGES - 1);
+    };
+
+    // column tid (< H): the block's db2, dwe0, dwe1, dwout
+    float acc_b2 = 0.f, acc_we0 = 0.f, acc_we1 = 0.f, acc_wv = 0.f;
+    // threads xt..xt+2: component c of dx (and dcenter)
+    const int xt = H + 3 <= THREADS ? H : 0;
+    const int xc_ = tid - xt;
+    const bool xthread = xc_ >= 0 && xc_ < 3;
+    float dctr = 0.f;
+    // (5): this warp's slab of dW2; its k rows 2g, 2g+1 of each m tile
+    const int kb = (warp % WK) * (H / WK);
+    const int nslab = (warp / WK) * (H / WN);
+
+    int q = 0;
+    for (int pass = 0; pass < n_pass; ++pass) {
+        const int e0 = pass * PE;
+        const int tn = n_edges - e0 < PE ? n_edges - e0 : PE;
+        // the pass's edges; an entry past the list is (row 0, column 0)
+        // with adj 0, so every gradient it gives is 0
+        if (tid < PE) {
+            const bool v = tid < tn;
+            const int pk = v ? elist[e0 + tid] : 0;
+            const int lr = pk >> 16, col = pk & 0xffff;
+            const size_t o = ((size_t)bi * N + grow(lr)) * N + col;
+            eLR[tid] = lr;
+            eCol[tid] = col;
+            eAdj[tid] = v ? p.adj[o] : 0.f;
+            eDc[tid] = v ? p.d2c[o] : 0.f;
+            eDi[tid] = v ? p.d2i[o] : 0.f;
+        }
+        __syncthreads();
+        // this thread's two edges of the warp's tile: pass entries el_lo
+        // = 16 tile + g and el_hi = el_lo + 8; its n tiles from column n8
+        const int tile = warp % NWT, sub = warp / NWT;
+        const int n8 = sub * NT * 8;
+        const bool active = tile * 16 < tn;
+        const int el_lo = tile * 16 + g;
+        const int el_hi = el_lo + 8;
+        PROF_T(p0);
+        PROF_ADD(4, 0, 1);
+
+        // ---- (3) u = s @ W2, and the epilogue up to du ----
+        {
+            // the thread's two edges, read again in (6): fewer registers
+            // live across (5)
+            const int lr_lo = eLR[el_lo], lr_hi = eLR[el_hi];
+            const int col_lo = eCol[el_lo], col_hi = eCol[el_hi];
+            const float dc_lo = eDc[el_lo], dc_hi = eDc[el_hi];
+            const float di_lo = eDi[el_lo], di_hi = eDi[el_hi];
+            const float* b_lo = b_b + (size_t)col_lo * H;
+            const float* b_hi = b_b + (size_t)col_hi * H;
+            float acc[NT][4];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+            float4 bl_next = __ldg(reinterpret_cast<const float4*>(b_lo + 4 * t));
+            float4 bh_next = __ldg(reinterpret_cast<const float4*>(b_hi + 4 * t));
+            for (int c = 0; c < NC; ++c, ++q) {
+                next_chunk(q);
+                if (!active) continue;
+                const int kq = c * KC + 4 * t;
+                const float4 al = *reinterpret_cast<const float4*>(
+                    sA + lr_lo * H + kq);
+                const float4 ah = *reinterpret_cast<const float4*>(
+                    sA + lr_hi * H + kq);
+                const float4 bl = bl_next, bh = bh_next;
+                if (c + 1 < NC) {     // the next chunk's b_j, ahead of the mma
+                    bl_next = __ldg(reinterpret_cast<const float4*>(
+                        b_lo + kq + KC));
+                    bh_next = __ldg(reinterpret_cast<const float4*>(
+                        b_hi + kq + KC));
+                }
+                const float4 w0 = *reinterpret_cast<const float4*>(we0 + kq);
+                const float4 w1 = *reinterpret_cast<const float4*>(we1 + kq);
+                const float zl[4] = {
+                    silu_fast(fmaf(di_lo, w1.x, fmaf(dc_lo, w0.x, al.x + bl.x))),
+                    silu_fast(fmaf(di_lo, w1.y, fmaf(dc_lo, w0.y, al.y + bl.y))),
+                    silu_fast(fmaf(di_lo, w1.z, fmaf(dc_lo, w0.z, al.z + bl.z))),
+                    silu_fast(fmaf(di_lo, w1.w, fmaf(dc_lo, w0.w, al.w + bl.w)))};
+                const float zh[4] = {
+                    silu_fast(fmaf(di_hi, w1.x, fmaf(dc_hi, w0.x, ah.x + bh.x))),
+                    silu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y))),
+                    silu_fast(fmaf(di_hi, w1.z, fmaf(dc_hi, w0.z, ah.z + bh.z))),
+                    silu_fast(fmaf(di_hi, w1.w, fmaf(dc_hi, w0.w, ah.w + bh.w)))};
+                mma_chunk<H>(acc, ring + (q % VSTAGES) * KC * LDR * 2, zl, zh,
+                             g, t, n8);
+            }
+            PROF_T(p1);
+            PROF_ADD(2, p0, p1);
+
+            float dot_lo = 0.f, dot_hi = 0.f;
+            if (active) {
+                // u = acc + b2; phi from m . wout (a quad holds a row)
+                // (sigmoid(u) waits in du's slots of shared memory)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                    const int c0 = n8 + nt * 8 + 2 * t;
+                    const float2 bias = *reinterpret_cast<const float2*>(b2s + c0);
+                    const float2 wv = *reinterpret_cast<const float2*>(wvs + c0);
+                    acc[nt][0] += bias.x;
+                    acc[nt][1] += bias.y;
+                    acc[nt][2] += bias.x;
+                    acc[nt][3] += bias.y;
+                    float sg[4];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) sg[i] = sigm_fast(acc[nt][i]);
+                    dot_lo = fmaf(acc[nt][0] * sg[0], wv.x,
+                                  fmaf(acc[nt][1] * sg[1], wv.y, dot_lo));
+                    dot_hi = fmaf(acc[nt][2] * sg[2], wv.x,
+                                  fmaf(acc[nt][3] * sg[3], wv.y, dot_hi));
+                    *reinterpret_cast<float2*>(sDU + el_lo * LDU + c0) =
+                        make_float2(sg[0], sg[1]);
+                    *reinterpret_cast<float2*>(sDU + el_hi * LDU + c0) =
+                        make_float2(sg[2], sg[3]);
+                }
+                dot_lo = quad_sum(dot_lo);
+                dot_hi = quad_sum(dot_hi);
+                if constexpr (SPLIT > 1) {    // the tile's warps add theirs
+                    if (t == 0) {
+                        sRed[warp * 32 + g] = dot_lo;
+                        sRed[warp * 32 + 8 + g] = dot_hi;
+                    }
+                }
+            }
+            if constexpr (SPLIT > 1) {
+                __syncthreads();
+                if (active) {
+                    dot_lo = dot_hi = 0.f;
+                    for (int j = 0; j < SPLIT; ++j) {
+                        dot_lo += sRed[(tile + j * NWT) * 32 + g];
+                        dot_hi += sRed[(tile + j * NWT) * 32 + 8 + g];
+                    }
+                }
+            }
+            if (active) {
+                // dphi through tanh, and the direction's own gradients
+                float dpr[2];
+#pragma unroll
+                for (int side = 0; side < 2; ++side) {
+                    const int el = side ? el_hi : el_lo;
+                    const int lr = side ? lr_hi : lr_lo;
+                    const int col = side ? col_hi : col_lo;
+                    const float dot = side ? dot_hi : dot_lo;
+                    const float av = eAdj[el] * inv_nf;
+                    const float* xr = p.x + ((size_t)bi * N + grow(lr)) * 3;
+                    const float* xc = p.x + ((size_t)bi * N + col) * 3;
+                    const float Gr[3] = {sG[lr * 4], sG[lr * 4 + 1], sG[lr * 4 + 2]};
+                    const float th = p.flag_a ? tanhf(dot) : 0.f;
+                    const float phi = p.flag_a ? th * p.coords_range : dot;
+                    float vh[3], gp[3], gq[3];
+                    direction(xr, xc, ctr, ws.cross, p.norm_constant, Gr,
+                              av * phi, vh, gp, gq);
+                    const float dphi = av * (Gr[0] * vh[0] + Gr[1] * vh[1]
+                                             + Gr[2] * vh[2]);
+                    dpr[side] = p.flag_a
+                                    ? dphi * p.coords_range * (1.f - th * th)
+                                    : dphi;
+                    if (t == 0 && sub == 0) {
+                        eEG[el * 6 + 0] = gp[0];
+                        eEG[el * 6 + 1] = gp[1];
+                        eEG[el * 6 + 2] = gp[2];
+                        eEG[el * 6 + 3] = gq[0];
+                        eEG[el * 6 + 4] = gq[1];
+                        eEG[el * 6 + 5] = gq[2];
+                    }
+                }
+                // du = dpr * wout * silu'(u) to shared memory; dwout's
+                // terms dpr * m summed over the tile's 16 edges, XT n tiles
+                // at a time: over the 8 lanes that share t, halving what a
+                // lane keeps at each step, so that it ends with 2 sums
+                static_assert(NT % 8 == 0, "n tiles in chunks of XT");
+                constexpr int XT = 8, V = 2 * XT;
+                const bool up1 = lane & 16, up2 = lane & 8, up3 = lane & 4;
+                const int base = (up1 ? V / 2 : 0) + (up2 ? V / 4 : 0)
+                                 + (up3 ? V / 8 : 0);
+#pragma unroll
+                for (int n0 = 0; n0 < NT; n0 += XT) {
+                    float v[V];
+#pragma unroll
+                    for (int j = 0; j < XT; ++j) {
+                        const int nt = n0 + j;
+                        const int c0 = n8 + nt * 8 + 2 * t;
+                        const float2 wv = *reinterpret_cast<const float2*>(wvs + c0);
+                        const float2 sl = *reinterpret_cast<const float2*>(
+                            sDU + el_lo * LDU + c0);
+                        const float2 sh = *reinterpret_cast<const float2*>(
+                            sDU + el_hi * LDU + c0);
+                        const float sgs[4] = {sl.x, sl.y, sh.x, sh.y};
+                        float m[4], d[4];
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            const float u = acc[nt][i];
+                            const float sg = sgs[i];
+                            m[i] = u * sg;
+                            d[i] = dpr[i >> 1] * (i & 1 ? wv.y : wv.x)
+                                   * (sg * (1.f + u * (1.f - sg)));
+                        }
+                        v[2 * j] = fmaf(dpr[0], m[0], dpr[1] * m[2]);
+                        v[2 * j + 1] = fmaf(dpr[0], m[1], dpr[1] * m[3]);
+                        *reinterpret_cast<float2*>(sDU + el_lo * LDU + c0) =
+                            make_float2(d[0], d[1]);
+                        *reinterpret_cast<float2*>(sDU + el_hi * LDU + c0) =
+                            make_float2(d[2], d[3]);
+                    }
+#pragma unroll
+                    for (int j = 0; j < V / 2; ++j) {
+                        const float keep = up1 ? v[j + V / 2] : v[j];
+                        const float send = up1 ? v[j] : v[j + V / 2];
+                        v[j] = keep + __shfl_xor_sync(FULL, send, 16);
+                    }
+#pragma unroll
+                    for (int j = 0; j < V / 4; ++j) {
+                        const float keep = up2 ? v[j + V / 4] : v[j];
+                        const float send = up2 ? v[j] : v[j + V / 4];
+                        v[j] = keep + __shfl_xor_sync(FULL, send, 8);
+                    }
+#pragma unroll
+                    for (int j = 0; j < V / 8; ++j) {
+                        const float keep = up3 ? v[j + V / 8] : v[j];
+                        const float send = up3 ? v[j] : v[j + V / 8];
+                        v[j] = keep + __shfl_xor_sync(FULL, send, 4);
+                    }
+                    // values base, base + 1 of the chunk: n tile n0 +
+                    // base / 2, columns 2t, 2t + 1
+                    *reinterpret_cast<float2*>(
+                        sWV + tile * H + n8 + (n0 + base / 2) * 8 + 2 * t) =
+                        make_float2(v[0], v[1]);
+                }
+            } else {
+                for (int n = lane; n < NT * 8; n += 32) sWV[tile * H + n8 + n] = 0.f;
+            }
+        }
+        __syncthreads();
+        // db2 and dwout of the pass, one column per thread
+        if (tid < H) {
+            float s = 0.f;
+            for (int e = 0; e < tn; ++e) s += sDU[e * LDU + tid];
+            acc_b2 += s;
+            float w = 0.f;
+#pragma unroll
+            for (int wi = 0; wi < NWT; ++wi) w += sWV[wi * H + tid];
+            acc_wv += w;
+        }
+
+        PROF_T(p3);
+        // ---- (5) dW2 = s^T du over the pass's edges ----
+        {
+            const int n_ks = (tn + 7) >> 3;
+#pragma unroll 1
+            for (int h = 0; h < NH; ++h) {
+                const int nb = nslab + h * NTW * 8;
+                float d[MTW][NTW][4];
+#pragma unroll
+                for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+                    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) d[mt][nt][i] = 0.f;
+                // b_j of the k-step's two edges, one k-step ahead
+                float2 ya[MTW], yb[MTW];
+                auto load_b = [&](int ks) {
+                    const float* ba = b_b + (size_t)eCol[ks * 8 + t] * H + kb
+                                      + 2 * g;
+                    const float* bb = b_b + (size_t)eCol[ks * 8 + t + 4] * H
+                                      + kb + 2 * g;
+#pragma unroll
+                    for (int mt = 0; mt < MTW; ++mt) {
+                        ya[mt] = __ldg(reinterpret_cast<const float2*>(ba + 16 * mt));
+                        yb[mt] = __ldg(reinterpret_cast<const float2*>(bb + 16 * mt));
+                    }
+                };
+                load_b(0);
+#pragma unroll 1
+                for (int ks = 0; ks < n_ks; ++ks) {
+                    // mma columns t, t + 4 of the k-step: edges ea, eb
+                    const int ea = ks * 8 + t, eb = ea + 4;
+                    const float* aa = sA + eLR[ea] * H + kb + 2 * g;
+                    const float* ab_ = sA + eLR[eb] * H + kb + 2 * g;
+                    const float dca = eDc[ea], dia = eDi[ea];
+                    const float dcb = eDc[eb], dib = eDi[eb];
+                    uint32_t sb[MTW][4], ss[MTW][4];
+#pragma unroll
+                    for (int mt = 0; mt < MTW; ++mt) {
+                        const int k = kb + 16 * mt + 2 * g;
+                        const float2 xa = *reinterpret_cast<const float2*>(aa + 16 * mt);
+                        const float2 xb = *reinterpret_cast<const float2*>(ab_ + 16 * mt);
+                        const float2 w0 = *reinterpret_cast<const float2*>(we0 + k);
+                        const float2 w1 = *reinterpret_cast<const float2*>(we1 + k);
+                        // a0 (k, ea) a1 (k+1, ea) a2 (k, eb) a3 (k+1, eb)
+                        split_tf32(silu_fast(fmaf(dia, w1.x, fmaf(dca, w0.x, xa.x + ya[mt].x))),
+                                   sb[mt][0], ss[mt][0]);
+                        split_tf32(silu_fast(fmaf(dia, w1.y, fmaf(dca, w0.y, xa.y + ya[mt].y))),
+                                   sb[mt][1], ss[mt][1]);
+                        split_tf32(silu_fast(fmaf(dib, w1.x, fmaf(dcb, w0.x, xb.x + yb[mt].x))),
+                                   sb[mt][2], ss[mt][2]);
+                        split_tf32(silu_fast(fmaf(dib, w1.y, fmaf(dcb, w0.y, xb.y + yb[mt].y))),
+                                   sb[mt][3], ss[mt][3]);
+                    }
+                    if (ks + 1 < n_ks) load_b(ks + 1);
+                    // NGB n tiles at a time, one product term after the
+                    // other, so that an mma does not wait on the one before
+                    constexpr int NGB = NTW % 4 == 0 ? 4 : 3;
+                    static_assert(NTW % NGB == 0, "n tiles in groups");
+#pragma unroll
+                    for (int n0 = 0; n0 < NTW; n0 += NGB) {
+                        uint32_t db0[NGB], ds0[NGB], db1[NGB], ds1[NGB];
+#pragma unroll
+                        for (int j = 0; j < NGB; ++j) {
+                            const int n = nb + (n0 + j) * 8 + g;
+                            split_tf32(sDU[ea * LDU + n], db0[j], ds0[j]);
+                            split_tf32(sDU[eb * LDU + n], db1[j], ds1[j]);
+                        }
+#pragma unroll
+                        for (int j = 0; j < NGB; ++j)
+#pragma unroll
+                            for (int mt = 0; mt < MTW; ++mt)
+                                mma_tf32(d[mt][n0 + j], sb[mt], ds0[j], ds1[j]);
+#pragma unroll
+                        for (int j = 0; j < NGB; ++j)
+#pragma unroll
+                            for (int mt = 0; mt < MTW; ++mt)
+                                mma_tf32(d[mt][n0 + j], ss[mt], db0[j], db1[j]);
+#pragma unroll
+                        for (int j = 0; j < NGB; ++j)
+#pragma unroll
+                            for (int mt = 0; mt < MTW; ++mt)
+                                mma_tf32(d[mt][n0 + j], sb[mt], db0[j], db1[j]);
+                    }
+                }
+                // the block's dW2 record: rows k, k+1 at columns n, n+1
+#pragma unroll
+                for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+                    for (int nt = 0; nt < NTW; ++nt) {
+                        const int k = kb + 16 * mt + 2 * g;
+                        const int n = nb + nt * 8 + 2 * t;
+                        float2* r0 = reinterpret_cast<float2*>(
+                            part + L.w2 + (size_t)k * H + n);
+                        float2* r1 = reinterpret_cast<float2*>(
+                            part + L.w2 + (size_t)(k + 1) * H + n);
+                        float2 o0 = make_float2(0.f, 0.f), o1 = o0;
+                        if (pass > 0) {
+                            o0 = *r0;
+                            o1 = *r1;
+                        }
+                        *r0 = make_float2(o0.x + d[mt][nt][0], o0.y + d[mt][nt][1]);
+                        *r1 = make_float2(o1.x + d[mt][nt][2], o1.y + d[mt][nt][3]);
+                    }
+            }
+        }
+
+        PROF_T(p4);
+        PROF_ADD(3, p3, p4);
+        // ---- (6) ds = du @ W2^T, dz = ds * silu'(u1) ----
+        {
+            const int lr_lo = eLR[el_lo], lr_hi = eLR[el_hi];
+            const int col_lo = eCol[el_lo], col_hi = eCol[el_hi];
+            const float dc_lo = eDc[el_lo], dc_hi = eDc[el_hi];
+            const float di_lo = eDi[el_lo], di_hi = eDi[el_hi];
+            const float* b_lo = b_b + (size_t)col_lo * H;
+            const float* b_hi = b_b + (size_t)col_hi * H;
+            float acc[NT][4];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+            for (int c = 0; c < NC; ++c, ++q) {
+                next_chunk(q);
+                if (!active) continue;
+                const float4 dl = *reinterpret_cast<const float4*>(
+                    sDU + el_lo * LDU + c * KC + 4 * t);
+                const float4 dh = *reinterpret_cast<const float4*>(
+                    sDU + el_hi * LDU + c * KC + 4 * t);
+                const float zl[4] = {dl.x, dl.y, dl.z, dl.w};
+                const float zh[4] = {dh.x, dh.y, dh.z, dh.w};
+                mma_chunk<H>(acc, ring + (q % VSTAGES) * KC * LDR * 2, zl, zh,
+                             g, t, n8);
+            }
+            PROF_T(p5);
+            PROF_ADD(2, p4, p5);
+            if (active) {
+                float dd[4] = {0.f, 0.f, 0.f, 0.f};   // d2c lo, d2i lo, hi
+                // b_j of 4 n tiles loaded ahead of their use
+                constexpr int LB = 4;
+                float2 bls[LB], bhs[LB];
+#pragma unroll
+                for (int j = 0; j < LB; ++j) {
+                    bls[j] = __ldg(reinterpret_cast<const float2*>(b_lo + n8 + j * 8 + 2 * t));
+                    bhs[j] = __ldg(reinterpret_cast<const float2*>(b_hi + n8 + j * 8 + 2 * t));
+                }
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                    const int c0 = n8 + nt * 8 + 2 * t;
+                    const float2 w0 = *reinterpret_cast<const float2*>(we0 + c0);
+                    const float2 w1 = *reinterpret_cast<const float2*>(we1 + c0);
+                    const float2 al = *reinterpret_cast<const float2*>(sA + lr_lo * H + c0);
+                    const float2 ah = *reinterpret_cast<const float2*>(sA + lr_hi * H + c0);
+                    const float2 bl = bls[nt % LB], bh = bhs[nt % LB];
+                    if (nt + LB < NT) {
+                        bls[nt % LB] = __ldg(reinterpret_cast<const float2*>(
+                            b_lo + c0 + LB * 8));
+                        bhs[nt % LB] = __ldg(reinterpret_cast<const float2*>(
+                            b_hi + c0 + LB * 8));
+                    }
+                    acc[nt][0] *= dsilu_fast(fmaf(di_lo, w1.x, fmaf(dc_lo, w0.x, al.x + bl.x)));
+                    acc[nt][1] *= dsilu_fast(fmaf(di_lo, w1.y, fmaf(dc_lo, w0.y, al.y + bl.y)));
+                    acc[nt][2] *= dsilu_fast(fmaf(di_hi, w1.x, fmaf(dc_hi, w0.x, ah.x + bh.x)));
+                    acc[nt][3] *= dsilu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y)));
+                    dd[0] = fmaf(acc[nt][0], w0.x, fmaf(acc[nt][1], w0.y, dd[0]));
+                    dd[1] = fmaf(acc[nt][0], w1.x, fmaf(acc[nt][1], w1.y, dd[1]));
+                    dd[2] = fmaf(acc[nt][2], w0.x, fmaf(acc[nt][3], w0.y, dd[2]));
+                    dd[3] = fmaf(acc[nt][2], w1.x, fmaf(acc[nt][3], w1.y, dd[3]));
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) dd[i] = quad_sum(dd[i]);
+                if constexpr (SPLIT > 1) {    // to the tile's first warp
+                    if (t == 0)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            sRed[warp * 32 + 4 * g + i] = dd[i];
+                } else if (t == 0) {
+#pragma unroll
+                    for (int side = 0; side < 2; ++side) {
+                        const int el = side ? el_hi : el_lo;
+                        if (el >= tn) continue;
+                        const size_t o = ((size_t)bi * N
+                                          + grow(side ? lr_hi : lr_lo)) * N
+                                         + (side ? col_hi : col_lo);
+                        if (ws.dd2c) ws.dd2c[o] = dd[2 * side];
+                        if (ws.dd2i) ws.dd2i[o] = dd[2 * side + 1];
+                    }
+                }
+            }
+            __syncthreads();          // every warp is done with du
+            if constexpr (SPLIT > 1) {
+                if (active && sub == 0 && t == 0) {   // in warp order
+                    float dd[4] = {0.f, 0.f, 0.f, 0.f};
+                    for (int j = 0; j < SPLIT; ++j)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            dd[i] += sRed[(tile + j * NWT) * 32 + 4 * g + i];
+#pragma unroll
+                    for (int side = 0; side < 2; ++side) {
+                        const int el = side ? el_hi : el_lo;
+                        if (el >= tn) continue;
+                        const size_t o = ((size_t)bi * N
+                                          + grow(side ? lr_hi : lr_lo)) * N
+                                         + (side ? col_hi : col_lo);
+                        if (ws.dd2c) ws.dd2c[o] = dd[2 * side];
+                        if (ws.dd2i) ws.dd2i[o] = dd[2 * side + 1];
+                    }
+                }
+            }
+            if (active) {
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                    const int c0 = n8 + nt * 8 + 2 * t;
+                    *reinterpret_cast<float2*>(sDU + el_lo * LDU + c0) =
+                        make_float2(acc[nt][0], acc[nt][1]);
+                    *reinterpret_cast<float2*>(sDU + el_hi * LDU + c0) =
+                        make_float2(acc[nt][2], acc[nt][3]);
+                }
+            }
+        }
+        __syncthreads();
+
+        // ---- (7) row sums into da, dwe, column runs (db, dx) ----
+        int n_runs = 0;
+        if (tid < H) {
+            // four edges at a time, their dz read before any run is written
+            // back (a run goes to a row already read)
+            float run = 0.f;
+            for (int e0 = 0; e0 < tn; e0 += 4) {
+                float v[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    v[i] = e0 + i < tn ? sDU[(e0 + i) * LDU + tid] : 0.f;
+                const int4 lr4 = *reinterpret_cast<const int4*>(eLR + e0);
+                const int4 col4 = *reinterpret_cast<const int4*>(eCol + e0);
+                const float4 dc4 = *reinterpret_cast<const float4*>(eDc + e0);
+                const float4 di4 = *reinterpret_cast<const float4*>(eDi + e0);
+                const int lrs[4] = {lr4.x, lr4.y, lr4.z, lr4.w};
+                const int cols[5] = {col4.x, col4.y, col4.z, col4.w,
+                                     e0 + 4 < PE ? eCol[e0 + 4] : -1};
+                const float dcs[4] = {dc4.x, dc4.y, dc4.z, dc4.w};
+                const float dis[4] = {di4.x, di4.y, di4.z, di4.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    if (e0 + i >= tn) break;
+                    sDA[lrs[i] * H + tid] += v[i];
+                    acc_we0 = fmaf(v[i], dcs[i], acc_we0);
+                    acc_we1 = fmaf(v[i], dis[i], acc_we1);
+                    run += v[i];
+                    if (e0 + i == tn - 1 || cols[i + 1] != cols[i]) {
+                        sDU[n_runs * LDU + tid] = run;
+                        if (tid == 0) runCol[n_runs] = cols[i];
+                        ++n_runs;
+                        run = 0.f;
+                    }
+                }
+            }
+        }
+        int n_xruns = 0;
+        if (xthread) {                // the same, for component c of dx
+            float run = 0.f;
+            for (int e0 = 0; e0 < tn; e0 += 4) {
+                float gp[4], gq[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const bool ok = e0 + i < tn;
+                    gp[i] = ok ? eEG[(e0 + i) * 6 + xc_] : 0.f;
+                    gq[i] = ok ? eEG[(e0 + i) * 6 + 3 + xc_] : 0.f;
+                }
+                const int4 lr4 = *reinterpret_cast<const int4*>(eLR + e0);
+                const int4 col4 = *reinterpret_cast<const int4*>(eCol + e0);
+                const int lrs[4] = {lr4.x, lr4.y, lr4.z, lr4.w};
+                const int cols[5] = {col4.x, col4.y, col4.z, col4.w,
+                                     e0 + 4 < PE ? eCol[e0 + 4] : -1};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    if (e0 + i >= tn) break;
+                    sXR[lrs[i] * 4 + xc_] += gp[i];
+                    if (ws.cross) dctr -= gp[i] + gq[i];
+                    run += gq[i];
+                    if (e0 + i == tn - 1 || cols[i + 1] != cols[i]) {
+                        runX[n_xruns * 3 + xc_] = run;
+                        ++n_xruns;
+                        run = 0.f;
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // the runs of a pass have distinct columns: their read-modify-
+        // writes of the partial record are independent, four at a time
+        if (tid < H) {
+            float* pb = part + L.b + tid;
+            int r = 0;
+            for (; r + 4 <= n_runs; r += 4) {
+                float o[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[i] = pb[(size_t)runCol[r + i] * H];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    pb[(size_t)runCol[r + i] * H] = o[i] + sDU[(r + i) * LDU + tid];
+            }
+            for (; r < n_runs; ++r)
+                pb[(size_t)runCol[r] * H] += sDU[r * LDU + tid];
+        }
+        if (xthread)
+            for (int r = 0; r < n_xruns; ++r)
+                part[L.x + runCol[r] * 3 + xc_] += runX[r * 3 + xc_];
+        PROF_T(p8);
+        PROF_ADD(1, p0, p8);
+    }
+
+    if (n_chunks == 0)                // the first copies were asked for
+        for (int s = 0; s < VSTAGES - 1; ++s) mbar_wait(full + s, 0);
+    __syncthreads();
+
+    // ---- write what the block owns, and the rest of its record ----
+    if (n_pass == 0)
+        for (int i = tid; i < H * H; i += THREADS) part[L.w2 + i] = 0.f;
+    for (int i = tid; i < nrow * H; i += THREADS)
+        ws.da[((size_t)bi * N + grow(i / H)) * H + i % H] = sDA[i];
+    if (tid < H) {
+        part[L.vec + tid] = acc_b2;
+        part[L.vec + H + tid] = acc_we0;
+        part[L.vec + 2 * H + tid] = acc_we1;
+        part[L.vec + 3 * H + tid] = acc_wv;
+    }
+    if (tid == 0) part[L.vec + 4 * H] = 0.f;
+    if (xthread) {
+        for (int lr = 0; lr < nrow; ++lr)
+            part[L.x + grow(lr) * 3 + xc_] += sXR[lr * 4 + xc_];
+        part[L.c + xc_] = dctr;
+    }
+    PROF_T(p_done);
+    PROF_ADD(0, p_start, p_done);
+}
+
+// ---------------------------------------------------------------------------
+// the fixed-order sums across blocks
+// ---------------------------------------------------------------------------
 
 struct RedSet {
     float* dw2;     // [H, H]
@@ -639,22 +1474,27 @@ edge_chain_bwd_reduce(const RedArgs p) {
             i -= z * per_set;
             const RedSet& o = p.s[z];
             if (i < n_w2) {
+                // records (z, bi, x) lie in bi-major order: one loop whose
+                // loads run ahead, the sum in the same order
+                const float* r0 = rec(z, 0, 0) + L.w2 + i;
                 float s = 0.f;
-                for (int bi = 0; bi < B; ++bi)
-                    for (int x = 0; x < G; ++x) s += rec(z, bi, x)[L.w2 + i];
+#pragma unroll 8
+                for (int r = 0; r < B * G; ++r) s += r0[(size_t)r * p.P];
                 o.dw2[i] = s;
             } else if (i < n_w2 + n_b) {
                 i -= n_w2;
                 const int bi = (int)(i / ((long)N * H));
                 const long jk = i % ((long)N * H);
                 float s = 0.f;
+#pragma unroll 4
                 for (int x = 0; x < G; ++x) s += rec(z, bi, x)[L.b + jk];
                 o.db[i] = s;
             } else {
                 i -= n_w2 + n_b;
+                const float* r0 = rec(z, 0, 0) + L.vec + i;
                 float s = 0.f;
-                for (int bi = 0; bi < B; ++bi)
-                    for (int x = 0; x < G; ++x) s += rec(z, bi, x)[L.vec + i];
+#pragma unroll 8
+                for (int r = 0; r < B * G; ++r) s += r0[(size_t)r * p.P];
                 if (i < H) o.db2[i] = s;
                 else if (i < 3 * H) o.dwe[i - H] = s;
                 else o.dwvec[i - 3 * H] = s;
@@ -710,49 +1550,82 @@ int sm_count() {
     return n;
 }
 
-// rows per block: about one block per SM, fewer rows where the block's
-// list of R * N candidate pairs would exceed LIST_MAX
-int pick_rows(int B, int rows, int N, int n_sets) {
+// rows per block: about one block per SM
+long target_rows(int B, int rows, int n_sets) {
     const long total = (long)B * rows * n_sets;
     long R = (total + sm_count() - 1) / sm_count();
     if (R > R_MAX) R = R_MAX;
     if (R > rows) R = rows;
-    if (R > LIST_MAX / N) R = LIST_MAX / N;
-    if (R < 1) R = 1;
-    return (int)R;
+    return R < 1 ? 1 : R;
 }
 
-template <int H, bool VEC>
-int launch_t(Args& args, int n_sets, cudaStream_t stream) {
-    static bool configured = false;
+// gcl: fewer rows where the block's list of R * N candidate pairs would
+// exceed LIST_MAX
+int pick_rows(int B, int rows, int N) {
+    long R = target_rows(B, rows, 1);
+    if (R > LIST_MAX / N) R = LIST_MAX / N;
+    return R < 1 ? 1 : (int)R;
+}
+
+// vec: fewer rows where shared memory would not hold them; 0 if not one
+template <int H>
+int pick_rows_vec(int B, int rows, int N, int n_sets) {
+    long R = target_rows(B, rows, n_sets);
+    while (R > 1 && vec_smem_bytes<H>((int)R, N) > (size_t)SMEM_LIMIT) --R;
+    return vec_smem_bytes<H>((int)R, N) <= (size_t)SMEM_LIMIT ? (int)R : 0;
+}
+
+template <typename Kernel>
+int launch_k(Kernel kernel, bool& configured, size_t smem, const Args& args,
+             int n_sets, cudaStream_t stream) {
     if (!configured) {
         cudaError_t e = cudaFuncSetAttribute(
-            edge_chain_bwd<H, VEC>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
-    const size_t smem = smem_bytes<H, VEC>(args.R, args.N);
     if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     dim3 grid(args.G, args.B, n_sets);
-    edge_chain_bwd<H, VEC><<<grid, THREADS, smem, stream>>>(args);
+    kernel<<<grid, THREADS, smem, stream>>>(args);
     return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch_gcl(const Args& args, cudaStream_t stream) {
+    static bool configured = false;
+    return launch_k(edge_chain_bwd<H>, configured,
+                    smem_bytes<H>(args.R, args.N), args, 1, stream);
+}
+
+template <int H>
+int launch_vec(const Args& args, int n_sets, cudaStream_t stream) {
+    static bool configured = false;
+    return launch_k(edge_chain_bwd_vec<H>, configured,
+                    vec_smem_bytes<H>(args.R, args.N), args, n_sets, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The launch layout of a backward at these sizes: out[0] rows per block,
-// out[1] blocks per batch element and set (G), out[2] floats per block's
-// partial record (P).  The wrapper allocates n_sets * B * G * P floats.
-// Returns 0, or cudaErrorInvalidValue for sizes the kernels do not take.
-int egnn_bwd_layout(int B, int N, int H, int n_rows, int n_sets, int* out) {
+// The launch layout of a backward at these sizes (vec: edge_vector_reduce,
+// else gcl_messages with n_sets 1): out[0] rows per block, out[1] blocks
+// per batch element and set (G), out[2] floats per block's partial record
+// (P).  The wrapper allocates n_sets * B * G * P floats.  Returns 0, or
+// cudaErrorInvalidValue for sizes the kernels do not take.
+int egnn_bwd_layout(int B, int N, int H, int n_rows, int n_sets, int vec,
+                    int* out) {
     const int rows = n_rows < N ? n_rows : N;
-    if (B <= 0 || N <= 0 || N > LIST_MAX || N > 0xffff || rows <= 0
-        || (H != 128 && H != 192 && H != 256))
+    if (B <= 0 || N <= 0 || N > 0xffff || rows <= 0
+        || (H != 128 && H != 192 && H != 256)
+        || (vec ? n_sets != 1 && n_sets != 2 : n_sets != 1 || N > LIST_MAX))
         return (int)cudaErrorInvalidValue;
-    const int R = pick_rows(B, rows, N, n_sets);
+    int R = 0;
+    if (!vec) R = pick_rows(B, rows, N);
+    else if (H == 128) R = pick_rows_vec<128>(B, rows, N, n_sets);
+    else if (H == 192) R = pick_rows_vec<192>(B, rows, N, n_sets);
+    else R = pick_rows_vec<256>(B, rows, N, n_sets);
+    if (R <= 0) return (int)cudaErrorInvalidValue;
     out[0] = R;
     out[1] = (rows + R - 1) / R;
     out[2] = layout(H, N).size;
@@ -760,15 +1633,16 @@ int egnn_bwd_layout(int B, int N, int H, int n_rows, int n_sets, int* out) {
 }
 
 // set0 / set1: a, b, we, w2, w2t, b2, wvec, da, dd2c, dd2i (dd2c and dd2i
-// may be null: not written); shared: gout, d2c, d2i, adj, x, center, batt,
-// part; ints: B, N, H, n_rows, n_sets, vec, flag (attention or tanh),
-// cross of set 0 (set 1 is the cross direction); floats: coords_range,
-// norm_constant, norm_factor.  Writes da rows < n_rows, the dd2c / dd2i
-// entries with adj != 0 and every block's partial record.
+// may be null: not written; vec: w2 and w2t are pack_w2 of W2 and of W2^T);
+// shared: gout, d2c, d2i, adj, x, center, batt, part; ints: B, N, H,
+// n_rows, n_sets, vec, flag (attention or tanh), cross of set 0 (set 1 is
+// the cross direction); floats: coords_range, norm_constant, norm_factor.
+// Writes da rows < n_rows, the dd2c / dd2i entries with adj != 0 and every
+// block's partial record.
 int egnn_bwd_edges(void* const* set0, void* const* set1, void* const* shared,
                    const int* ia, const float* fa, void* stream) {
     int lay[3];
-    int err = egnn_bwd_layout(ia[0], ia[1], ia[2], ia[3], ia[4], lay);
+    int err = egnn_bwd_layout(ia[0], ia[1], ia[2], ia[3], ia[4], ia[5], lay);
     if (err) return err;
     Args p{};
     void* const* sets[2] = {set0, set1};
@@ -795,12 +1669,12 @@ int egnn_bwd_edges(void* const* set0, void* const* set1, void* const* shared,
     const int n_sets = ia[4];
     cudaStream_t st = (cudaStream_t)stream;
     switch (ia[5] ? -ia[2] : ia[2]) {
-        case 128: return launch_t<128, false>(p, n_sets, st);
-        case 192: return launch_t<192, false>(p, n_sets, st);
-        case 256: return launch_t<256, false>(p, n_sets, st);
-        case -128: return launch_t<128, true>(p, n_sets, st);
-        case -192: return launch_t<192, true>(p, n_sets, st);
-        case -256: return launch_t<256, true>(p, n_sets, st);
+        case 128: return launch_gcl<128>(p, st);
+        case 192: return launch_gcl<192>(p, st);
+        case 256: return launch_gcl<256>(p, st);
+        case -128: return launch_vec<128>(p, n_sets, st);
+        case -192: return launch_vec<192>(p, n_sets, st);
+        case -256: return launch_vec<256>(p, n_sets, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -811,7 +1685,7 @@ int egnn_bwd_edges(void* const* set0, void* const* set1, void* const* shared,
 int egnn_bwd_reduce(void* const* set0, void* const* set1, void* const* shared,
                     const int* ia, void* stream) {
     int lay[3];
-    int err = egnn_bwd_layout(ia[0], ia[1], ia[2], ia[3], ia[4], lay);
+    int err = egnn_bwd_layout(ia[0], ia[1], ia[2], ia[3], ia[4], ia[5], lay);
     if (err) return err;
     RedArgs p{};
     void* const* sets[2] = {set0, set1};

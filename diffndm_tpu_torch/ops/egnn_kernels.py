@@ -26,15 +26,16 @@ In grad mode each wrapper goes through a ``torch.autograd.Function``
 (``_GclMessages``, ``_EdgeVectorReduce``) that saves only its inputs and
 whose backward recomputes the chain: on the card the hand-written kernels
 of ``csrc/egnn_edge_bwd.cu`` (two launches per backward, counted under
-``gcl_messages_bwd`` / ``edge_vector_reduce_bwd``), on the CPU the plain
-backward (``*_backward_plain``), which writes the same formula out in
-PyTorch.  The JAX package's Pallas kernels have no VJP; these give the
+``gcl_messages_bwd`` / ``edge_vector_reduce_bwd``; the vector backward
+runs its three products on the tensor cores, taking W2 and W2^T packed as
+``pack_w2`` lays them out), on the CPU the plain backward
+(``*_backward_plain``), which writes the same formula out in PyTorch.  The JAX package's Pallas kernels have no VJP; these give the
 gradient that XLA autodiff gives of its dense path.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface under ``build/`` at the
-repository root (one per source), cached by a hash of the source and
-flags, and loaded with ctypes.
+repository root (one per source), cached by a hash of the source, the
+headers beside it and the flags, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -92,16 +93,21 @@ def _flags(profile: bool) -> tuple:
 
 
 def library_path(profile: bool = False, source: Path = SOURCE) -> Path:
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(_flags(profile)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{tag}.so"
+    """The build of ``source`` under these flags: named by a hash of the
+    source, of every header (``*.cuh``) beside it and of the flags, so that
+    an edited header is built anew."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags(profile)).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_library(profile: bool = False, source: Path = SOURCE) -> Path:
     """Compile ``source`` (the forward kernels unless ``BWD_SOURCE``)
     unless its build exists.  The compiler's register/spill report lands
     beside it (``.log``).  ``profile`` builds the variant with cycle
-    counters per phase (forward only)."""
+    counters per phase."""
     so = library_path(profile, source)
     if so.exists():
         return so
@@ -120,6 +126,9 @@ def build_library(profile: bool = False, source: Path = SOURCE) -> Path:
 PROFILE_BUILD = False
 PROFILE_FIELDS = ("setup", "wait", "request", "mma", "loop", "", "passes",
                   "blocks")
+# the vector backward's spans: the whole block, its passes, the chunk
+# loops of (3) u = s W2 and (6) ds = du W2^T, (5) dW2 = s^T du
+PROFILE_BWD_FIELDS = ("block", "pass", "loops", "dw2", "passes", "blocks")
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,16 +153,20 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library(source=BWD_SOURCE)))
+def _bwd_load(profile: bool) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library(profile, BWD_SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.egnn_bwd_layout.argtypes = [i] * 5 + [p]
+    lib.egnn_bwd_layout.argtypes = [i] * 6 + [p]
     lib.egnn_bwd_layout.restype = i
     lib.egnn_bwd_edges.argtypes = [p] * 6
     lib.egnn_bwd_edges.restype = i
     lib.egnn_bwd_reduce.argtypes = [p] * 5
     lib.egnn_bwd_reduce.restype = i
     return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    return _bwd_load(PROFILE_BUILD)
 
 
 def launch_grid(name: str, bsz: int, n: int, h: int,
@@ -178,6 +191,15 @@ def read_profile() -> dict:
     if err != 0:
         raise RuntimeError(f"read_profile: CUDA error {err}")
     return {k: int(v) for k, v in zip(PROFILE_FIELDS, buf) if k}
+
+
+def read_bwd_profile() -> dict:
+    """``read_profile`` of the vector backward (``PROFILE_BWD_FIELDS``)."""
+    buf = (ctypes.c_ulonglong * len(PROFILE_BWD_FIELDS))()
+    err = _bwd_load(True).egnn_bwd_read_profile(buf)
+    if err != 0:
+        raise RuntimeError(f"read_bwd_profile: CUDA error {err}")
+    return {k: int(v) for k, v in zip(PROFILE_BWD_FIELDS, buf)}
 
 
 def _launch(name: str, device: torch.device, entry, *args) -> None:
@@ -274,28 +296,42 @@ def pack_w2(w2: torch.Tensor) -> torch.Tensor:
     return F.pad(packed, (0, 0, 0, 4)).contiguous()
 
 
-# data_ptr -> (weak reference to the weight, its version, its packed
-# split).  The weights are constant over a sampling run, so each is packed
-# once.
-_SPLIT_CACHE: "OrderedDict[int, tuple]" = OrderedDict()
+# (data_ptr, transposed) -> (weak reference to the weight, its version,
+# its packed split).  The weights are constant over a sampling run, so each
+# is packed once; a training step packs each anew after the update.
+_SPLIT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _SPLIT_CACHE_SIZE = 64
 
 
-def split_w2(w2: torch.Tensor) -> torch.Tensor:
-    """``pack_w2(w2)``, cached per weight tensor.  An entry holds only
-    for the very tensor object it was made from and for its version
-    counter, so a weight updated in place, or another tensor that came to
-    lie at the same address, is split anew."""
-    key = w2.data_ptr()
+def _packed(w2: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """``pack_w2`` of ``w2`` or of its transpose, cached per weight tensor.
+    An entry holds only for the very tensor object it was made from and for
+    its version counter, so a weight updated in place, or another tensor
+    that came to lie at the same address, is split anew.  The key is W2
+    itself, also for the transpose: a transposed copy has no stable
+    address."""
+    key = (w2.data_ptr(), transposed)
     hit = _SPLIT_CACHE.get(key)
     if hit is not None and hit[0]() is w2 and hit[1] == w2._version:
         return hit[2]
-    split = pack_w2(w2.detach())
+    w = w2.detach()
+    split = pack_w2(w.t() if transposed else w)
     _SPLIT_CACHE[key] = (weakref.ref(w2), w2._version, split)
     _SPLIT_CACHE.move_to_end(key)
     while len(_SPLIT_CACHE) > _SPLIT_CACHE_SIZE:
         _SPLIT_CACHE.popitem(last=False)
     return split
+
+
+def split_w2(w2: torch.Tensor) -> torch.Tensor:
+    """``pack_w2(w2)``, cached per weight tensor (see ``_packed``)."""
+    return _packed(w2, False)
+
+
+def split_w2t(w2: torch.Tensor) -> torch.Tensor:
+    """``pack_w2(w2.t())``, the B operand of du @ W2^T in the vector
+    backward, cached per weight tensor W2 (see ``_packed``)."""
+    return _packed(w2, True)
 
 
 # ---------------------------------------------------------------------------
@@ -637,25 +673,30 @@ def _edge_vector_reduce_pair_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
     return out[0] + out[1]
 
 
-def _bwd_layout(bsz: int, n: int, h: int, rows: int, n_sets: int) -> tuple:
+def _bwd_layout(bsz: int, n: int, h: int, rows: int, n_sets: int,
+                vec: bool) -> tuple:
     """(rows per block, blocks per batch element and set, floats per
-    block's partial record) of a backward launch at these sizes."""
+    block's partial record) of a backward launch at these sizes (``vec``:
+    of ``edge_vector_reduce``, else of ``gcl_messages``)."""
     out = (ctypes.c_int * 3)()
-    err = _bwd_library().egnn_bwd_layout(bsz, n, h, rows, n_sets, out)
+    err = _bwd_library().egnn_bwd_layout(bsz, n, h, rows, n_sets, int(vec),
+                                         out)
     if err != 0:
         raise ValueError(f"backward kernels: unsupported sizes B={bsz} "
                          f"N={n} H={h} rows={rows}")
     return tuple(out)
 
 
-def bwd_launch_grid(bsz: int, n: int, h: int, n_rows: Optional[int] = None,
-                    n_sets: int = 1) -> tuple:
-    """(blocks, rows per block) of the first of a backward's two
-    launches."""
+def bwd_launch_grid(name: str, bsz: int, n: int, h: int,
+                    n_rows: Optional[int] = None) -> tuple:
+    """(blocks, rows per block) of the first of the two launches that the
+    backward of wrapper ``name`` makes at these sizes."""
     rows = _clamp_rows(n, n_rows)
     if rows == 0:
         return 0, 0
-    per_block, per_batch, _ = _bwd_layout(bsz, n, h, rows, n_sets)
+    n_sets = 2 if name == "edge_vector_reduce_pair" else 1
+    per_block, per_batch, _ = _bwd_layout(bsz, n, h, rows, n_sets,
+                                          name != "gcl_messages")
     return per_batch * bsz * n_sets, per_block
 
 
@@ -670,7 +711,7 @@ def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
         raise ValueError("gcl_messages backward: the output gradient must "
                          "be float32 on the inputs' device")
     lib = _bwd_library()
-    _, per_batch, rec = _bwd_layout(bsz, n, h, n, 1)
+    _, per_batch, rec = _bwd_layout(bsz, n, h, n, 1, False)
     part = torch.empty(bsz * per_batch * rec, dtype=torch.float32,
                        device=dev)
     gout = gout.contiguous()
@@ -712,24 +753,26 @@ def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
     rows = _clamp_rows(n, n_rows)
     planes = [torch.zeros((n_sets,) + tuple(d2c.shape), dtype=torch.float32,
                           device=dev) if want else None for want in needs]
-    dx, dcenter = torch.zeros_like(x), torch.zeros_like(center)
     if gout.dtype != torch.float32 or gout.device != dev:
         raise ValueError("edge_vector_reduce backward: the output gradient "
                          "must be float32 on the inputs' device")
-    out = [[torch.zeros_like(t) for t in s] for s in sets]
+    dx, dcenter = ((torch.zeros_like if rows == 0 else torch.empty_like)(t)
+                   for t in (x, center))
     if rows == 0:
+        out = [[torch.zeros_like(t) for t in s] for s in sets]
         return out, *(p if p is None else p[0] for p in planes), dx, dcenter
     lib = _bwd_library()
-    _, per_batch, rec = _bwd_layout(bsz, n, h, rows, n_sets)
+    _, per_batch, rec = _bwd_layout(bsz, n, h, rows, n_sets, True)
     part = torch.empty(n_sets * bsz * per_batch * rec, dtype=torch.float32,
                        device=dev)
-    for s in range(n_sets):             # rows >= n_rows keep their zeros
-        out[s][0] = (torch.empty_like if rows == n else torch.zeros_like)(
-            sets[s][0])
-    # W2^T of each set, held until both launches are queued
-    w2t = [st[3].t().contiguous() for st in sets]
+    # the reduce writes every gradient but da, whose rows >= n_rows stay 0
+    out = [[(torch.empty_like if i or rows == n else torch.zeros_like)(t)
+            for i, t in enumerate(s)] for s in sets]
+    # W2 and W2^T of each set split and packed for the ring, held until
+    # both launches are queued
+    packed = [(split_w2(st[3]), split_w2t(st[3])) for st in sets]
     gout = gout.contiguous()
-    set_ptrs = [_ptrs(a, b, we, w2, w2t[s], b2, wout, out[s][0],
+    set_ptrs = [_ptrs(a, b, we, *packed[s], b2, wout, out[s][0],
                       *(p if p is None else p[s] for p in planes))
                 for s, (a, b, we, w2, b2, wout) in enumerate(sets)]
     set_ptrs += [_ptrs(*[None] * 10)] * (2 - n_sets)

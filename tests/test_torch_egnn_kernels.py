@@ -352,6 +352,60 @@ def test_split_cache_follows_the_weight():
     assert len(K._SPLIT_CACHE) <= K._SPLIT_CACHE_SIZE
 
 
+def test_split_w2t_cache_follows_the_weight():
+    """W2^T for the vector backward: ``pack_w2(w2.t())``, cached on W2
+    itself (a transposed copy has no stable address), packed anew after
+    an in-place update as the optimizer makes, apart from W2's own
+    packing, and never served for another tensor at the same address."""
+    buf = edge_l2(2).copy()
+    w = torch.from_numpy(buf)
+    first = K.split_w2t(w)
+    assert torch.equal(first, K.pack_w2(w.t()))
+    assert K.split_w2t(w) is first
+    assert not torch.equal(K.split_w2(w), first)
+    assert K.split_w2t(w) is first
+    w.add_(1e-3)                              # the optimizer's update
+    second = K.split_w2t(w)
+    assert second is not first
+    assert torch.equal(second, K.pack_w2(w.t()))
+    view = w[:]                               # same address, same version
+    assert view.data_ptr() == w.data_ptr()
+    assert K.split_w2t(view) is not second
+    # a new tensor at the freed weight's address, with other values
+    ptr = w.data_ptr()
+    del w, view
+    buf *= 2.0
+    again = torch.from_numpy(buf)
+    assert again.data_ptr() == ptr and again._version == 0
+    third = K.split_w2t(again)
+    assert torch.equal(third, K.pack_w2(again.t()))
+    assert not torch.equal(third, second)
+
+
+def test_library_path_follows_the_headers(tmp_path):
+    """The build cache is named by the source and every header beside it:
+    editing a header's bytes, or adding one, names another build; the same
+    bytes name the same build again.  No compiler is run."""
+    src = tmp_path / "k.cu"
+    hdr = tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n__global__ void k() {}\n')
+    hdr.write_text("#pragma once\n")
+    first = K.library_path(source=src)
+    assert first.parent == K.BUILD_DIR and first.suffix == ".so"
+    assert K.library_path(source=src) == first
+    hdr.write_text("#pragma once\n// edited\n")
+    second = K.library_path(source=src)
+    assert second != first
+    (tmp_path / "more.cuh").write_text("#pragma once\n")
+    assert K.library_path(source=src) not in (first, second)
+    (tmp_path / "more.cuh").unlink()
+    hdr.write_text("#pragma once\n")
+    assert K.library_path(source=src) == first
+    assert K.library_path(profile=True, source=src) != first
+    # the kernels' own sources see their shared header
+    assert (K.SOURCE.parent / "egnn_mma.cuh").exists()
+
+
 @pytest.mark.parametrize("fault,error", [
     ("dtype", TypeError), ("contiguity", ValueError), ("shape", ValueError),
     ("hidden", ValueError), ("alignment", ValueError), ("nodes", ValueError)])
