@@ -216,10 +216,6 @@ BWD_KERNELS = {"gcl_messages_bwd": "gcl_messages",
                "edge_vector_reduce_bwd": "edge_vector_reduce"}
 BWD_SOURCE = "diffndm_tpu_torch/csrc/egnn_edge_bwd.cu"
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
-# CUDA-core fp32 peak of an H100 SXM: the gcl_messages backward runs on
-# it; the bound takes the TF32 tensor-core rate (the vector backward runs
-# there, three TF32 products per product)
-PEAK_FP32_FLOPS = 67e12
 # train phase: v3b's training set and raw state, the batch shapes of its
 # padding (ligands to 8, pockets to 64 rows), the CLI run's length and cut
 TRAIN_STATE = os.path.join(REPO, "diffndm_tpu_torch", "assets",
@@ -529,12 +525,14 @@ def sweep_inputs(torch, device, bsz, n, h, seed):
 def sweep_cases(d, n):
     """(wrapper, args, options) of every case of the edge-shape sweep on
     ``sweep_inputs`` ``d``: n_rows in {0, 5, N}, every option on and
-    off."""
+    off, attention with and without its bias."""
     s0, s1 = d["sets"]
     keys = ("we", "w2", "b2", "wvec")
     cases = [("gcl_messages",
               [s0["a"], s0["b"], *d["planes"], *(s0[k] for k in keys),
-               d["batt"]], dict(attention=att)) for att in (True, False)]
+               batt], dict(attention=att))
+             for att, batt in ((True, d["batt"]), (False, d["batt"]),
+                               (True, None))]
     for n_rows in (0, 5, n):
         for tanh in (True, False):
             cases += [("edge_vector_reduce",
@@ -620,9 +618,9 @@ def kernel_phase(torch, K, model, pocket, sizes):
 
 def phase_cycles(torch, K, model, pocket, sizes):
     """Where a block's cycles go, per kernel call of the main path and of
-    the flagship shapes, for the forward kernels and the vector backward
-    (the build with -DEGNN_PROFILE; thread 0 of each block counts, so a
-    phase's figure is what warp 0 saw)."""
+    the flagship shapes, for the forward kernels and both epilogues of the
+    backward (the build with -DEGNN_PROFILE; thread 0 of each block counts,
+    so a phase's figure is what warp 0 saw)."""
     K.PROFILE_BUILD = True
     calls = capture_kernel_calls(torch, K, model, pocket, sizes)
     cases = []
@@ -645,50 +643,47 @@ def phase_cycles(torch, K, model, pocket, sizes):
             f"{c['wait'] / passes:.0f}, asking for them "
             f"{c['request'] / passes:.0f}, z and mma {c['mma'] / passes:.0f}, "
             f"epilogue {rest / passes:.0f}")
-    # the vector backward, on the first pair call of the main path and at
-    # the flagship shapes, under an output gradient drawn from the seed
-    for label, args, kw in (
-            ("main path", *next(c[1:] for c in calls
-                                if c[0] == "edge_vector_reduce_pair")),
-            ("flagship", *flagship_inputs(torch, "edge_vector_reduce_pair",
-                                          model.device))):
-        bsz, n, _ = args[0][0].shape
-        gout = torch.randn((bsz, n, 3), device=model.device,
-                           generator=torch.Generator(device=model.device)
-                           .manual_seed(SEED)) * 1e-2
-        sets = [tuple(a[s] for a in (args[0], args[1], *args[7:11]))
-                for s in (0, 1)]
-
-        def call():
-            K._edge_vector_reduce_backward_cuda(
-                gout, sets, *args[2:7], kw.get("tanh", True),
-                kw.get("coords_range", 15.0), kw.get("norm_constant", 1.0),
-                False, kw.get("norm_factor", 100.0), kw.get("n_rows"),
-                (True, True))
-        call()
-        K.read_bwd_profile()
-        call()
-        c = K.read_bwd_profile()
-        blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
-        rest = c["pass"] - c["loops"] - c["dw2"]
-        log(f"[phases] {label} edge_vector_reduce_pair backward "
-            f"{list(args[0][0].shape)}: {c['blocks']} blocks, {c['passes']} "
-            f"passes; cycles per block outside the passes (set-up, list, "
-            f"last writes) {(c['block'] - c['pass']) / blocks:.0f}; per "
-            f"pass: the chunk loops of (3) and (6) together "
-            f"{c['loops'] / passes:.0f}, (5) dW2 {c['dw2'] / passes:.0f}, "
-            f"epilogues and sums {rest / passes:.0f}")
-        # device time per call of each kernel the call launches
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                call()
-            torch.cuda.synchronize()
-        times = sorted(((getattr(ev, "self_device_time_total", 0)
-                         or getattr(ev, "self_cuda_time_total", 0), ev.key)
-                        for ev in prof.key_averages()), reverse=True)
-        log(f"[phases] {label} backward, device us per call: " + "; ".join(
-            f"{k[:60]} {us / 5:.1f}" for us, k in times if us > 0))
+    # both epilogues of the backward, on the first call of each wrapper on
+    # the main path and at the flagship shapes, under an output gradient
+    # drawn from the seed
+    for name in ("gcl_messages", "edge_vector_reduce_pair"):
+        pair = name.endswith("_pair")
+        for label, args, kw in (
+                ("main path", *next(c[1:] for c in calls if c[0] == name)),
+                ("flagship", *flagship_inputs(torch, name, model.device))):
+            a0 = args[0][0] if pair else args[0]
+            bsz, n, h = a0.shape
+            gout = torch.randn((bsz, n, 3 if pair else h),
+                               device=model.device,
+                               generator=torch.Generator(device=model.device)
+                               .manual_seed(SEED)) * 1e-2
+            call = bwd_call(K, name, args, kw, gout)
+            call()
+            K.read_bwd_profile()
+            call()
+            c = K.read_bwd_profile()
+            blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
+            rest = c["pass"] - c["loops"] - c["dw2"]
+            log(f"[phases] {label} {name} backward {list(a0.shape)}: "
+                f"{c['blocks']} blocks, {c['passes']} passes; cycles per "
+                f"block outside the passes (set-up, list, last writes) "
+                f"{(c['block'] - c['pass']) / blocks:.0f}; per pass: the "
+                f"chunk loops of (3) and (6) together "
+                f"{c['loops'] / passes:.0f}, (5) dW2 {c['dw2'] / passes:.0f}"
+                f", epilogues and sums {rest / passes:.0f}")
+            # device time per call of each kernel the call launches
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            times = sorted(((getattr(ev, "self_device_time_total", 0)
+                             or getattr(ev, "self_cuda_time_total", 0),
+                             ev.key) for ev in prof.key_averages()),
+                           reverse=True)
+            log(f"[phases] {label} {name} backward, device us per call: "
+                + "; ".join(f"{k[:60]} {us / 5:.1f}" for us, k in times
+                            if us > 0))
     K.PROFILE_BUILD = False
 
 
@@ -1998,6 +1993,23 @@ def bwd_compare(torch, label, got, ref):
     return worst
 
 
+def bwd_call(K, name, args, kw, gout):
+    """The backward kernels' two launches for one wrapper call, every
+    gradient asked for, as a function of no arguments."""
+    if name == "gcl_messages":
+        opts = (kw.get("attention", True), kw.get("norm_factor", 100.0))
+        return lambda: K._gcl_messages_backward_cuda(
+            gout, *args[:10], *opts, [True] * 10)
+    sets = ([tuple(a[s] for a in (args[0], args[1], *args[7:]))
+             for s in (0, 1)] if name.endswith("_pair") else
+            [tuple(args[i] for i in (0, 1, 7, 8, 9, 10))])
+    return lambda: K._edge_vector_reduce_backward_cuda(
+        gout, sets, *args[2:7], kw.get("tanh", True),
+        kw.get("coords_range", 15.0), kw.get("norm_constant", 1.0),
+        kw.get("cross", False), kw.get("norm_factor", 100.0),
+        kw.get("n_rows"), (True, True))
+
+
 def check_backward(torch, K, name, args, kw, gout, against_autograd, reps):
     """The kernel backward (through the wrapper's Function) against the
     plain backward, twice for bit identity, optionally against autograd
@@ -2038,26 +2050,11 @@ def check_backward(torch, K, name, args, kw, gout, against_autograd, reps):
                tolerance_share=share, autograd_share=auto_share,
                shape=list((args[0][0] if pair else args[0]).shape))
     if reps:
-        fn = (K._gcl_messages_backward_cuda if name == "gcl_messages"
-              else None)
-        if fn is not None:
-            opts = (kw.get("attention", True), kw.get("norm_factor", 100.0))
-            call = lambda: fn(gout, *args[:10], *opts, [True] * 10)
-        else:
-            sets = ([tuple(a[s] for a in (args[0], args[1], *args[7:]))
-                     for s in (0, 1)] if pair else
-                    [tuple(args[i] for i in (0, 1, 7, 8, 9, 10))])
-            call = lambda: K._edge_vector_reduce_backward_cuda(
-                gout, sets, *args[2:7], kw.get("tanh", True),
-                kw.get("coords_range", 15.0), kw.get("norm_constant", 1.0),
-                kw.get("cross", False), kw.get("norm_factor", 100.0),
-                kw.get("n_rows"), (True, True))
-        res["ms"] = time_ms(torch, call, reps)
+        res["ms"] = time_ms(torch, bwd_call(K, name, args, kw, gout), reps)
         res["plain_ms"] = time_ms(torch, lambda: bwd_plain(
             gout, *detached, **kw), max(2, reps // 10), warmup=1, rounds=3)
         ops, nbytes = bwd_cost(name, args, kw)
         res["bound_ms"], res["bound_by"] = bound_ms(ops, nbytes)
-        res["fp32_core_ms"] = 1e3 * ops / PEAK_FP32_FLOPS
         res["tflops"] = ops / res["ms"] / 1e9
         res["blocks"], res["rows_per_block"] = K.bwd_launch_grid(
             name, *res["shape"], kw.get("n_rows"))
@@ -2074,8 +2071,7 @@ def describe_bwd(res):
         text += (f"; backward {res['ms']:.4f} ms per call (2 launches, "
                  f"{res['tflops']:.1f} TFLOP/s), plain {res['plain_ms']:.4f}"
                  f" ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
-                 f"TF32 tensor cores; {res['fp32_core_ms']:.4f} ms at the "
-                 f"fp32 CUDA-core peak); grid {res['blocks']} blocks of "
+                 f"TF32 tensor cores); grid {res['blocks']} blocks of "
                  f"{res['rows_per_block']} rows")
     return text
 
@@ -2578,24 +2574,25 @@ def main() -> int:
             kernel = f"{name} H={int(m[1])}"
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
-    kernel, vec_ptxas = None, {}
+    # and per instantiation edge_chain_bwd_mma<H, VEC> of the backward
+    kernel, bwd_ptxas = None, {k: {} for k in BWD_KERNELS}
     for line in bwd_so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function .*edge_chain_bwd(_vec|_reduce)?"
-                      r"(?:ILi(\d+)E)?", line)
+        m = re.search(r"Compiling entry function .*edge_chain_bwd_(mma|reduce)"
+                      r"(?:ILi(\d+)ELb([01])E)?", line)
         if m:
-            kernel = ("backward reduce" if m[1] == "_reduce" else
-                      f"{'edge_vector_reduce' if m[1] else 'gcl_messages'}"
-                      f" backward H={int(m[2])}")
+            kernel = ("backward reduce" if m[1] == "reduce" else
+                      f"{'edge_vector_reduce' if m[3] == '1' else 'gcl_messages'}"
+                      f"_bwd H={int(m[2])}")
             continue
         if not kernel or not ("registers" in line or "spill" in line):
             continue
         log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
-        if kernel.startswith("edge_vector_reduce"):
-            h = kernel.split("H=")[1]
+        if kernel != "backward reduce":
+            name, h = kernel.split(" H=")
             nums = {k: int(v) for v, k in re.findall(
                 r"(\d+) (?:bytes )?(registers|spill stores|spill loads)",
                 line)}
-            vec_ptxas.setdefault(h, {}).update(
+            bwd_ptxas[name].setdefault(h, {}).update(
                 {k.replace(" ", "_"): v for k, v in nums.items()})
 
     hist = np.load(os.path.join(DATA, "size_distribution.npy"))
@@ -2710,10 +2707,9 @@ def main() -> int:
             shape=main_res["shape"], launches_per_call=2,
             shapes={str(k): {c: r[c] for c in (
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
-                "bound_ms", "bound_by", "fp32_core_ms", "blocks")
+                "bound_ms", "bound_by", "blocks")
                 if c in r} for k, r in at.items()},
-            **({"ptxas": vec_ptxas} if name == "edge_vector_reduce_bwd"
-               else {})))
+            ptxas=bwd_ptxas[name]))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

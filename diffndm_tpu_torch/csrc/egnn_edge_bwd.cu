@@ -3,7 +3,7 @@
 // The JAX package's Pallas kernels (diffndm_tpu/ops/pallas_egnn.py:
 // gcl_messages, edge_vector_reduce) have no VJP; its trainer takes the
 // gradient by XLA autodiff of the dense path (diffndm_tpu/models/egnn.py).
-// These kernels compute that gradient for the port's forward kernels
+// This kernel computes that gradient for the port's forward kernels
 // (csrc/egnn_edge.cu), recomputing the chain from the forward's inputs so
 // that nothing of [B, N, N, H] size is kept between forward and backward.
 //
@@ -23,44 +23,43 @@
 // matrix (the recompute s @ W2, du @ W2^T and s^T du): 6*H^2 FLOPs per edge,
 // against a few bytes of edge input.
 //
-// Common to both kernels:
+// One kernel, edge_chain_bwd_mma<H, VEC>, with two epilogues: VEC false
+// is the backward of gcl_messages (the attention gate), VEC true that of
+// edge_vector_reduce (one weight set, or the difference + cross pair
+// through blockIdx.z).  Everything else exists once:
 //   * Two launches per backward.  The edge kernel: a block owns R rows of
 //     one batch element (every G-th row, as the forward deals them) and
-//     one weight set (blockIdx.z for the pair).  It gathers the (row,
-//     column) pairs of its rows with adj != 0 into a list in shared
-//     memory, sorted by column and then row, and walks it.  da per owned
-//     row in shared memory; db per run of equal columns (the runs of a
-//     tile have distinct columns) into the block's partial record.
+//     one weight set.  It gathers the (row, column) pairs of its rows with
+//     adj != 0 into a list in shared memory, sorted by column and then
+//     row, and walks it in passes.  da per owned row in shared memory; db
+//     per run of equal columns (the runs of a pass have distinct columns)
+//     into the block's partial record.
 //   * No atomics.  Every sum that crosses blocks (dW2, db, the small
-//     weight vectors, dx, dcenter, the pair's two dd2c planes) goes to the
-//     block's own partial record and egnn_bwd_reduce adds the records in a
-//     fixed order: repeat launches give the same bits.
-//
-// edge_chain_bwd<H> (gcl_messages): fp32 FMAs on the CUDA cores, tiles of
-// TE edges: s into shared memory; u = s @ W2 (a warp owns TE/8 edges, a
-// lane H/32 columns; W2 rows read through L1); the epilogue on registers;
-// du into shared memory; s^T du added to the block's dW2 partial per tile;
-// du @ W2^T (W2^T handed over by the wrapper); dz; row and column sums.
-// Next: the main loop of edge_chain_bwd_vec with the attention epilogue.
-//
-// edge_chain_bwd_vec<H> (edge_vector_reduce, one set or the pair): the
-// three products on the tensor cores, as the forward's mma.sync.m16n8k8
-// TF32 tiles in a three-term split (big*small + small*big + big*big, fp32
-// accumulators: fp32-level accuracy).  A pass covers PE = 16 * NWT edges
-// of the list: tile w (entries 16w..16w+15 of the pass) is warp w's, at
-// H=256 warps w and w + 4's.
+//     weight vectors, dbatt, dx, dcenter, the pair's two dd2c planes) goes
+//     to the block's own partial record and egnn_bwd_reduce adds the
+//     records in a fixed order: repeat launches give the same bits.
+//   * The three products on the tensor cores, as the forward's
+//     mma.sync.m16n8k8 TF32 tiles in a three-term split (big*small +
+//     small*big + big*big, fp32 accumulators: fp32-level accuracy).  A
+//     pass covers PE = 16 * NWT edges of the list: tile w (entries
+//     16w..16w+15 of the pass) is warp w's, at H=256 warps w and w + 4's.
 //   (3) u = s @ W2: each thread computes the A fragments of s it owns in
 //       registers from a_i (shared), b_j (global), we and the distances,
 //       as the forward does; W2 arrives split and packed by the wrapper
 //       (pack_w2) and streams in 16-row chunks through a ring of VSTAGES
 //       bulk copies (cp.async.bulk + mbarrier).  The warp holds its 16 x H
-//       accumulator tile, so bias, silu, the dot with wout, tanh, the
-//       direction and its x / centre gradients and du = dm * silu'(u) all
-//       run on registers (sigmoid(u) waits in du's slots of shared memory
-//       between the dot and du, so it is computed once).  du goes to
-//       shared memory (the C fragment layout is not the A layout), dwout's
-//       sums over the tile through a halving shuffle exchange into a
-//       per-tile row.
+//       accumulator tile, so the epilogue runs on registers: u = acc + b2,
+//       m = silu(u) (sigmoid(u) waits in du's slots of shared memory, so
+//       it is computed once), the row dots (quad sums; at H=256 added
+//       across the tile's two warps through per-warp slots), then
+//       du = dm * silu'(u) to shared memory (the C fragment layout is not
+//       the A layout) and the tile's column sums of c * m through a
+//       halving shuffle exchange into a per-tile row (dwatt, dwout).
+//       gcl: the dots m . watt and gout_i . m in one pass (adj / nf
+//       factored out of g . m), gate, datt = adj/nf (gout_i . m) gate
+//       (1 - gate), dm = adj/nf gate gout_i + datt watt, c = datt; dbatt
+//       in a register.  vec: m . wout, tanh, the direction and its x /
+//       centre gradients, dm = dphi' wout, c = dphi'.
 //   (5) dW2 = s^T du over the pass, once per pass: the 8 warps as WK x WN
 //       slabs of dW2 (rows k, columns n), NH halves of a slab one after the
 //       other where the accumulators would not fit.  A = s^T is
@@ -74,22 +73,24 @@
 //       after W2's last chunk.  dz = ds * silu'(u1) on registers with u1
 //       recomputed per fragment element; dd2c / dd2i are quad-shuffle dots
 //       with we0 / we1.  dz then replaces du for the row sums (da), the
-//       column runs (db) and dwe, one column per thread.
+//       column runs (db) and dwe, one column per thread (vec: and dx).
 // Shared memory (bytes) and the rows a block can own (R <= 16):
-//   H=128: NWT 8, PE 128: fixed 135,712 + R * (1,056 + 4 N)
-//   H=192: NWT 8, PE 128: fixed 196,128 + R * (1,568 + 4 N)
-//   H=256: NWT 4, PE  64: fixed 180,768 + R * (2,080 + 4 N)
-// (ring 3 x 16 x (H+4) split pairs; du PE x (H+8); we, b2, wout; per-tile
-// dwout rows, per-warp row dots; per-edge scalars; a and da rows, gout
-// and dx rows, list.)
+//            gcl                             vec
+//   H=128: fixed 131,104 + R (1,536 + 4 N)   135,712 + R (1,056 + 4 N)
+//   H=192: fixed 191,520 + R (2,304 + 4 N)   196,128 + R (1,568 + 4 N)
+//   H=256: fixed 178,464 + R (3,072 + 4 N)   180,768 + R (2,080 + 4 N)
+// (ring 3 x 16 x (H+4) split pairs; du PE x (H+8); we, b2, watt / wout;
+// per-tile column sums, per-warp row dots; per-edge scalars (vec: and dx
+// terms); a and da rows; gcl: output gradient rows, vec: gout and dx rows
+// of 4; the list.)  At [16, 96, 192] a gcl block owns 12 rows, at the
+// flagship [20, 344, 256] 12 (vec 14).
 // At H=256 a pass of 8 tiles does not fit (the du tile alone would be
 // 135 KB beside a 100 KB ring), so a pass has 4 tiles and two warps take
 // half the n tiles of each in (3) and (6), adding their row dots through
 // shared memory; all 8 share (5).
 // Registers (ptxas -v, build/egnn_edge_bwd-*.log; chip_smoke.py prints
-// them): 255 at every H, no spill (at H=192 (5) holds 3 x 12 accumulator
-// tiles, 144 registers; at H=256 two halves of 4 x 8).  Where the time of
-// a 128-edge pass goes at H=192 (cycle counters, chip_smoke.py --only
+// them per instantiation).  Where the time of a 128-edge pass of the
+// vector epilogue goes at H=192 (cycle counters, chip_smoke.py --only
 // phases, NVIDIA H100): the two chunk loops ~35 k cycles each, about what
 // mma.sync TF32 gives 8 warps; (5) ~46 k; the two epilogues ~15 k each;
 // the row and column sums ~13 k.
@@ -107,11 +108,11 @@
 
 #include "egnn_mma.cuh"
 
-// -DEGNN_PROFILE: thread 0 of every block of the vector backward adds the
-// cycles it spends in four spans to g_prof (the whole block, its passes,
-// the chunk loops of products (3) and (6), product (5); see
-// PROFILE_BWD_FIELDS in ops/egnn_kernels.py); egnn_bwd_read_profile copies
-// the sums out and clears them.
+// -DEGNN_PROFILE: thread 0 of every block adds the cycles it spends in
+// four spans to g_prof (the whole block, its passes, the chunk loops of
+// products (3) and (6), product (5); see PROFILE_BWD_FIELDS in
+// ops/egnn_kernels.py); egnn_bwd_read_profile copies the sums out and
+// clears them.
 #ifdef EGNN_PROFILE
 __device__ unsigned long long g_prof[6];
 #define PROF_T(v) const long long v = clock64()
@@ -134,24 +135,15 @@ namespace {
 constexpr int NW = 8;                // warps per block
 constexpr int THREADS = 32 * NW;
 constexpr int R_MAX = 16;            // most rows a block owns
-constexpr int LIST_MAX = 8192;       // most (row, column) pairs a block lists (gcl)
 constexpr int SMEM_LIMIT = 232448;   // bytes a block may use on sm_90
 constexpr unsigned FULL = 0xffffffffu;
-
-template <int H>
-struct Cfg {
-    static constexpr int TE = H <= 192 ? 64 : 32;   // edges per tile
-    static constexpr int EPW = TE / NW;             // edges per warp
-    static constexpr int NJ = H / 32;               // columns per lane
-    static constexpr int KG = 8;                    // dW2 rows per group
-};
 
 struct Set {
     const float* a;       // [B, N, H]
     const float* b;       // [B, N, H]
     const float* we;      // [2, H]
-    const float* w2;      // gcl [H, H] (k, n); vec pack_w2(W2)
-    const float* w2t;     // gcl [H, H] (n, k); vec pack_w2(W2^T)
+    const float* w2;      // pack_w2(W2)
+    const float* w2t;     // pack_w2(W2^T)
     const float* b2;      // [H]
     const float* wvec;    // [H]: watt or wout
     float* da;            // [B, N, H]: rows < n_rows written
@@ -192,13 +184,6 @@ __host__ __device__ inline Layout layout(int H, int N) {
 }
 
 __device__ __forceinline__ float sigm(float v) { return 1.f / (1.f + expf(-v)); }
-
-__device__ __forceinline__ float silu(float v) { return v * sigm(v); }
-
-__device__ __forceinline__ float dsilu(float v) {
-    const float s = sigm(v);
-    return s * (1.f + v * (1.f - s));
-}
 
 __device__ __forceinline__ float silu_fast(float v) {
     return __fdividef(v, 1.0f + __expf(-v));
@@ -331,344 +316,14 @@ __device__ int build_list(const float* adj_b, int N, int nrow, int G,
 }
 
 // ---------------------------------------------------------------------------
-// gcl_messages: fp32 FMAs on the CUDA cores
-// ---------------------------------------------------------------------------
-
-template <int H>
-constexpr int fixed_floats() {
-    using C = Cfg<H>;
-    return 2 * C::TE * H              // s (then dz), du (then run sums)
-           + 3 * R_MAX * H            // a rows, da rows, output gradient rows
-           + C::TE * 3                // adj, d2c, d2i
-           + 2 * C::TE                // local row, column (ints)
-           + C::TE;                   // column of each run (ints)
-}
-
-template <int H>
-size_t smem_bytes(int R, int N) {
-    return 4 * ((size_t)fixed_floats<H>() + (size_t)R * N);
-}
-
-template <int H>
-__global__ void __launch_bounds__(THREADS, 1)
-edge_chain_bwd(const Args p) {
-    using C = Cfg<H>;
-    constexpr int TE = C::TE, EPW = C::EPW, NJ = C::NJ, KG = C::KG;
-    extern __shared__ __align__(16) float smem[];
-    float* sS = smem;
-    float* sDU = sS + TE * H;
-    float* sA = sDU + TE * H;
-    float* sDA = sA + R_MAX * H;
-    float* sG = sDA + R_MAX * H;
-    float* eAdj = sG + R_MAX * H;
-    float* eDc = eAdj + TE;
-    float* eDi = eDc + TE;
-    int* eLR = reinterpret_cast<int*>(eDi + TE);
-    int* eCol = eLR + TE;
-    int* runCol = eCol + TE;
-    int* elist = runCol + TE;
-
-    const int N = p.N, G = p.G;
-    const int bi = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int nrow = (N - (int)blockIdx.x + G - 1) / G;   // <= R
-    auto grow = [&](int lr) { return (int)blockIdx.x + lr * G; };
-    const Set ws = p.s[0];
-    const Layout L = layout(H, N);
-    float* part = p.part + ((size_t)bi * G + blockIdx.x) * p.P;
-    const float inv_nf = 1.f / p.norm_factor;
-
-    // the partial sums this block adds to in place start at zero
-    for (int i = tid; i < L.vec; i += THREADS) part[i] = 0.f;
-    for (int i = tid; i < nrow * H; i += THREADS) {
-        const size_t o = ((size_t)bi * N + grow(i / H)) * H + i % H;
-        sA[i] = ws.a[o];
-        sDA[i] = 0.f;
-        sG[i] = p.gout[o];
-    }
-
-    const int n_edges = build_list(p.adj + (size_t)bi * N * N, N, nrow, G,
-                                   reinterpret_cast<int*>(sS), elist);
-
-    // per-thread sums over the block's edges, columns n = lane + 32 j
-    float acc_b2[NJ], acc_wv[NJ], acc_we0[NJ], acc_we1[NJ];
-    float rb2[NJ], rwv[NJ], rwe0[NJ], rwe1[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-        const int n = lane + 32 * j;
-        acc_b2[j] = acc_wv[j] = acc_we0[j] = acc_we1[j] = 0.f;
-        rb2[j] = ws.b2[n];
-        rwv[j] = ws.wvec[n];
-        rwe0[j] = ws.we[n];
-        rwe1[j] = ws.we[H + n];
-    }
-    float acc_batt = 0.f;
-    const float batt = p.flag_a ? p.batt[0] : 0.f;
-    const float* b_b = ws.b + (size_t)bi * N * H;
-
-    for (int t0 = 0; t0 < n_edges; t0 += TE) {
-        const int tn = n_edges - t0 < TE ? n_edges - t0 : TE;
-        // (1) the tile's edges; an entry past the list is (row 0, column
-        // 0) with adj 0, so every gradient it gives is 0
-        if (tid < TE) {
-            const bool v = tid < tn;
-            const int pk = v ? elist[t0 + tid] : 0;
-            const int lr = pk >> 16, col = pk & 0xffff;
-            const size_t o = ((size_t)bi * N + grow(lr)) * N + col;
-            eLR[tid] = lr;
-            eCol[tid] = col;
-            eAdj[tid] = v ? p.adj[o] : 0.f;
-            eDc[tid] = v ? p.d2c[o] : 0.f;
-            eDi[tid] = v ? p.d2i[o] : 0.f;
-        }
-        __syncthreads();
-        // (2) s = silu(u1)
-        for (int i = tid; i < TE * H; i += THREADS) {
-            const int e = i / H, k = i % H;
-            const float u1 = fmaf(eDi[e], __ldg(ws.we + H + k),
-                                  fmaf(eDc[e], __ldg(ws.we + k),
-                                       sA[eLR[e] * H + k]
-                                       + __ldg(b_b + (size_t)eCol[e] * H + k)));
-            sS[i] = silu(u1);
-        }
-        __syncthreads();
-        // (3) u = s @ W2: warp's EPW edges x lane's NJ columns
-        float acc[EPW][NJ];
-#pragma unroll
-        for (int e = 0; e < EPW; ++e)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) acc[e][j] = 0.f;
-        {
-            const float* sw = sS + warp * EPW * H;
-#pragma unroll 2
-            for (int k = 0; k < H; ++k) {
-                float w[NJ];
-#pragma unroll
-                for (int j = 0; j < NJ; ++j)
-                    w[j] = __ldg(ws.w2 + (size_t)k * H + lane + 32 * j);
-#pragma unroll
-                for (int e = 0; e < EPW; ++e) {
-                    const float s = sw[e * H + k];
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j)
-                        acc[e][j] = fmaf(s, w[j], acc[e][j]);
-                }
-            }
-        }
-        // (4) epilogue: du = dm * silu'(u)
-#pragma unroll
-        for (int e = 0; e < EPW; ++e) {
-            const int el = warp * EPW + e;
-            const int lr = eLR[el];
-            const float av = eAdj[el] * inv_nf;
-            float u[NJ], m[NJ], dm[NJ];
-            float dot = 0.f;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                u[j] = acc[e][j] + rb2[j];
-                m[j] = silu(u[j]);
-                dot = fmaf(m[j], rwv[j], dot);
-            }
-            if (p.flag_a) dot = warp_sum(dot);
-            float g[NJ];
-            float gm = 0.f;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                g[j] = sG[lr * H + lane + 32 * j] * av;
-                gm = fmaf(g[j], m[j], gm);
-            }
-            if (p.flag_a) {
-                gm = warp_sum(gm);
-                const float gate = sigm(dot + batt);
-                const float datt = gm * gate * (1.f - gate);
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) {
-                    dm[j] = fmaf(g[j], gate, datt * rwv[j]);
-                    acc_wv[j] = fmaf(datt, m[j], acc_wv[j]);
-                }
-                acc_batt += datt;
-            } else {
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) dm[j] = g[j];
-            }
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const float du = dm[j] * dsilu(u[j]);
-                sDU[el * H + lane + 32 * j] = du;
-                acc_b2[j] += du;
-            }
-        }
-        __syncthreads();
-        // (5) the block's dW2 partial += s^T du: a warp owns H/8 rows of
-        // dW2, KG at a time, a lane NJ columns
-        {
-            constexpr int KW = H / NW;
-#pragma unroll 1
-            for (int g0 = 0; g0 < KW; g0 += KG) {
-                const int k0 = warp * KW + g0;
-                float a2[KG][NJ];
-#pragma unroll
-                for (int kk = 0; kk < KG; ++kk)
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) a2[kk][j] = 0.f;
-                for (int e = 0; e < tn; ++e) {
-                    const float4 s0 = *reinterpret_cast<const float4*>(
-                        sS + e * H + k0);
-                    const float4 s1 = *reinterpret_cast<const float4*>(
-                        sS + e * H + k0 + 4);
-                    const float sv[KG] = {s0.x, s0.y, s0.z, s0.w,
-                                          s1.x, s1.y, s1.z, s1.w};
-                    float dv[NJ];
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) dv[j] = sDU[e * H + lane + 32 * j];
-#pragma unroll
-                    for (int kk = 0; kk < KG; ++kk)
-#pragma unroll
-                        for (int j = 0; j < NJ; ++j)
-                            a2[kk][j] = fmaf(sv[kk], dv[j], a2[kk][j]);
-                }
-                float* pw = part + L.w2 + (size_t)k0 * H + lane;
-                float old[KG][NJ];
-#pragma unroll
-                for (int kk = 0; kk < KG; ++kk)
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j) old[kk][j] = pw[kk * H + 32 * j];
-#pragma unroll
-                for (int kk = 0; kk < KG; ++kk)
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j)
-                        pw[kk * H + 32 * j] = old[kk][j] + a2[kk][j];
-            }
-        }
-        // (6) ds = du @ W2^T, then dz = ds * silu'(u1): lane's NJ k
-        {
-            const float* sd = sDU + warp * EPW * H;
-#pragma unroll
-            for (int e = 0; e < EPW; ++e)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j) acc[e][j] = 0.f;
-#pragma unroll 2
-            for (int n = 0; n < H; ++n) {
-                float w[NJ];
-#pragma unroll
-                for (int j = 0; j < NJ; ++j)
-                    w[j] = __ldg(ws.w2t + (size_t)n * H + lane + 32 * j);
-#pragma unroll
-                for (int e = 0; e < EPW; ++e) {
-                    const float d = sd[e * H + n];
-#pragma unroll
-                    for (int j = 0; j < NJ; ++j)
-                        acc[e][j] = fmaf(d, w[j], acc[e][j]);
-                }
-            }
-        }
-#pragma unroll
-        for (int e = 0; e < EPW; ++e) {
-            const int el = warp * EPW + e;
-            const int lr = eLR[el], col = eCol[el];
-            const float dc = eDc[el], di = eDi[el];
-            float dd0 = 0.f, dd1 = 0.f;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const int k = lane + 32 * j;
-                const float u1 = fmaf(di, rwe1[j], fmaf(dc, rwe0[j],
-                    sA[lr * H + k] + __ldg(b_b + (size_t)col * H + k)));
-                const float dz = acc[e][j] * dsilu(u1);
-                acc[e][j] = dz;
-                acc_we0[j] = fmaf(dz, dc, acc_we0[j]);
-                acc_we1[j] = fmaf(dz, di, acc_we1[j]);
-                dd0 = fmaf(dz, rwe0[j], dd0);
-                dd1 = fmaf(dz, rwe1[j], dd1);
-            }
-            if (ws.dd2c || ws.dd2i) {
-                dd0 = warp_sum(dd0);
-                dd1 = warp_sum(dd1);
-                if (lane == 0 && el < tn) {
-                    const size_t o = ((size_t)bi * N + grow(lr)) * N + col;
-                    if (ws.dd2c) ws.dd2c[o] = dd0;
-                    if (ws.dd2i) ws.dd2i[o] = dd1;
-                }
-            }
-        }
-        __syncthreads();              // every warp is done with s and du
-#pragma unroll
-        for (int e = 0; e < EPW; ++e)
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-                sS[(warp * EPW + e) * H + lane + 32 * j] = acc[e][j];
-        __syncthreads();
-        // (7) row sums into da, column runs into du's buffer
-        int n_runs = 0;
-        for (int k = tid; k < H; k += THREADS) {
-            float run = 0.f;
-            n_runs = 0;
-            for (int e = 0; e < tn; ++e) {
-                const float v = sS[e * H + k];
-                sDA[eLR[e] * H + k] += v;
-                run += v;
-                if (e == tn - 1 || eCol[e + 1] != eCol[e]) {
-                    sDU[n_runs * H + k] = run;
-                    if (k == 0) runCol[n_runs] = eCol[e];
-                    ++n_runs;
-                    run = 0.f;
-                }
-            }
-        }
-        __syncthreads();
-        // the runs of a tile have distinct columns: their read-modify-
-        // writes of the db partial are independent, four at a time
-        for (int k = tid; k < H; k += THREADS) {
-            float* pb = part + L.b + k;
-            int r = 0;
-            for (; r + 4 <= n_runs; r += 4) {
-                float o[4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) o[q] = pb[(size_t)runCol[r + q] * H];
-#pragma unroll
-                for (int q = 0; q < 4; ++q)
-                    pb[(size_t)runCol[r + q] * H] = o[q] + sDU[(r + q) * H + k];
-            }
-            for (; r < n_runs; ++r)
-                pb[(size_t)runCol[r] * H] += sDU[r * H + k];
-        }
-        __syncthreads();
-    }
-
-    // ---- write what the block owns, and its partial record ----
-    for (int i = tid; i < nrow * H; i += THREADS)
-        ws.da[((size_t)bi * N + grow(i / H)) * H + i % H] = sDA[i];
-    float* red = sS;                  // [NW][4][H], then [NW]
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-        const int n = lane + 32 * j;
-        red[(warp * 4 + 0) * H + n] = acc_b2[j];
-        red[(warp * 4 + 1) * H + n] = acc_we0[j];
-        red[(warp * 4 + 2) * H + n] = acc_we1[j];
-        red[(warp * 4 + 3) * H + n] = acc_wv[j];
-    }
-    if (lane == 0) red[NW * 4 * H + warp] = acc_batt;
-    __syncthreads();
-    for (int i = tid; i < 4 * H; i += THREADS) {
-        float s = 0.f;
-        for (int w = 0; w < NW; ++w) s += red[(w * 4 + i / H) * H + i % H];
-        part[L.vec + i] = s;
-    }
-    if (tid == 0) {
-        float s = 0.f;
-        for (int w = 0; w < NW; ++w) s += red[NW * 4 * H + w];
-        part[L.vec + 4 * H] = s;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// edge_vector_reduce: the three products on the tensor cores
+// edge_chain_bwd_mma: the three products on the tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int KC = 16;               // rows of a packed W2 / W2^T chunk
 constexpr int VSTAGES = 3;           // ring stages
 
 template <int H>
-struct VCfg {
+struct MCfg {
     static constexpr int NWT = H <= 192 ? 8 : 4;   // edge tiles per pass
     static constexpr int PE = 16 * NWT;            // edges per pass
     static constexpr int LDR = H + 4;              // ring row stride (pairs)
@@ -686,24 +341,32 @@ struct VCfg {
     static constexpr int NTW = H / 8 / WN / NH;    // n tiles of a half
 };
 
-template <int H>
-constexpr int vec_fixed_floats() {
-    using C = VCfg<H>;
+template <int H, bool VEC>
+constexpr int mma_fixed_floats() {
+    using C = MCfg<H>;
     return 8                                   // ring barriers, padded
            + VSTAGES * KC * C::LDR * 2         // W2 / W2^T ring
            + C::PE * C::LDU                    // du, then dz, then run sums
-           + 4 * H                             // we0, we1, b2, wout
-           + C::NWT * H                        // per-tile dwout sums
+           + 4 * H                             // we0, we1, b2, watt / wout
+           + C::NWT * H                        // per-tile dwatt / dwout sums
            + NW * 32                           // per-warp row dots
-           + C::PE * 12                        // adj, d2c, d2i, dx (6), runs (3)
+           + C::PE * 3                         // adj, d2c, d2i
+           + (VEC ? C::PE * 9 : 0)             // dx (6), dx runs (3)
            + C::PE * 4;                        // row, column, run column, pad
 }
 
-// + per owned row: a and da rows, gout and dx rows (4 each); the list
-template <int H>
-size_t vec_smem_bytes(int R, int N) {
-    return 4 * ((size_t)vec_fixed_floats<H>() + (size_t)R * (2 * H + 8)
-                + (size_t)R * N);
+// floats per owned row: a and da rows; gcl: the output gradient row, vec:
+// the gout and dx rows (4 each)
+template <int H, bool VEC>
+constexpr int mma_row_floats() {
+    return 2 * H + (VEC ? 8 : H);
+}
+
+// + the list of R * N candidate pairs
+template <int H, bool VEC>
+size_t mma_smem_bytes(int R, int N) {
+    return 4 * ((size_t)mma_fixed_floats<H, VEC>()
+                + (size_t)R * mma_row_floats<H, VEC>() + (size_t)R * N);
 }
 
 // acc (16 edges x NT n tiles from column n8) += A (16 x 16 of this chunk)
@@ -748,10 +411,10 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
     }
 }
 
-template <int H>
+template <int H, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
-edge_chain_bwd_vec(const Args p) {
-    using C = VCfg<H>;
+edge_chain_bwd_mma(const Args p) {
+    using C = MCfg<H>;
     constexpr int NWT = C::NWT, PE = C::PE, LDR = C::LDR, LDU = C::LDU;
     constexpr int NC = C::NC, SPLIT = C::SPLIT, NT = C::NTS;
     constexpr int WK = C::WK, WN = C::WN, NH = C::NH, MTW = C::MTW,
@@ -769,16 +432,17 @@ edge_chain_bwd_vec(const Args p) {
     float* eAdj = sRed + NW * 32;
     float* eDc = eAdj + PE;
     float* eDi = eDc + PE;
-    float* eEG = eDi + PE;                     // [PE][6]: gp, gq
-    float* runX = eEG + 6 * PE;                // [PE][3]
-    int* eLR = reinterpret_cast<int*>(runX + 3 * PE);
+    constexpr int XE = VEC ? PE : 0;           // edges with dx terms
+    float* eEG = eDi + PE;                     // vec [PE][6]: gp, gq
+    float* runX = eEG + 6 * XE;                // vec [PE][3]
+    int* eLR = reinterpret_cast<int*>(runX + 3 * XE);
     int* eCol = eLR + PE;
     int* runCol = eCol + PE;
     float* sA = reinterpret_cast<float*>(runCol + 2 * PE);
     float* sDA = sA + p.R * H;
-    float* sG = sDA + p.R * H;                 // [R][4]
-    float* sXR = sG + 4 * p.R;                 // [R][4]
-    int* elist = reinterpret_cast<int*>(sXR + 4 * p.R);
+    float* sG = sDA + p.R * H;                 // gcl [R][H]; vec [R][4]
+    float* sXR = sG + (VEC ? 4 : H) * p.R;     // vec [R][4]
+    int* elist = reinterpret_cast<int*>(sXR + (VEC ? 4 : 0) * p.R);
 
     const int N = p.N, G = p.G;
     const int bi = blockIdx.y, z = blockIdx.z;
@@ -792,7 +456,7 @@ edge_chain_bwd_vec(const Args p) {
     float* part = p.part + ((size_t)(z * p.B + bi) * G + blockIdx.x) * p.P;
     const float inv_nf = 1.f / p.norm_factor;
     const float* b_b = ws.b + (size_t)bi * N * H;
-    const float* ctr = p.center + (size_t)bi * 3;
+    const float* ctr = VEC ? p.center + (size_t)bi * 3 : nullptr;
     PROF_T(p_start);
 
     // ring chunk q: chunk q mod 2 NC of the pass's sequence, W2's NC chunks
@@ -817,13 +481,18 @@ edge_chain_bwd_vec(const Args p) {
     }
 
     for (int i = tid; i < nrow * H; i += THREADS) {
-        sA[i] = ws.a[((size_t)bi * N + grow(i / H)) * H + i % H];
+        const size_t o = ((size_t)bi * N + grow(i / H)) * H + i % H;
+        sA[i] = ws.a[o];
         sDA[i] = 0.f;
+        if constexpr (!VEC) sG[i] = p.gout[o];
     }
-    for (int i = tid; i < nrow * 4; i += THREADS) {
-        const int c = i & 3;
-        sG[i] = c < 3 ? p.gout[((size_t)bi * N + grow(i >> 2)) * 3 + c] : 0.f;
-        sXR[i] = 0.f;
+    if constexpr (VEC) {
+        for (int i = tid; i < nrow * 4; i += THREADS) {
+            const int c = i & 3;
+            sG[i] = c < 3 ? p.gout[((size_t)bi * N + grow(i >> 2)) * 3 + c]
+                          : 0.f;
+            sXR[i] = 0.f;
+        }
     }
     for (int i = tid; i < H; i += THREADS) {
         we0[i] = ws.we[i];
@@ -833,7 +502,8 @@ edge_chain_bwd_vec(const Args p) {
     }
     // the partial sums added to run by run start at zero
     for (int i = tid; i < N * H; i += THREADS) part[L.b + i] = 0.f;
-    for (int i = tid; i < 3 * N; i += THREADS) part[L.x + i] = 0.f;
+    if constexpr (VEC)
+        for (int i = tid; i < 3 * N; i += THREADS) part[L.x + i] = 0.f;
 
     const int n_edges = build_list(p.adj + (size_t)bi * N * N, N, nrow, G,
                                    reinterpret_cast<int*>(sDU), elist);
@@ -847,12 +517,15 @@ edge_chain_bwd_vec(const Args p) {
         if (q + VSTAGES - 1 < n_chunks) request_chunk(q + VSTAGES - 1);
     };
 
-    // column tid (< H): the block's db2, dwe0, dwe1, dwout
+    // column tid (< H): the block's db2, dwe0, dwe1, dwatt / dwout
     float acc_b2 = 0.f, acc_we0 = 0.f, acc_we1 = 0.f, acc_wv = 0.f;
-    // threads xt..xt+2: component c of dx (and dcenter)
+    // gcl: dbatt over the edges this thread's quad owns in (3)
+    float acc_batt = 0.f;
+    const float batt = !VEC && p.flag_a ? p.batt[0] : 0.f;
+    // vec: threads xt..xt+2: component c of dx (and dcenter)
     const int xt = H + 3 <= THREADS ? H : 0;
     const int xc_ = tid - xt;
-    const bool xthread = xc_ >= 0 && xc_ < 3;
+    const bool xthread = VEC && xc_ >= 0 && xc_ < 3;
     float dctr = 0.f;
     // (5): this warp's slab of dW2; its k rows 2g, 2g+1 of each m tile
     const int kb = (warp % WK) * (H / WK);
@@ -936,10 +609,14 @@ edge_chain_bwd_vec(const Args p) {
             PROF_T(p1);
             PROF_ADD(2, p0, p1);
 
-            float dot_lo = 0.f, dot_hi = 0.f;
+            // the owned rows' output gradients (gcl)
+            const float* gr_lo = sG + lr_lo * H;
+            const float* gr_hi = sG + lr_hi * H;
+            // m . wvec per edge (wout or watt); gcl: and gout_i . m
+            float dot_lo = 0.f, dot_hi = 0.f, gm_lo = 0.f, gm_hi = 0.f;
             if (active) {
-                // u = acc + b2; phi from m . wout (a quad holds a row)
-                // (sigmoid(u) waits in du's slots of shared memory)
+                // u = acc + b2 (a quad holds a row; sigmoid(u) waits in
+                // du's slots of shared memory)
 #pragma unroll
                 for (int nt = 0; nt < NT; ++nt) {
                     const int c0 = n8 + nt * 8 + 2 * t;
@@ -956,6 +633,14 @@ edge_chain_bwd_vec(const Args p) {
                                   fmaf(acc[nt][1] * sg[1], wv.y, dot_lo));
                     dot_hi = fmaf(acc[nt][2] * sg[2], wv.x,
                                   fmaf(acc[nt][3] * sg[3], wv.y, dot_hi));
+                    if constexpr (!VEC) {
+                        const float2 gl = *reinterpret_cast<const float2*>(gr_lo + c0);
+                        const float2 gh = *reinterpret_cast<const float2*>(gr_hi + c0);
+                        gm_lo = fmaf(acc[nt][0] * sg[0], gl.x,
+                                     fmaf(acc[nt][1] * sg[1], gl.y, gm_lo));
+                        gm_hi = fmaf(acc[nt][2] * sg[2], gh.x,
+                                     fmaf(acc[nt][3] * sg[3], gh.y, gm_hi));
+                    }
                     *reinterpret_cast<float2*>(sDU + el_lo * LDU + c0) =
                         make_float2(sg[0], sg[1]);
                     *reinterpret_cast<float2*>(sDU + el_hi * LDU + c0) =
@@ -963,59 +648,92 @@ edge_chain_bwd_vec(const Args p) {
                 }
                 dot_lo = quad_sum(dot_lo);
                 dot_hi = quad_sum(dot_hi);
+                if constexpr (!VEC) {
+                    gm_lo = quad_sum(gm_lo);
+                    gm_hi = quad_sum(gm_hi);
+                }
                 if constexpr (SPLIT > 1) {    // the tile's warps add theirs
                     if (t == 0) {
                         sRed[warp * 32 + g] = dot_lo;
                         sRed[warp * 32 + 8 + g] = dot_hi;
+                        if constexpr (!VEC) {
+                            sRed[warp * 32 + 16 + g] = gm_lo;
+                            sRed[warp * 32 + 24 + g] = gm_hi;
+                        }
                     }
                 }
             }
             if constexpr (SPLIT > 1) {
                 __syncthreads();
                 if (active) {
-                    dot_lo = dot_hi = 0.f;
+                    dot_lo = dot_hi = gm_lo = gm_hi = 0.f;
                     for (int j = 0; j < SPLIT; ++j) {
-                        dot_lo += sRed[(tile + j * NWT) * 32 + g];
-                        dot_hi += sRed[(tile + j * NWT) * 32 + 8 + g];
+                        const float* r = sRed + (tile + j * NWT) * 32;
+                        dot_lo += r[g];
+                        dot_hi += r[8 + g];
+                        if constexpr (!VEC) {
+                            gm_lo += r[16 + g];
+                            gm_hi += r[24 + g];
+                        }
                     }
                 }
             }
             if (active) {
-                // dphi through tanh, and the direction's own gradients
-                float dpr[2];
+                // per edge: dm = alpha * gout_i + coef * wvec, and coef
+                // is the factor of m in the column sums (dwatt / dwout)
+                float alpha[2] = {0.f, 0.f}, coef[2];
+                if constexpr (!VEC) {
+                    // the attention gate; without it gate = 1, dm = g
 #pragma unroll
-                for (int side = 0; side < 2; ++side) {
-                    const int el = side ? el_hi : el_lo;
-                    const int lr = side ? lr_hi : lr_lo;
-                    const int col = side ? col_hi : col_lo;
-                    const float dot = side ? dot_hi : dot_lo;
-                    const float av = eAdj[el] * inv_nf;
-                    const float* xr = p.x + ((size_t)bi * N + grow(lr)) * 3;
-                    const float* xc = p.x + ((size_t)bi * N + col) * 3;
-                    const float Gr[3] = {sG[lr * 4], sG[lr * 4 + 1], sG[lr * 4 + 2]};
-                    const float th = p.flag_a ? tanhf(dot) : 0.f;
-                    const float phi = p.flag_a ? th * p.coords_range : dot;
-                    float vh[3], gp[3], gq[3];
-                    direction(xr, xc, ctr, ws.cross, p.norm_constant, Gr,
-                              av * phi, vh, gp, gq);
-                    const float dphi = av * (Gr[0] * vh[0] + Gr[1] * vh[1]
-                                             + Gr[2] * vh[2]);
-                    dpr[side] = p.flag_a
-                                    ? dphi * p.coords_range * (1.f - th * th)
-                                    : dphi;
-                    if (t == 0 && sub == 0) {
-                        eEG[el * 6 + 0] = gp[0];
-                        eEG[el * 6 + 1] = gp[1];
-                        eEG[el * 6 + 2] = gp[2];
-                        eEG[el * 6 + 3] = gq[0];
-                        eEG[el * 6 + 4] = gq[1];
-                        eEG[el * 6 + 5] = gq[2];
+                    for (int side = 0; side < 2; ++side) {
+                        const float av = eAdj[side ? el_hi : el_lo] * inv_nf;
+                        if (p.flag_a) {
+                            const float gate = sigm((side ? dot_hi : dot_lo) + batt);
+                            coef[side] = av * (side ? gm_hi : gm_lo) * gate
+                                         * (1.f - gate);
+                            alpha[side] = av * gate;
+                        } else {
+                            coef[side] = 0.f;
+                            alpha[side] = av;
+                        }
+                    }
+                    if (t == 0 && sub == 0) acc_batt += coef[0] + coef[1];
+                } else {
+                    // dphi through tanh, and the direction's own gradients
+#pragma unroll
+                    for (int side = 0; side < 2; ++side) {
+                        const int el = side ? el_hi : el_lo;
+                        const int lr = side ? lr_hi : lr_lo;
+                        const int col = side ? col_hi : col_lo;
+                        const float dot = side ? dot_hi : dot_lo;
+                        const float av = eAdj[el] * inv_nf;
+                        const float* xr = p.x + ((size_t)bi * N + grow(lr)) * 3;
+                        const float* xc = p.x + ((size_t)bi * N + col) * 3;
+                        const float Gr[3] = {sG[lr * 4], sG[lr * 4 + 1], sG[lr * 4 + 2]};
+                        const float th = p.flag_a ? tanhf(dot) : 0.f;
+                        const float phi = p.flag_a ? th * p.coords_range : dot;
+                        float vh[3], gp[3], gq[3];
+                        direction(xr, xc, ctr, ws.cross, p.norm_constant, Gr,
+                                  av * phi, vh, gp, gq);
+                        const float dphi = av * (Gr[0] * vh[0] + Gr[1] * vh[1]
+                                                 + Gr[2] * vh[2]);
+                        coef[side] = p.flag_a
+                                         ? dphi * p.coords_range * (1.f - th * th)
+                                         : dphi;
+                        if (t == 0 && sub == 0) {
+                            eEG[el * 6 + 0] = gp[0];
+                            eEG[el * 6 + 1] = gp[1];
+                            eEG[el * 6 + 2] = gp[2];
+                            eEG[el * 6 + 3] = gq[0];
+                            eEG[el * 6 + 4] = gq[1];
+                            eEG[el * 6 + 5] = gq[2];
+                        }
                     }
                 }
-                // du = dpr * wout * silu'(u) to shared memory; dwout's
-                // terms dpr * m summed over the tile's 16 edges, XT n tiles
-                // at a time: over the 8 lanes that share t, halving what a
-                // lane keeps at each step, so that it ends with 2 sums
+                // du = dm * silu'(u) to shared memory; the column sums'
+                // terms coef * m over the tile's 16 edges, XT n tiles at a
+                // time: over the 8 lanes that share t, halving what a lane
+                // keeps at each step, so that it ends with 2 sums
                 static_assert(NT % 8 == 0, "n tiles in chunks of XT");
                 constexpr int XT = 8, V = 2 * XT;
                 const bool up1 = lane & 16, up2 = lane & 8, up3 = lane & 4;
@@ -1034,17 +752,26 @@ edge_chain_bwd_vec(const Args p) {
                         const float2 sh = *reinterpret_cast<const float2*>(
                             sDU + el_hi * LDU + c0);
                         const float sgs[4] = {sl.x, sl.y, sh.x, sh.y};
+                        float gv[4] = {0.f, 0.f, 0.f, 0.f};
+                        if constexpr (!VEC) {
+                            const float2 gl = *reinterpret_cast<const float2*>(gr_lo + c0);
+                            const float2 gh = *reinterpret_cast<const float2*>(gr_hi + c0);
+                            gv[0] = gl.x; gv[1] = gl.y; gv[2] = gh.x; gv[3] = gh.y;
+                        }
                         float m[4], d[4];
 #pragma unroll
                         for (int i = 0; i < 4; ++i) {
                             const float u = acc[nt][i];
                             const float sg = sgs[i];
+                            const float w = i & 1 ? wv.y : wv.x;
                             m[i] = u * sg;
-                            d[i] = dpr[i >> 1] * (i & 1 ? wv.y : wv.x)
-                                   * (sg * (1.f + u * (1.f - sg)));
+                            const float dm = VEC ? coef[i >> 1] * w
+                                                 : fmaf(alpha[i >> 1], gv[i],
+                                                        coef[i >> 1] * w);
+                            d[i] = dm * (sg * (1.f + u * (1.f - sg)));
                         }
-                        v[2 * j] = fmaf(dpr[0], m[0], dpr[1] * m[2]);
-                        v[2 * j + 1] = fmaf(dpr[0], m[1], dpr[1] * m[3]);
+                        v[2 * j] = fmaf(coef[0], m[0], coef[1] * m[2]);
+                        v[2 * j + 1] = fmaf(coef[0], m[1], coef[1] * m[3]);
                         *reinterpret_cast<float2*>(sDU + el_lo * LDU + c0) =
                             make_float2(d[0], d[1]);
                         *reinterpret_cast<float2*>(sDU + el_hi * LDU + c0) =
@@ -1417,7 +1144,18 @@ edge_chain_bwd_vec(const Args p) {
         part[L.vec + 2 * H + tid] = acc_we1;
         part[L.vec + 3 * H + tid] = acc_wv;
     }
-    if (tid == 0) part[L.vec + 4 * H] = 0.f;
+    if constexpr (VEC) {
+        if (tid == 0) part[L.vec + 4 * H] = 0.f;
+    } else {                          // dbatt: warps, then lanes 0 in order
+        const float v = warp_sum(acc_batt);
+        if (lane == 0) sRed[warp] = v;
+        __syncthreads();
+        if (tid == 0) {
+            float sum = 0.f;
+            for (int w = 0; w < NW; ++w) sum += sRed[w];
+            part[L.vec + 4 * H] = sum;
+        }
+    }
     if (xthread) {
         for (int lr = 0; lr < nrow; ++lr)
             part[L.x + grow(lr) * 3 + xc_] += sXR[lr * 4 + xc_];
@@ -1559,49 +1297,36 @@ long target_rows(int B, int rows, int n_sets) {
     return R < 1 ? 1 : R;
 }
 
-// gcl: fewer rows where the block's list of R * N candidate pairs would
-// exceed LIST_MAX
-int pick_rows(int B, int rows, int N) {
-    long R = target_rows(B, rows, 1);
-    if (R > LIST_MAX / N) R = LIST_MAX / N;
-    return R < 1 ? 1 : (int)R;
-}
-
-// vec: fewer rows where shared memory would not hold them; 0 if not one
-template <int H>
-int pick_rows_vec(int B, int rows, int N, int n_sets) {
+// fewer rows where shared memory would not hold them; 0 if not one
+template <int H, bool VEC>
+int pick_rows(int B, int rows, int N, int n_sets) {
     long R = target_rows(B, rows, n_sets);
-    while (R > 1 && vec_smem_bytes<H>((int)R, N) > (size_t)SMEM_LIMIT) --R;
-    return vec_smem_bytes<H>((int)R, N) <= (size_t)SMEM_LIMIT ? (int)R : 0;
+    while (R > 1 && mma_smem_bytes<H, VEC>((int)R, N) > (size_t)SMEM_LIMIT) --R;
+    return mma_smem_bytes<H, VEC>((int)R, N) <= (size_t)SMEM_LIMIT ? (int)R
+                                                                    : 0;
 }
 
-template <typename Kernel>
-int launch_k(Kernel kernel, bool& configured, size_t smem, const Args& args,
-             int n_sets, cudaStream_t stream) {
+template <int H>
+int pick_rows(int B, int rows, int N, int n_sets, bool vec) {
+    return vec ? pick_rows<H, true>(B, rows, N, n_sets)
+               : pick_rows<H, false>(B, rows, N, n_sets);
+}
+
+template <int H, bool VEC>
+int launch(const Args& args, int n_sets, cudaStream_t stream) {
+    static bool configured = false;
     if (!configured) {
         cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+            edge_chain_bwd_mma<H, VEC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
+    const size_t smem = mma_smem_bytes<H, VEC>(args.R, args.N);
     if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     dim3 grid(args.G, args.B, n_sets);
-    kernel<<<grid, THREADS, smem, stream>>>(args);
+    edge_chain_bwd_mma<H, VEC><<<grid, THREADS, smem, stream>>>(args);
     return (int)cudaGetLastError();
-}
-
-template <int H>
-int launch_gcl(const Args& args, cudaStream_t stream) {
-    static bool configured = false;
-    return launch_k(edge_chain_bwd<H>, configured,
-                    smem_bytes<H>(args.R, args.N), args, 1, stream);
-}
-
-template <int H>
-int launch_vec(const Args& args, int n_sets, cudaStream_t stream) {
-    static bool configured = false;
-    return launch_k(edge_chain_bwd_vec<H>, configured,
-                    vec_smem_bytes<H>(args.R, args.N), args, n_sets, stream);
 }
 
 }  // namespace
@@ -1618,13 +1343,11 @@ int egnn_bwd_layout(int B, int N, int H, int n_rows, int n_sets, int vec,
     const int rows = n_rows < N ? n_rows : N;
     if (B <= 0 || N <= 0 || N > 0xffff || rows <= 0
         || (H != 128 && H != 192 && H != 256)
-        || (vec ? n_sets != 1 && n_sets != 2 : n_sets != 1 || N > LIST_MAX))
+        || (n_sets != 1 && (n_sets != 2 || !vec)))
         return (int)cudaErrorInvalidValue;
-    int R = 0;
-    if (!vec) R = pick_rows(B, rows, N);
-    else if (H == 128) R = pick_rows_vec<128>(B, rows, N, n_sets);
-    else if (H == 192) R = pick_rows_vec<192>(B, rows, N, n_sets);
-    else R = pick_rows_vec<256>(B, rows, N, n_sets);
+    const int R = H == 128   ? pick_rows<128>(B, rows, N, n_sets, vec)
+                  : H == 192 ? pick_rows<192>(B, rows, N, n_sets, vec)
+                             : pick_rows<256>(B, rows, N, n_sets, vec);
     if (R <= 0) return (int)cudaErrorInvalidValue;
     out[0] = R;
     out[1] = (rows + R - 1) / R;
@@ -1633,7 +1356,7 @@ int egnn_bwd_layout(int B, int N, int H, int n_rows, int n_sets, int vec,
 }
 
 // set0 / set1: a, b, we, w2, w2t, b2, wvec, da, dd2c, dd2i (dd2c and dd2i
-// may be null: not written; vec: w2 and w2t are pack_w2 of W2 and of W2^T);
+// may be null: not written; w2 and w2t are pack_w2 of W2 and of W2^T);
 // shared: gout, d2c, d2i, adj, x, center, batt, part; ints: B, N, H,
 // n_rows, n_sets, vec, flag (attention or tanh), cross of set 0 (set 1 is
 // the cross direction); floats: coords_range, norm_constant, norm_factor.
@@ -1668,13 +1391,14 @@ int egnn_bwd_edges(void* const* set0, void* const* set1, void* const* shared,
     p.coords_range = fa[0]; p.norm_constant = fa[1]; p.norm_factor = fa[2];
     const int n_sets = ia[4];
     cudaStream_t st = (cudaStream_t)stream;
-    switch (ia[5] ? -ia[2] : ia[2]) {
-        case 128: return launch_gcl<128>(p, st);
-        case 192: return launch_gcl<192>(p, st);
-        case 256: return launch_gcl<256>(p, st);
-        case -128: return launch_vec<128>(p, n_sets, st);
-        case -192: return launch_vec<192>(p, n_sets, st);
-        case -256: return launch_vec<256>(p, n_sets, st);
+    const bool vec = ia[5];
+    switch (ia[2]) {
+        case 128: return vec ? launch<128, true>(p, n_sets, st)
+                             : launch<128, false>(p, n_sets, st);
+        case 192: return vec ? launch<192, true>(p, n_sets, st)
+                             : launch<192, false>(p, n_sets, st);
+        case 256: return vec ? launch<256, true>(p, n_sets, st)
+                             : launch<256, false>(p, n_sets, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

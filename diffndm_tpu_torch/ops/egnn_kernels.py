@@ -24,13 +24,14 @@ accuracy; the plain versions are plain fp32.
 
 In grad mode each wrapper goes through a ``torch.autograd.Function``
 (``_GclMessages``, ``_EdgeVectorReduce``) that saves only its inputs and
-whose backward recomputes the chain: on the card the hand-written kernels
-of ``csrc/egnn_edge_bwd.cu`` (two launches per backward, counted under
-``gcl_messages_bwd`` / ``edge_vector_reduce_bwd``; the vector backward
-runs its three products on the tensor cores, taking W2 and W2^T packed as
-``pack_w2`` lays them out), on the CPU the plain backward
-(``*_backward_plain``), which writes the same formula out in PyTorch.  The JAX package's Pallas kernels have no VJP; these give the
-gradient that XLA autodiff gives of its dense path.
+whose backward recomputes the chain: on the card the hand-written kernel
+of ``csrc/egnn_edge_bwd.cu`` (one template with an epilogue for each
+wrapper; two launches per backward, counted under ``gcl_messages_bwd`` /
+``edge_vector_reduce_bwd``; its three products run on the tensor cores,
+taking W2 and W2^T packed as ``pack_w2`` lays them out), on the CPU the
+plain backward (``*_backward_plain``), which writes the same formula out
+in PyTorch.  The JAX package's Pallas kernels have no VJP; these give
+the gradient that XLA autodiff gives of its dense path.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface under ``build/`` at the
@@ -126,8 +127,8 @@ def build_library(profile: bool = False, source: Path = SOURCE) -> Path:
 PROFILE_BUILD = False
 PROFILE_FIELDS = ("setup", "wait", "request", "mma", "loop", "", "passes",
                   "blocks")
-# the vector backward's spans: the whole block, its passes, the chunk
-# loops of (3) u = s W2 and (6) ds = du W2^T, (5) dW2 = s^T du
+# the backward's spans (both epilogues): the whole block, its passes, the
+# chunk loops of (3) u = s W2 and (6) ds = du W2^T, (5) dW2 = s^T du
 PROFILE_BWD_FIELDS = ("block", "pass", "loops", "dw2", "passes", "blocks")
 
 
@@ -194,7 +195,7 @@ def read_profile() -> dict:
 
 
 def read_bwd_profile() -> dict:
-    """``read_profile`` of the vector backward (``PROFILE_BWD_FIELDS``)."""
+    """``read_profile`` of the backward (``PROFILE_BWD_FIELDS``)."""
     buf = (ctypes.c_ulonglong * len(PROFILE_BWD_FIELDS))()
     err = _bwd_load(True).egnn_bwd_read_profile(buf)
     if err != 0:
@@ -329,8 +330,8 @@ def split_w2(w2: torch.Tensor) -> torch.Tensor:
 
 
 def split_w2t(w2: torch.Tensor) -> torch.Tensor:
-    """``pack_w2(w2.t())``, the B operand of du @ W2^T in the vector
-    backward, cached per weight tensor W2 (see ``_packed``)."""
+    """``pack_w2(w2.t())``, the B operand of du @ W2^T in the backward,
+    cached per weight tensor W2 (see ``_packed``)."""
     return _packed(w2, True)
 
 
@@ -724,9 +725,11 @@ def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
     dbatt = torch.empty_like(batt_t)
     ints = (ctypes.c_int * 8)(bsz, n, h, n, 1, 0, int(bool(attention)), 0)
     floats = (ctypes.c_float * 3)(0.0, 0.0, float(norm_factor))
-    w2t = w2.t().contiguous()
+    # W2 and W2^T split and packed for the ring, held until both launches
+    # are queued
+    w2p, w2tp = split_w2(w2), split_w2t(w2)
     _launch("gcl_messages backward", dev, lib.egnn_bwd_edges,
-            _ptrs(a, b, we, w2, w2t, b2, watt, da, dd2c, dd2i),
+            _ptrs(a, b, we, w2p, w2tp, b2, watt, da, dd2c, dd2i),
             _ptrs(*[None] * 10),
             _ptrs(gout, d2c, d2i, adj, None, None, batt_t, part), ints,
             floats)

@@ -35,7 +35,8 @@ from diffndm_tpu.guidance.oracle import \
     RewardOracle as JaxOracle  # noqa: E402
 from diffndm_tpu.models.dynamics import EGNNDynamics as JaxDynamics  # noqa: E402
 from diffndm_tpu_torch import config as tcfg  # noqa: E402
-from diffndm_tpu_torch.constants import dataset_params  # noqa: E402
+from diffndm_tpu_torch.constants import (MARGIN2, MARGIN3,  # noqa: E402
+                                         OB_COVALENT_RADII, dataset_params)
 from diffndm_tpu_torch.convert import params_from_jax  # noqa: E402
 from diffndm_tpu_torch.data.dataset import \
     ProcessedLigandPocketDataset  # noqa: E402
@@ -229,10 +230,118 @@ def test_spsa_fused_equals_sequential_and_zero_zeta_is_identity(small):
     np.testing.assert_allclose(same[0].numpy(), st[0], atol=1e-6)
 
 
+class ScoredProbes:
+    """Records what each side's oracle is handed and returns: the x0
+    lookahead of every probe row (coordinates in Angstrom, type scores,
+    mask) and its reward.  ``close`` restores the oracles."""
+
+    def __init__(self, pair):
+        self.pair, self.jax, self.torch = pair, [], []
+        jax_host, torch_host = (pair.jax_oracle.score_batch_host,
+                                pair.oracle.rewards)
+
+        def jax_side(coords, h, mask, weights):
+            r = jax_host(coords, h, mask, weights)
+            self.jax.append(tuple(np.array(a) for a in (coords, h, mask, r)))
+            return r
+
+        def torch_side(coords, h, mask, weights):
+            r = torch_host(coords, h, mask, weights)
+            self.torch.append(tuple(a.detach().cpu().numpy()
+                                    for a in (coords, h, mask, r)))
+            return r
+
+        pair.jax_oracle.score_batch_host = jax_side
+        pair.oracle.rewards = torch_side
+
+    def close(self):
+        del self.pair.jax_oracle.score_batch_host, self.pair.oracle.rewards
+
+
+class FixedRewards:
+    """An oracle that answers with the given rewards."""
+
+    def __init__(self, rewards):
+        self.rewards = torch.from_numpy(np.asarray(rewards))
+
+    def spsa_rewards(self, coords, h, mask, cfg):
+        assert coords.shape[0] == self.rewards.shape[0]
+        return self.rewards
+
+
+def perception_margin(coords, types, mask):
+    """Per row: how far (Angstrom) the closest atom pair sits from a
+    threshold of the bond perception (chem/bonds.py: connectivity, the
+    0.4 A floor, aromatic, double and triple bond lengths), the least
+    distance change that could change the perceived molecule."""
+    info = dataset_params["crossdock_full"]
+    dec = info["atom_decoder"]
+    b1, b2, b3 = (np.asarray(info[k]) for k in ("bonds1", "bonds2",
+                                                  "bonds3"))
+    out = []
+    for c, t, m in zip(coords, types, mask > 0.5):
+        x, t = c[m].astype(np.float64), t[m]
+        d = np.linalg.norm(x[:, None] - x[None], axis=-1) * 100.0
+        rc = np.array([OB_COVALENT_RADII.get(dec[i], 77.0) for i in t])
+        p1, p2, p3 = (b[t[:, None], t[None]] for b in (b1, b2, b3))
+        inf = np.full_like(d, np.inf)
+        cuts = (rc[:, None] + rc[None] + 45.0, np.full_like(d, 40.0),
+                np.where(p2 > 0, (p1 + p2) / 2 + 6.0, inf),
+                np.where(p2 > 0, p2 + MARGIN2, inf),
+                np.where(p3 > 0, p3 + MARGIN3, inf))
+        iu = np.triu_indices(len(x), 1)
+        out.append(min(np.abs(d - cut)[iu].min() for cut in cuts) / 100.0)
+    return np.array(out)
+
+
+def type_margin(h, mask):
+    """Per row: the least gap between the two largest type scores of an
+    atom (the type is their argmax)."""
+    top = np.sort(h, axis=-1)
+    gap = np.where(mask > 0.5, top[..., -1] - top[..., -2], np.inf)
+    return gap.min(-1)
+
+
 def test_spsa_update_matches_jax_on_v3b(v3b):
+    """One SPSA update on v3b's weights, held apart layer by layer: the
+    probe forwards within the tolerance; the rewards equal on every probe
+    row, each of which must sit further from every bond-perception
+    threshold and type tie than the two sides' forwards differ (else the
+    state would not test what it claims); the update from JAX's rewards;
+    then the port's own update."""
     st = state([0, 5], seed=2)
     jc = jcfg.SPSAConfig(enabled=True, num_probes=2)
-    out, ref = run_spsa(v3b, st, jax.random.PRNGKey(5), jc, zeta=0.05)
+    key = jax.random.PRNGKey(5)
+    probes = ScoredProbes(v3b)
+    try:
+        out, ref = run_spsa(v3b, st, key, jc, zeta=0.05)
+    finally:
+        probes.close()
+    assert len(probes.jax) == len(probes.torch) == 1
+    (cj, hj, mj, rj), (ct, ht, mt, rt) = probes.jax[0], probes.torch[0]
+    np.testing.assert_array_equal(mt, mj)
+    np.testing.assert_allclose(ct, cj, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ht, hj, rtol=RTOL, atol=ATOL)
+    # a pair distance moves by at most 2 sqrt(3) times the largest
+    # coordinate difference, a score gap by twice the largest difference
+    dist_moved = 2 * np.sqrt(3) * float(np.abs(ct - cj)[mj > 0.5].max())
+    gap_moved = 2 * float(np.abs(ht - hj)[mj > 0.5].max())
+    margin = perception_margin(cj, hj.argmax(-1), mj)
+    gaps = type_margin(hj, mj)
+    assert (margin > dist_moved).all() and (gaps > gap_moved).all(), (
+        f"a probe sits within reach of a threshold: margins {margin} A "
+        f"(forwards differ by up to {dist_moved:.2e}), type gaps {gaps} "
+        f"({gap_moved:.2e})")
+    np.testing.assert_array_equal(ht.argmax(-1), hj.argmax(-1))
+    np.testing.assert_array_equal(rt, rj)
+    _, t_norm = times(len(st[0]))
+    with torch.no_grad():
+        fed = spsa.spsa_update(
+            v3b.core, v3b.eps, FixedRewards(rj), *tt(*st), tt(t_norm)[0],
+            0.05, copy_cfg(tcfg.SPSAConfig, jc),
+            noise=tt(spsa_draws(key, jc.num_probes, st[0][..., :3].shape))[0])
+    close(fed[0], ref[0])
+    close(fed[1], ref[1])
     close(out[0], ref[0])
     close(out[1], ref[1])
 
