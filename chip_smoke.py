@@ -92,9 +92,27 @@ Phases, each of which fails the run on any fault or mismatch:
    val batch and dashboard sampling, the loss beside the JAX run's, the
    best and last checkpoints read back; then one micro-step profiled (ms,
    device busy, idle share) and its peak memory beside the plain
-   chain's.
+   chain's;
+15. vina: the generate CLI in-process with the affinity reward
+   (--SPSA 1 --SVDD 1 --w_vina 0.1) on pocket 220 as PDB + SDF, 8 rows at
+   T=500 with 8 oracle workers configured: launch counts, every affinity
+   batch scored in this process, the first reward batch rescored on the
+   CPU bit for bit, the kernels on the calls of the first main-step and
+   fused SPSA forwards, seconds and the oracle's share;
+16. optimize-vina: the optimize CLI with --objective vina (population
+   100, 2 generations): launch counts, the kernels on the first diversify
+   forward, the best score against its molecule rescored;
+17. dock: the evaluate CLI with --receptor --dock on [vina]'s molecules
+   on the card; then dock_molecules of them against a seeded synthetic
+   receptor (~4,100 heavy atoms of standard residues, a 7 A cavity): the
+   card against the CPU on the same draws in a short search (the same
+   best restart, poses and affinities within 1e-3), and the default
+   search (64 restarts, 200 + 100 Adam steps) timed, profiled (device
+   busy, idle share, the kernels that take it) with its peak memory and
+   the receptor crop's size.
 
-``--only kernels`` stops after phase 2 and ``--only phases`` prints, from
+``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
+2 and 15-17, and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes in
 the forward kernels and in the vector backward, with the device time of
 each kernel a backward call launches (both for work on the kernels).
@@ -102,7 +120,7 @@ each kernel a backward call launches (both for work on the kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the four prints a result line.
+None of the five prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -185,6 +203,30 @@ OPT_POPULATION, OPT_STEPS, OPT_GENERATIONS, T_DIVERSIFY_CHECK = 100, 100, 2, 10
 # sweep phase: four test pockets (40, 36, 36 and 26 atoms; ligands of 28,
 # 21, 24 and 17), one batch of 4 x N_SAMPLES rows in mode (a)
 SWEEP_POCKETS = (220, 48, 300, 5)
+# vina phases: the affinity weight, the rows of the guided batch (every
+# reward row is scored by the Python pipeline in this process: 470 rows
+# per sample at T=500), the pose search's defaults (evaluate --dock)
+# and its card-vs-CPU check (a short search on the same draws; atol as in
+# tests/test_torch_dock.py)
+W_VINA, VINA_SAMPLES = 0.1, 8
+DOCK_RESTARTS, DOCK_STEPS = 64, 200
+DOCK_CHECK_RESTARTS, DOCK_CHECK_STEPS, DOCK_CHECK_ATOL = 8, 8, 1e-3
+# the synthetic receptor of [dock]: SYNTH_SITES^3 residues about 5.5 A
+# apart, a SYNTH_CAVITY A cavity; the heavy atoms of the standard residues
+SYNTH_SITES, SYNTH_CAVITY = 8, 7.0
+RESIDUE_ATOMS = {
+    "ALA": "N CA C O CB", "ARG": "N CA C O CB CG CD NE CZ NH1 NH2",
+    "ASN": "N CA C O CB CG OD1 ND2", "ASP": "N CA C O CB CG OD1 OD2",
+    "CYS": "N CA C O CB SG", "GLN": "N CA C O CB CG CD OE1 NE2",
+    "GLU": "N CA C O CB CG CD OE1 OE2", "GLY": "N CA C O",
+    "HIS": "N CA C O CB CG ND1 CD2 CE1 NE2",
+    "ILE": "N CA C O CB CG1 CG2 CD1", "LEU": "N CA C O CB CG CD1 CD2",
+    "LYS": "N CA C O CB CG CD CE NZ", "MET": "N CA C O CB CG SD CE",
+    "PHE": "N CA C O CB CG CD1 CD2 CE1 CE2 CZ", "PRO": "N CA C O CB CG CD",
+    "SER": "N CA C O CB OG", "THR": "N CA C O CB OG1 CG2",
+    "TRP": "N CA C O CB CG CD1 CD2 NE1 CE2 CE3 CZ2 CZ3 CH2",
+    "TYR": "N CA C O CB CG CD1 CD2 CE1 CE2 CZ OH",
+    "VAL": "N CA C O CB CG1 CG2"}
 
 # published H100 SXM peaks (dense TF32 on the tensor cores, HBM3).  The
 # kernels split each product into three TF32 products; the bound counts
@@ -1232,6 +1274,26 @@ def pdb_pocket_check(torch, model, pair, pdb, sdf):
                              "pocket_from_dataset")
 
 
+def capture_forward_calls(K, row_counts, n_layers):
+    """Wrapper replacements that record the first forward's calls for each
+    row count: {rows: [(name, args, kw)]}.  Returns (calls, replacements,
+    originals)."""
+    calls = {r: [] for r in row_counts}
+    originals = {n: getattr(K, n) for n in WRAPPERS}
+
+    def recorder(name):
+        def fn(*args, **kw):
+            a = args[0][0] if name.endswith("_pair") else args[0]
+            mine = calls.get(a.shape[0])
+            if mine is not None and \
+                    sum(c[0] == name for c in mine) < n_layers:
+                mine.append((name, args, kw))
+            return originals[name](*args, **kw)
+        return fn
+
+    return calls, {n: recorder(n) for n in WRAPPERS}, originals
+
+
 def cli_phase(torch, K, ds, tmp):
     """The generate CLI in this process: SPSA + ATP, the AdjustNet
     adjusting and trained over CLI_LOOPS loops, sanitized SDF out.
@@ -1239,8 +1301,7 @@ def cli_phase(torch, K, ds, tmp):
     against their plain versions on the calls of its first main-step
     forward and of its first fused SPSA forward."""
     from diffndm_tpu_torch.cli import generate
-    from diffndm_tpu_torch.config import (SPSAConfig, load_yaml,
-                                          model_config_from_yaml)
+    from diffndm_tpu_torch.config import SPSAConfig
     from diffndm_tpu_torch.constants import dataset_params
     from diffndm_tpu_torch.diffusion.sampler import count_forwards
     from diffndm_tpu_torch.model import DiffNDM
@@ -1248,23 +1309,12 @@ def cli_phase(torch, K, ds, tmp):
 
     loops, updates = [], []
     originals = (DiffNDM.generate_ligands, AdjustNetState.reinforce)
-    n_layers = model_config_from_yaml(load_yaml(os.path.join(
-        RUN, "hparams.yaml"))).egnn.n_layers
+    n_layers = v3b_layers()
     # forwards by their rows: the main step's B, the fused SPSA's 2kB (the
     # CLI runs SPSA at its defaults)
-    captured = {N_SAMPLES: ("main step", []),
-                2 * SPSAConfig().num_probes * N_SAMPLES: ("fused SPSA", [])}
-    wrappers = {n: getattr(K, n) for n in WRAPPERS}
-
-    def recorder(name):
-        def fn(*args, **kw):
-            a = args[0][0] if name.endswith("_pair") else args[0]
-            calls = captured.get(a.shape[0], (None, None))[1]
-            if calls is not None and \
-                    sum(c[0] == name for c in calls) < n_layers:
-                calls.append((name, args, kw))
-            return wrappers[name](*args, **kw)
-        return fn
+    rows = {N_SAMPLES: "main step",
+            2 * SPSAConfig().num_probes * N_SAMPLES: "fused SPSA"}
+    captured, recorders, wrappers = capture_forward_calls(K, rows, n_layers)
 
     def generate_ligands(self, *args, **kw):
         before = forward_launches(K)
@@ -1299,8 +1349,8 @@ def cli_phase(torch, K, ds, tmp):
     log(f"[cli] python -m diffndm_tpu_torch.cli.generate {' '.join(argv)}")
     DiffNDM.generate_ligands = generate_ligands
     AdjustNetState.reinforce = reinforce
-    for n in WRAPPERS:
-        setattr(K, n, recorder(n))
+    for n, f in recorders.items():
+        setattr(K, n, f)
     K.reset_launches()
     try:
         model = generate.main(argv)
@@ -1362,7 +1412,8 @@ def cli_phase(torch, K, ds, tmp):
                              "reload from its checkpoint")
 
     checks = {}
-    for label, calls in captured.values():
+    for r, label in rows.items():
+        calls = captured[r]
         for wrapper in ("gcl_messages", "edge_vector_reduce_pair"):
             mine = [c for c in calls if c[0] == wrapper]
             if len(mine) != n_layers:
@@ -1926,6 +1977,333 @@ def sweep_phase(torch, K, ds, tmp):
                 pocket, torch.Generator().manual_seed(SEED)))
         models.clear()
     return launches_a, checks
+
+
+# ---------------------------------------------------------------------------
+# structure-based scoring and docking
+# ---------------------------------------------------------------------------
+
+def write_synthetic_receptor(path, centre, seed=SEED):
+    """A seeded synthetic receptor as PDB: standard residues (their PDB
+    heavy-atom names, cycling through the 20 types), each a 1.5 A random
+    walk from a site of a jittered 5.5 A lattice of SYNTH_SITES^3 sites
+    centred on `centre`, without the residues that reach into a
+    SYNTH_CAVITY A sphere there.  A size check for the pose search, not a
+    protein.  Returns its heavy-atom count."""
+    rng = np.random.default_rng(seed)
+    names = sorted(RESIDUE_ATOMS)
+    axis = (np.arange(SYNTH_SITES) - (SYNTH_SITES - 1) / 2) * 5.5
+    sites = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"),
+                     -1).reshape(-1, 3) + np.asarray(centre)
+    lines, resi = [], 0
+    for k, site in enumerate(sites):
+        resname = names[k % len(names)]
+        pos = site + rng.normal(size=3) * 0.8
+        atoms = []
+        for name in RESIDUE_ATOMS[resname].split():
+            atoms.append((name, pos))
+            step = rng.normal(size=3)
+            pos = pos + 1.5 * step / np.linalg.norm(step)
+        if min(np.linalg.norm(p - centre) for _, p in atoms) < SYNTH_CAVITY:
+            continue
+        resi += 1
+        for name, p in atoms:
+            lines.append(f"ATOM  {len(lines) + 1:>5}  {name:<3} {resname} "
+                         f"A{resi:>4}    {p[0]:8.3f}{p[1]:8.3f}{p[2]:8.3f}"
+                         f"  1.00  0.00           {name[0]}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["END"]) + "\n")
+    return len(lines)
+
+
+def vina_phase(torch, K, ds, tmp):
+    """The generate CLI in this process with the affinity term
+    (--SPSA 1 --SVDD 1 --w_vina W_VINA) on pocket CLI_POCKET as PDB + SDF,
+    VINA_SAMPLES rows at T=500, with DIFFNDM_ORACLE_WORKERS=8: every
+    affinity batch must stay in this process.  Launch counts, the kernels
+    on the calls of the first main-step and fused SPSA forwards, seconds
+    per batch, the oracle's share, and one recorded reward batch rescored
+    by a fresh oracle on the CPU.  Returns (launches, checks, pdb, sdf,
+    written SDF)."""
+    from diffndm_tpu_torch.cli import generate
+    from diffndm_tpu_torch.config import SPSAConfig
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.diffusion.sampler import count_forwards
+    from diffndm_tpu_torch.guidance.oracle import RewardOracle
+
+    info = dataset_params["crossdock_full"]
+    pdb, sdf = write_pocket_files(ds[CLI_POCKET], info["atom_decoder"], tmp,
+                                  ("vina.pdb", "vina_ref.sdf"))
+    out_sdf = os.path.join(tmp, "vina.sdf")
+    n_layers = v3b_layers()
+    rows = {VINA_SAMPLES: "main step",
+            2 * SPSAConfig().num_probes * VINA_SAMPLES: "fused SPSA"}
+    calls, recorders, wrappers = capture_forward_calls(K, rows, n_layers)
+    recorded, score = [], RewardOracle.score_batch_types
+
+    def recording(self, coords, types, mask, weights):
+        out = score(self, coords, types, mask, weights)
+        if not recorded:
+            recorded.append((coords, types, mask, weights, out,
+                             self._processes))
+        return out
+
+    argv = [WEIGHTS, "--config", os.path.join(RUN, "hparams.yaml"),
+            "--pdbfile", pdb, "--ref_ligand", sdf, "--outfile", out_sdf,
+            "--n_samples", str(VINA_SAMPLES), "--SPSA", "1", "--SVDD", "1",
+            "--w_vina", str(W_VINA), "--seed", str(SEED)]
+    log(f"[vina] python -m diffndm_tpu_torch.cli.generate {' '.join(argv)}")
+    env = os.environ.get("DIFFNDM_ORACLE_WORKERS")
+    os.environ["DIFFNDM_ORACLE_WORKERS"] = "8"
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    RewardOracle.score_batch_types = recording
+    K.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = generate.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        RewardOracle.score_batch_types = score
+        for n, f in wrappers.items():
+            setattr(K, n, f)
+        if env is None:
+            del os.environ["DIFFNDM_ORACLE_WORKERS"]
+        else:
+            os.environ["DIFFNDM_ORACLE_WORKERS"] = env
+    launches = forward_launches(K)
+    oracle = model.oracle
+    forwards = count_forwards(model.sample_cfg, model.core.schedule.timesteps)
+    want = {k: forwards * n_layers for k in KERNELS}
+    coords, types, mask, weights, rewards, pool = recorded[0]
+    cpu = RewardOracle(info, scorer="python", num_workers=0)
+    cpu.set_receptor(pdb)
+    again = cpu.score_batch_types(coords, types, mask, weights)
+    plain = cpu.score_batch_types(coords, types, mask, weights[:6])
+    n_records = open(out_sdf).read().count("$$$$")
+    log(f"[vina] {VINA_SAMPLES} ligands at T={model.core.schedule.timesteps}"
+        f", SPSA + ATP, w_vina {W_VINA}: {seconds:.3f} s for the batch, "
+        f"{VINA_SAMPLES / seconds:.3f} ligands/s; oracle {oracle.n_calls} "
+        f"calls, {oracle.n_scored} rows scored row by row in this process "
+        f"(worker pool: "
+        f"{'none' if oracle._processes is None else 'made'}), "
+        f"{oracle.seconds:.3f} s = {oracle.seconds / seconds:.3f} of the "
+        f"wall time, invalid rate {oracle.invalid_rate:.3f}; first reward "
+        f"batch of {len(rewards)} rows rescored on the CPU: equal "
+        f"{bool(np.array_equal(again, rewards))}, "
+        f"{int((again != plain).sum())} rows moved by the affinity term; "
+        f"launches {launches} (expected {want}: {n_layers} x {forwards} "
+        f"forwards); {n_records} SDF records")
+    if launches != want:
+        raise AssertionError(f"[vina] launch counts {launches} != {want}")
+    if oracle.scorer is None or oracle._processes is not None or \
+            pool is not None or oracle.n_python_rows:
+        raise AssertionError("[vina] the affinity batches left this "
+                             "process or had no receptor")
+    if not (np.array_equal(again, rewards) and (again != plain).any()
+            and weights[6] == W_VINA and n_records > 0):
+        raise AssertionError("[vina] rewards differ from the CPU rescoring "
+                             "or carry no affinity term")
+    checks = {}
+    for r, label in rows.items():
+        for name, res in check_first_forward(
+                torch, K, f"vina {label}", calls[r], n_layers,
+                reps=100 if label == "main step" else 20).items():
+            checks.setdefault(name, {})[label] = res
+    return launches, checks, pdb, sdf, out_sdf
+
+
+def optimize_vina_phase(torch, K, tmp, pdb, sdf):
+    """The optimize CLI in this process with --objective vina against the
+    pocket PDB: launch counts, the kernels on the first diversify
+    forward's calls, the best score against a fresh rescoring of the best
+    molecule written, seconds per generation."""
+    from diffndm_tpu_torch.chem.io import read_sdf
+    from diffndm_tpu_torch.chem.scoring import VinaScorer
+    from diffndm_tpu_torch.cli import optimize
+
+    n_layers = v3b_layers()
+    calls, recorders, wrappers = first_forward_recorder(K, n_layers)
+    out_sdf = os.path.join(tmp, "optimized_vina.sdf")
+    argv = [WEIGHTS, "--config", os.path.join(RUN, "hparams.yaml"),
+            "--pdbfile", pdb, "--ref_ligand", sdf, "--outfile", out_sdf,
+            "--objective", "vina", "--population_size", str(OPT_POPULATION),
+            "--timesteps", str(OPT_STEPS), "--evolution_steps",
+            str(OPT_GENERATIONS), "--seed", str(SEED)]
+    log(f"[optimize-vina] python -m diffndm_tpu_torch.cli.optimize "
+        f"{' '.join(argv)}")
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    K.reset_launches()
+    try:
+        history = optimize.main(argv)
+    finally:
+        for n, f in wrappers.items():
+            setattr(K, n, f)
+    launches = forward_launches(K)
+    want = {k: OPT_GENERATIONS * (OPT_STEPS + 1) * n_layers for k in KERNELS}
+    best = read_sdf(out_sdf)
+    rescored = -VinaScorer.from_pdb(pdb).score(best[0]) if best else None
+    log(f"[optimize-vina] population {OPT_POPULATION}, {OPT_STEPS} noising "
+        f"steps: per generation best -affinity "
+        f"{[round(h['best'], 4) for h in history]} (the best written, "
+        f"rescored: {rescored}), mean {[h['mean'] for h in history]} (-inf "
+        f"where a molecule does not sanitize), seconds "
+        f"{[round(h['seconds'], 3) for h in history]}; {len(best)} "
+        f"molecules written; launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"optimize-vina launch counts {launches} != "
+                             f"{want}")
+    if not (len(history) == OPT_GENERATIONS and best
+            and abs(rescored - history[-1]["best"]) < 1e-2):
+        raise AssertionError("[optimize-vina] outputs are incomplete or "
+                             "the best score is not its molecule's")
+    checks = check_first_forward(torch, K, "optimize-vina", calls, n_layers,
+                                 reps=20)
+    return launches, checks
+
+
+def dock_draws(mols, n_restarts, k_rounds, box_size, seed):
+    """Per bucket, PoseDraws from a numpy generator (host arrays, the same
+    on every device)."""
+    from diffndm_tpu_torch.chem import dock
+
+    rng = np.random.default_rng(seed)
+    half = box_size / 2.0
+    out = {}
+    for key, items in sorted(dock.bucket_molecules(mols).items()):
+        lead = (len(items), n_restarts)
+        shapes = (lead + (3,), lead + (4,), lead + (key[1],))
+
+        def f32(a):
+            return a.astype(np.float32)
+
+        out[key] = dock.PoseDraws(
+            f32(rng.uniform(-half, half, shapes[0])),
+            f32(rng.standard_normal(shapes[1])),
+            f32(rng.uniform(-np.pi, np.pi, shapes[2])),
+            [tuple(f32(rng.standard_normal(s)) for s in shapes)
+             for _ in range(k_rounds)])
+    return out
+
+
+def dock_phase(torch, ds, tmp, pdb, vina_sdf):
+    """The evaluate CLI with --receptor --dock on [vina]'s SDF on the card;
+    then dock_molecules of those molecules against a synthetic receptor:
+    the card against the CPU on the same draws in a short search, and the
+    default search (DOCK_RESTARTS restarts, 200 steps, 1 MC round) timed,
+    profiled and its peak memory read."""
+    from diffndm_tpu_torch.chem import dock
+    from diffndm_tpu_torch.chem.io import read_sdf
+    from diffndm_tpu_torch.chem.scoring import VinaScorer
+    from diffndm_tpu_torch.cli import evaluate
+
+    t0 = time.perf_counter()
+    report = evaluate.main([vina_sdf, "--receptor", pdb, "--dock",
+                            "--dock_restarts", str(DOCK_RESTARTS)])
+    torch.cuda.synchronize()
+    line = report.splitlines()[0]
+    log(f"[dock] evaluate --receptor --dock on the card, "
+        f"{time.perf_counter() - t0:.3f} s: {line}")
+    if " dock~=" not in line or not np.isfinite(
+            float(line.split(" dock~=")[1])):
+        raise AssertionError("[dock] evaluate --dock gave no affinity")
+
+    centre = ds[CLI_POCKET].lig_coords.mean(0)
+    rec_pdb = os.path.join(tmp, "synthetic_receptor.pdb")
+    n_atoms = write_synthetic_receptor(rec_pdb, centre)
+    scorer = VinaScorer.from_pdb(rec_pdb)
+    mols = [m for m in read_sdf(vina_sdf) if m.n_atoms]
+    buckets = dock.bucket_molecules(mols)
+    crops, crop = [], dock.receptor_crop
+
+    def recording_crop(*args, **kw):
+        out = crop(*args, **kw)
+        crops.append(len(out[0]))
+        return out
+
+    # card vs CPU: the same draws, a short search
+    draws = dock_draws(mols, DOCK_CHECK_RESTARTS, 1, 20.0, SEED + 40)
+    short = {device: dock.dock_molecules(
+        mols, scorer, n_restarts=DOCK_CHECK_RESTARTS, steps=DOCK_CHECK_STEPS,
+        mc_rounds=1, device=device, draws=draws) for device in ("cuda",
+                                                                "cpu")}
+    coord_err = max(float(np.abs(a.coords - b.coords).max())
+                    for a, b in zip(short["cuda"], short["cpu"]))
+    aff_err = max(float(np.abs(a.all_affinities - b.all_affinities).max())
+                  for a, b in zip(short["cuda"], short["cpu"]))
+    same_best = all(
+        int(a.all_affinities.tolist().index(a.affinity))
+        == int(b.all_affinities.tolist().index(b.affinity))
+        for a, b in zip(short["cuda"], short["cpu"]))
+    log(f"[dock] synthetic receptor: {n_atoms} heavy atoms, a "
+        f"{SYNTH_CAVITY} A cavity at pocket {CLI_POCKET}'s ligand centre; "
+        f"{len(mols)} molecules of [vina] in {len(buckets)} buckets "
+        f"{sorted(buckets)}; card vs CPU, {DOCK_CHECK_RESTARTS} restarts, "
+        f"{DOCK_CHECK_STEPS} + {DOCK_CHECK_STEPS // 2} steps, the same "
+        f"draws: max |coords| difference {coord_err:.3e} A, max affinity "
+        f"difference {aff_err:.3e} (atol {DOCK_CHECK_ATOL}); the same best "
+        f"restart: {same_best}")
+    if not (same_best and coord_err <= DOCK_CHECK_ATOL
+            and aff_err <= DOCK_CHECK_ATOL):
+        raise AssertionError("[dock] the card's search disagrees with the "
+                             "CPU's")
+
+    def search():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = dock.dock_molecules(mols, scorer, n_restarts=DOCK_RESTARTS,
+                                  steps=DOCK_STEPS, mc_rounds=1, seed=SEED)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    search()                                          # warm
+    dock.receptor_crop = recording_crop
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        results, wall = search()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    finally:
+        dock.receptor_crop = crop
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = search()
+    busy_us, n_dev, by_name = 0.0, 0, {}
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            dur = ev.time_range.elapsed_us()
+            busy_us += dur
+            n_dev += 1
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + dur
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    steps = DOCK_STEPS + DOCK_STEPS // 2
+    restart_steps = len(mols) * DOCK_RESTARTS * steps
+    affs = [r.affinity for r in results]
+    busy = busy_us / 1e6
+    log(f"[dock] dock_molecules, {len(mols)} molecules x {DOCK_RESTARTS} "
+        f"restarts, {DOCK_STEPS} + {DOCK_STEPS // 2} steps (1 MC round): "
+        f"{wall:.3f} s per call ({restart_steps / wall:.0f} restart-steps/"
+        f"s), receptor crops {crops} atoms, peak device memory "
+        f"{peak:.1f} MiB above its inputs; profiler: {n_dev} device "
+        f"activities, device busy {busy:.3f} s of {prof_wall:.3f} s wall, "
+        f"idle share {1 - busy / prof_wall:.3f} (against the unprofiled "
+        f"wall: {1 - busy / wall:.3f}); best affinities "
+        f"{[round(a, 3) for a in affs]} (synthetic receptor: a size check, "
+        f"not a quality number)")
+    log(f"[dock] the device time by kernel, largest first: "
+        + "; ".join(f"{name[:60]} {us / 1e6:.3f} s "
+                    f"({us / max(busy_us, 1e-9):.3f})" for name, us in top))
+    if not (crops and min(crops) >= 1500 and np.isfinite(affs).all()
+            and n_dev > 0):
+        raise AssertionError("[dock] the crop is under 1500 atoms, an "
+                             "affinity is not finite or nothing ran on "
+                             "the device")
+    return dict(seconds=wall, restart_steps_per_s=restart_steps / wall,
+                busy_s=busy, idle=1 - busy / prof_wall, peak_mib=peak,
+                crops=crops, buckets=len(buckets))
 
 
 # ---------------------------------------------------------------------------
@@ -2529,11 +2907,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
-                                           "train"],
+                                           "train", "vina"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
-                        "quality evaluation alone over several seeds, or "
-                        "run the backward checks and the train phase alone")
+                        "quality evaluation alone over several seeds, "
+                        "run the backward checks and the train phase "
+                        "alone, or run the kernel checks and the vina, "
+                        "optimize-vina and dock phases alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -2629,6 +3009,13 @@ def main() -> int:
     if opts.only == "kernels":
         log("[kernels] done (--only kernels: no result)")
         return 0
+    if opts.only == "vina":
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, pdb, sdf, vina_sdf = vina_phase(torch, K, ds, tmp)
+            optimize_vina_phase(torch, K, tmp, pdb, sdf)
+            dock_phase(torch, ds, tmp, pdb, vina_sdf)
+        log("[dock] done (--only vina: no result)")
+        return 0
     if opts.only == "train":
         train_path_check(torch, batches)
         with tempfile.TemporaryDirectory() as tmp:
@@ -2668,6 +3055,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, _ = train_cli_phase(torch, K, train_ds, tmp)
     train_step_profile(torch, K, batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        vina_launches, vina_checks, pdb, sdf, vina_sdf = vina_phase(
+            torch, K, ds, tmp)
+        opt_vina_launches, opt_vina_checks = optimize_vina_phase(
+            torch, K, tmp, pdb, sdf)
+        dock_phase(torch, ds, tmp, pdb, vina_sdf)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -2688,6 +3081,12 @@ def main() -> int:
                   sweep={k: sweep_checks[name][k] for k in CALL_KEYS},
                   inpaint={k: inpaint_checks[name][k] for k in CALL_KEYS},
                   optimize={k: optimize_checks[name][k] for k in CALL_KEYS},
+                  vina_launches=vina_launches[name],
+                  vina={label: {k: res[k] for k in CALL_KEYS}
+                        for label, res in vina_checks[name].items()},
+                  optimize_vina_launches=opt_vina_launches[name],
+                  optimize_vina={k: opt_vina_checks[name][k]
+                                 for k in CALL_KEYS},
                   fanout={k: fanout[name][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "blocks", "rows_per_block")})

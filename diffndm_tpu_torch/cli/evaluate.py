@@ -6,9 +6,11 @@ Example:
     python -m diffndm_tpu_torch.cli.evaluate sweep_out/ \
         --expected_per_file 16 --out report.txt
 
-The report is the JAX package's, line for line.  ``--receptor`` and
-``--dock`` need the docking scorer, which this package does not have
-yet: they raise.
+The report is the JAX package's, line for line.  ``--receptor R``
+appends the mean Vina-style affinity of each file's molecules against R
+(`` Vina~=``, chem/scoring.py); with ``--dock``, the mean best affinity
+of a batched pose search per molecule (`` dock~=``, chem/dock.py) on
+``--device`` (default cuda; the other modes never touch a device).
 """
 
 from __future__ import annotations
@@ -27,18 +29,21 @@ def build_parser():
     p.add_argument("--expected_per_file", type=int, default=20)
     p.add_argument("--out", type=str, default=None)
     p.add_argument("--receptor", type=str, default=None,
-                   help="receptor PDB for an affinity estimate per file; "
-                        "needs the docking scorer, which this package "
-                        "does not have yet")
+                   help="receptor PDB: append a native Vina-style "
+                        "affinity estimate per file (chem/scoring.py)")
     p.add_argument("--dock", action="store_true",
-                   help="with --receptor: a pose search per molecule; "
-                        "not in this package yet")
+                   help="with --receptor: run the batched pose search "
+                        "(chem/dock.py) instead of rescoring the pose "
+                        "as it is; reports the mean best docked affinity "
+                        "per file")
     p.add_argument("--dock_restarts", type=int, default=64,
                    help="parallel restarts per molecule for --dock")
     p.add_argument("--per_step", action="store_true",
                    help="group files by the trailing step number in their "
                         "names (e.g. try_100.sdf) and report per-step "
                         "aggregates, sorted by step")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the --dock pose search")
     return p
 
 
@@ -84,20 +89,49 @@ def per_step_report(paths, props) -> str:
     return "\n".join(lines)
 
 
-def file_report(paths, props, expected_per_file: int) -> str:
+def affinity_suffix(path: str, scorer, dock: bool, restarts: int,
+                    device) -> str:
+    """`` Vina~=m`` (rescoring) or `` dock~=m`` (pose search) over the
+    file's molecules, or "" when there is none.  A molecule the search
+    rejects (ValueError) skips the file with a message; any other error
+    ends the run."""
+    from diffndm_tpu_torch.chem.io import read_sdf
+
+    if not dock:
+        vs = [scorer.score(m) for m in read_sdf(path)]
+        return f" Vina~={float(np.mean(vs)):.2f}" if vs else ""
+    from diffndm_tpu_torch.chem.dock import dock_molecules
+
+    try:
+        batch = dock_molecules(read_sdf(path), scorer, n_restarts=restarts,
+                               device=device)
+    except ValueError as e:
+        print(f"[evaluate] --dock failed on {path} "
+              f"({type(e).__name__}: {e})")
+        return ""
+    vs = [r.affinity for r in batch
+          if r is not None and np.isfinite(r.affinity)]
+    return f" dock~={float(np.mean(vs)):.2f}" if vs else ""
+
+
+def file_report(paths, props, expected_per_file: int, scorer=None,
+                dock: bool = False, restarts: int = 64,
+                device=None) -> str:
     all_rows, lines = [], []
     for path in paths:
         rows = check_sdf_file(path, props)
         valid = [r for r in rows if r[4]]
         ratio = len(valid) / max(expected_per_file, 1)
         name = os.path.basename(path)
+        affinity = ("" if scorer is None else
+                    affinity_suffix(path, scorer, dock, restarts, device))
         if valid:
             arr = np.array(valid, dtype=float)
             lines.append(
                 f"{name}: n={len(rows)} valid_ratio={ratio:.2f} "
                 f"QED={arr[:, 0].mean():.3f} SA={arr[:, 1].mean():.3f} "
                 f"LogP={arr[:, 2].mean():.3f} "
-                f"Lipinski={arr[:, 3].mean():.3f}")
+                f"Lipinski={arr[:, 3].mean():.3f}" + affinity)
         else:
             lines.append(f"{name}: n={len(rows)} valid_ratio=0.00")
         all_rows += valid
@@ -115,19 +149,28 @@ def file_report(paths, props, expected_per_file: int) -> str:
 def main(argv=None):
     """Print the report (and write it to ``--out``); returns its text."""
     args = build_parser().parse_args(argv)
-    if args.receptor or args.dock:
-        raise NotImplementedError(
-            "--receptor / --dock need the docking scorer and pose search "
-            "(chem/scoring, chem/dock), which this package does not have "
-            "yet: ROADMAP Queue A, docking search")
     from diffndm_tpu_torch.chem.metrics import MoleculeProperties
 
     props = MoleculeProperties()
     paths = ([args.sdf_dir] if args.sdf_dir.endswith(".sdf") else
              sorted(os.path.join(args.sdf_dir, f)
                     for f in os.listdir(args.sdf_dir) if f.endswith(".sdf")))
+    scorer = device = None
+    if args.receptor and not args.per_step:
+        from diffndm_tpu_torch.chem.scoring import VinaScorer
+
+        if args.dock:
+            from diffndm_tpu_torch.device import resolve_device
+
+            device = resolve_device(args.device)
+        scorer = VinaScorer.from_pdb(args.receptor)
+        print("[evaluate] native Vina-style rescoring (Trott-Olson "
+              "published weights, UNCALIBRATED vs smina — run "
+              "chem.scoring.calibrate_against_smina on a machine with "
+              "the binaries to fit per-term scales)")
     report = (per_step_report(paths, props) if args.per_step else
-              file_report(paths, props, args.expected_per_file))
+              file_report(paths, props, args.expected_per_file, scorer,
+                          args.dock, args.dock_restarts, device))
     print(report)
     if args.out:
         with open(args.out, "w") as f:

@@ -60,9 +60,9 @@ def build_parser():
                    help="guidance-reward weight on the largest-fragment "
                         "fraction")
     p.add_argument("--w_vina", type=float, default=0.0,
-                   help="affinity term of the guidance rewards; needs "
-                        "docking, which this package does not have: must "
-                        "stay 0")
+                   help="affinity term of the guidance rewards: reward += "
+                        "w_vina * (-Vina-style score) against --pdbfile "
+                        "(scored row by row in this process)")
     p.add_argument("--rl_loops", type=int, default=1,
                    help="repeat generation + REINFORCE this many times "
                         "(with --path_save)")
@@ -125,6 +125,8 @@ def load_model(args):
         adj = model.ensure_adjust()
         if args.path:
             adj.load(args.path)
+    if args.w_vina > 0 and getattr(args, "pdbfile", None):
+        model.ensure_oracle().set_receptor(args.pdbfile)
     return model
 
 

@@ -11,7 +11,9 @@ Example:
 A population of copies of the starting ligand evolves: each generation
 diversifies every member (noised ``--timesteps`` steps and denoised back),
 scores the sanitized largest fragments by QED or SA (0 where one does
-not sanitize), and tiles the ``--top_k`` best back up to the population
+not sanitize) or by ``vina``, the negated Vina-style affinity against the
+``--pdbfile`` receptor (chem/scoring.py; -inf where one does not
+sanitize), and tiles the ``--top_k`` best back up to the population
 size.  The last generation's top-k are written.
 """
 
@@ -34,8 +36,10 @@ def build_parser():
     p.add_argument("--outfile", type=str, required=True)
     p.add_argument("--objective", type=str, default="qed",
                    choices=("qed", "sa", "vina"),
-                   help="qed or sa; vina needs the docking scorer, which "
-                        "this package does not have, and raises")
+                   help="qed, sa, or vina: the negated Vina-style "
+                        "affinity against the --pdbfile receptor "
+                        "(lower is better, so evolution maximises its "
+                        "negation)")
     p.add_argument("--population_size", type=int, default=100)
     p.add_argument("--evolution_steps", type=int, default=10)
     p.add_argument("--top_k", type=int, default=7)
@@ -53,11 +57,6 @@ def main(argv=None):
     """Run the CLI; returns one dict per generation (best and mean score,
     seconds)."""
     args = build_parser().parse_args(argv)
-    if args.objective == "vina":
-        raise NotImplementedError(
-            "--objective vina needs the docking scorer (chem/scoring "
-            "VinaScorer), which this package does not have yet: ROADMAP "
-            "Queue A, docking search")
     from diffndm_tpu_torch.chem.io import read_sdf, write_sdf
     from diffndm_tpu_torch.chem.metrics import MoleculeProperties
     from diffndm_tpu_torch.cli.generate import load_model
@@ -74,8 +73,19 @@ def main(argv=None):
         w_vina=0.0, w_connectivity=0.0, optimize=0, path=None,
         path_save=None))
     props = MoleculeProperties()
-    score_fn = (props.calculate_qed if args.objective == "qed"
-                else props.calculate_sa)
+    if args.objective == "vina":
+        from diffndm_tpu_torch.chem.scoring import VinaScorer
+
+        receptor = VinaScorer.from_pdb(args.pdbfile)
+
+        def score_fn(mol):
+            return -receptor.score(mol)
+    else:
+        score_fn = (props.calculate_qed if args.objective == "qed"
+                    else props.calculate_sa)
+    # a molecule that does not sanitize: 0 floors qed / sa (in [0, 1]) but
+    # not vina, where a clashing valid pose scores below 0
+    invalid = 0.0 if args.objective in ("qed", "sa") else -np.inf
 
     mol0 = read_sdf(args.ref_ligand)[0]
     enc = {k: v for k, v in model.dataset_info["atom_encoder"].items()
@@ -93,7 +103,7 @@ def main(argv=None):
         res = model.diversify(ligand, pocket, noising_steps=args.timesteps,
                               seed=args.seed + gen)
         mols = model.result_to_molecules(res)
-        scores = np.array([score_fn(m) if m is not None else 0.0
+        scores = np.array([score_fn(m) if m is not None else invalid
                            for m in mols])
         top = np.argsort(scores)[::-1][:args.top_k]
         best_mols = [mols[i] for i in top if mols[i] is not None]

@@ -84,8 +84,8 @@ class SPSAConfig:
     w_qed: float = 2.0
     w_sa: float = 3.0
     w_lipinski: float = 0.2
-    # affinity term; needs docking, which this package does not have: must
-    # stay 0
+    # reward += w_vina * (-VinaScorer.score) when the oracle has a
+    # receptor (RewardOracle.set_receptor); 0 = reference
     w_vina: float = 0.0
     # reward += w_connectivity * largest-fragment fraction; 0 = reference
     w_connectivity: float = 0.0
@@ -179,10 +179,6 @@ class SampleConfig:
     pocket_pad_multiple: int = 64
 
     def __post_init__(self):
-        if self.spsa.w_vina or self.atp.w_vina:
-            raise NotImplementedError(
-                "w_vina needs the docking scorer, which this package does "
-                "not have")
         if self.inpaint.jump_length != 1:
             raise NotImplementedError("inpaint.jump_length must be 1")
         if self.inpaint.center not in ("ligand", "pocket"):

@@ -9,8 +9,11 @@ population.  Reward profiles:
         + Lipinski/5
 - RL (the batch mean): 6*QED + 2*SA + Lipinski/5
 
-Invalid molecules score 0 in every term.  The scorer is an explicit
-choice: ``"native"`` (one C++ call per batch, ``chem/native.py``) or
+Invalid molecules score 0 in every term.  With a receptor set
+(``set_receptor``), a nonzero ``w_vina`` adds ``w_vina * (-Vina-style
+score)`` (chem/scoring.py); such batches are scored row by row in the
+calling process, which alone holds the receptor.  The scorer is an
+explicit choice: ``"native"`` (one C++ call per batch, ``chem/native.py``) or
 ``"python"`` (this package's chem stack); both return the same float32
 rewards bit for bit, with any number of workers.
 
@@ -45,11 +48,13 @@ def _sigmoid(z: float) -> float:
     return 1.0 / (1.0 + math.exp(-z))
 
 
-def score_row(dataset_info: dict, weights: tuple, item) -> Tuple[float, bool]:
+def score_row(dataset_info: dict, weights: tuple, item,
+              scorer=None) -> Tuple[float, bool]:
     """The Python pipeline for one molecule: item (coords [n, 3], types
     [n]) -> (reward, valid).  weights: the six reward weights, then
-    w_connectivity.  Top level, so that a spawned worker can run it."""
-    w_qed, w_sa, w_lip, logp_k, logp_lo, logp_hi, w_conn = weights
+    w_vina and w_connectivity; the affinity term needs ``scorer`` (a
+    VinaScorer).  Top level, so that a spawned worker can run it."""
+    w_qed, w_sa, w_lip, logp_k, logp_lo, logp_hi, w_vina, w_conn = weights
     coords, types = item
     try:
         mol = build_molecule(coords, types, dataset_info)
@@ -62,6 +67,8 @@ def score_row(dataset_info: dict, weights: tuple, item) -> Tuple[float, bool]:
         lp = P.logp(mol)
         r += (_sigmoid(logp_k * (lp - logp_lo))
               * _sigmoid(-logp_k * (lp - logp_hi)))
+    if w_vina > 0 and scorer is not None:
+        r += w_vina * (-scorer.score(mol))
     if w_conn > 0:
         r += w_conn * connectivity_fraction(mol)
     return float(r), True
@@ -97,6 +104,7 @@ class RewardOracle:
         self._threads: Optional[ThreadPoolExecutor] = None
         self._processes: Optional[ProcessPoolExecutor] = None
         self.native = None
+        self.scorer = None      # the receptor of the w_vina term
         if scorer == "native":
             from diffndm_tpu_torch.chem.native import SOURCES, NativeScorer
 
@@ -118,6 +126,16 @@ class RewardOracle:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def set_receptor(self, pdb_path_or_scorer) -> None:
+        """Attach the receptor of the affinity term: a PDB path (read with
+        ``VinaScorer.from_pdb``) or a VinaScorer."""
+        from diffndm_tpu_torch.chem.scoring import VinaScorer
+
+        if isinstance(pdb_path_or_scorer, str):
+            self.scorer = VinaScorer.from_pdb(pdb_path_or_scorer)
+        else:
+            self.scorer = pdb_path_or_scorer
+
     def reset_counts(self) -> None:
         self.n_scored = 0       # molecules scored
         self.n_invalid = 0      # of those, failed sanitization (reward 0)
@@ -134,8 +152,9 @@ class RewardOracle:
                           mask: np.ndarray, weights: tuple) -> np.ndarray:
         """coords [B, N, 3] Angstrom, types [B, N] atom-type indices, mask
         [B, N]; weights (w_qed, w_sa, w_lipinski, logp_k, logp_lo,
-        logp_hi[, w_vina, w_connectivity]), the JAX package's layout, in
-        which w_vina must be 0 here -> rewards [B] float32."""
+        logp_hi[, w_vina, w_connectivity]), the JAX package's layout ->
+        rewards [B] float32.  A nonzero w_vina or w_connectivity bypasses
+        the native scorer; a nonzero w_vina also the process pool."""
         t0 = time.perf_counter()
         try:
             return self._score_batch(np.asarray(coords), np.asarray(types),
@@ -145,14 +164,12 @@ class RewardOracle:
             self.seconds += time.perf_counter() - t0
 
     def _score_batch(self, coords, types, mask, weights) -> np.ndarray:
-        if len(weights) > 6 and weights[6] != 0:
-            raise NotImplementedError("w_vina needs the docking scorer, "
-                                      "which this package does not have")
+        w_vina = weights[6] if len(weights) > 6 else 0.0
         w_conn = weights[7] if len(weights) > 7 else 0.0
         out = np.zeros(coords.shape[0], dtype=np.float32)
         rows = np.arange(coords.shape[0])
         # the native scorer computes the six-weight reward and nothing more
-        if self.native is not None and w_conn == 0:
+        if self.native is not None and w_vina == 0 and w_conn == 0:
             rewards, handled, terms = self._score_native(coords, types, mask,
                                                          weights[:6])
             self.n_scored += int(handled.sum())
@@ -164,8 +181,12 @@ class RewardOracle:
             self.n_python_rows += len(rows)
         items = [(coords[b][mask[b]], types[b][mask[b]]) for b in rows]
         score = partial(score_row, self.dataset_info,
-                        (*weights[:6], w_conn))
-        if self.num_workers > 1 and len(items) >= _MIN_POOL_ROWS:
+                        (*weights[:6], w_vina, w_conn),
+                        scorer=self.scorer if w_vina else None)
+        # the receptor lives in this process only: an affinity batch is
+        # scored here, row by row
+        if (self.num_workers > 1 and len(items) >= _MIN_POOL_ROWS
+                and w_vina == 0):
             if self._processes is None:
                 import multiprocessing
 

@@ -1,7 +1,8 @@
 """Eval-time chemistry dashboard: at every eval epoch, ligands sampled
 for validation pockets with the current (EMA) weights, scored for the
 atom-type KL against the training histogram, validity, connectivity,
-uniqueness, novelty, QED, SA, LogP, Lipinski and diversity; the valid
+uniqueness, novelty, QED, SA, LogP, Lipinski and diversity, and with a
+receptor the mean Vina-style affinity of the valid molecules; the valid
 molecules optionally written as SDF.  The JAX package's dashboard also
 renders molecules when ``n_visualize_samples`` > 0; the renderers are not
 ported (ROADMAP Queue A), and asking for them raises."""
@@ -11,6 +12,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from diffndm_tpu_torch.chem.bonds import build_molecules_batch
@@ -28,10 +30,6 @@ class ChemistryDashboard:
             raise NotImplementedError(
                 "the dashboard's molecule renders are not ported (ROADMAP "
                 "Queue A, training); set n_visualize_samples to 0")
-        if receptor_pdb:
-            raise NotImplementedError(
-                "eval docking needs the docking search (ROADMAP Queue A, "
-                "docking search)")
         self.dataset_info = dataset_info
         self.outdir = outdir
         self.props = MoleculeProperties()
@@ -39,6 +37,11 @@ class ChemistryDashboard:
         hist = dataset_info.get("atom_hist")
         self.type_dist = (CategoricalDistribution(
             hist, dataset_info["atom_encoder"]) if hist else None)
+        self.scorer = None
+        if receptor_pdb:
+            from diffndm_tpu_torch.chem.scoring import VinaScorer
+
+            self.scorer = VinaScorer.from_pdb(receptor_pdb)
 
     def analyze(self, ligand: NodeBatch, epoch: int = 0,
                 dump_sdf: bool = False) -> dict:
@@ -59,6 +62,9 @@ class ChemistryDashboard:
             connected if connected else valid)
         out.update(QED=qed, SA=sa, LogP=logp, Lipinski=lipinski,
                    Diversity=diversity)
+        if self.scorer is not None and valid:
+            out["VinaAffinity"] = float(np.mean(
+                [self.scorer.score(m) for m in valid]))
         if dump_sdf and valid:
             from diffndm_tpu_torch.chem.io import write_sdf
 

@@ -3,8 +3,9 @@
 AdjustNet adjusting every step and trained by REINFORCE over two loops)
 that writes one SDF record per sample and an AdjustNet checkpoint the JAX
 package reads; ``--path`` loading it back; the committed v3b weights
-through the ``.npz`` checkpoint argument; and the refusals: no GPU without
-``--device cpu``, an orbax directory, ``--w_vina``.
+through the ``.npz`` checkpoint argument; the refusals (no GPU without
+``--device cpu``, an orbax directory); and ``--w_vina`` attaching
+``--pdbfile`` as the oracle's receptor.
 """
 
 import os
@@ -237,9 +238,17 @@ def test_cli_refusals(inputs, monkeypatch, tmp_path):
     orbax_dir.mkdir()
     with pytest.raises(ValueError, match="orbax"):
         generate.main([str(orbax_dir)] + base + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="w_vina"):
-        generate.main([str(tmp_path / "missing.npz")] + base + [
-            "--device", "cpu", "--SPSA", "1", "--w_vina", "1.0"])
+    # --w_vina: the guidance configs carry it and the oracle scores
+    # against --pdbfile (generate --w_vina end to end:
+    # tests/test_torch_vina_cli.py)
+    model = generate.load_model(generate.build_parser().parse_args(
+        [str(tmp_path / "missing.npz")] + base + [
+            "--device", "cpu", "--SPSA", "1", "--w_vina", "1.0"]))
+    from diffndm_tpu_torch.chem.scoring import VinaScorer
+
+    assert model.sample_cfg.spsa.w_vina == model.sample_cfg.atp.w_vina == 1.0
+    np.testing.assert_array_equal(model.oracle.scorer.rec_x,
+                                  VinaScorer.from_pdb(inputs["pdb"]).rec_x)
     with pytest.raises(SystemExit):
         generate.main([str(tmp_path / "missing.npz"), "--pdbfile",
                        inputs["pdb"], "--outfile", str(tmp_path / "o.sdf"),

@@ -61,7 +61,8 @@ def test_sources_found():
                    "cli/sweep.py", "cli/debug.py", "cli/plot.py",
                    "train/losses.py", "train/trainer.py",
                    "train/metrics_logger.py", "train/eval_dashboard.py",
-                   "data/virtual.py", "cli/train.py"):
+                   "data/virtual.py", "cli/train.py", "chem/scoring.py",
+                   "chem/rmsd.py", "chem/dock.py", "chem/docking.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
@@ -117,8 +118,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 def test_new_clis_raise_without_a_gpu(monkeypatch, tmp_path):
     """The inpaint and optimize CLIs left at their ``cuda`` default raise
-    with no GPU; ``--objective vina`` raises on any device, since the
-    docking scorer is not ported."""
+    with no GPU, ``--objective vina`` too; on the CPU, ``--objective
+    vina`` reads its receptor from ``--pdbfile`` (missing here; the
+    objective end to end: tests/test_torch_vina_cli.py)."""
     from diffndm_tpu_torch.cli import inpaint, optimize
 
     missing = str(tmp_path / "missing.npz")
@@ -131,9 +133,10 @@ def test_new_clis_raise_without_a_gpu(monkeypatch, tmp_path):
         inpaint.main(inp)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         optimize.main(opt)
-    for device in ("cuda", "cpu"):
-        with pytest.raises(NotImplementedError, match="Queue A, docking search"):
-            optimize.main(opt + ["--objective", "vina", "--device", device])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        optimize.main(opt + ["--objective", "vina", "--device", "cuda"])
+    with pytest.raises(FileNotFoundError, match="p.pdb"):
+        optimize.main(opt + ["--objective", "vina", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("change", [

@@ -3,8 +3,9 @@ and the same files, with exact equality: fingerprints (Morgan and path
 bits, the Weisfeiler-Lehman key, diversity), ``BasicMolecularMetrics``,
 ``MoleculeProperties.evaluate*``, ``CategoricalDistribution``; the
 ``evaluate`` report (plain and ``--per_step``), ``debug sdf`` and
-``plot.parse_report`` texts; the ``evaluate`` parser.  Also the port's
-refusals: ``evaluate --receptor/--dock`` (no docking yet), an orbax
+``plot.parse_report`` texts; the ``evaluate`` parser (JAX's plus
+``--device``) and its docking flags (``--receptor`` rescoring ``==``
+JAX's text, ``--dock`` on the CPU).  Also the port's refusals: an orbax
 directory in ``debug ckpt``, plots without matplotlib.
 
 Molecules: 48 ligands of the processed virtual_v3 test set, clean and
@@ -229,16 +230,67 @@ def test_evaluate_parser_equals_jax():
             jevaluate.main(["x"])
     finally:
         argparse.ArgumentParser.parse_args = real
-    assert parser_actions(evaluate.build_parser()) == \
+    ours = parser_actions(evaluate.build_parser())
+    assert [a for a in ours if a[1] == "device"] == [
+        (("--device",), "device", "cuda", str, None, False, None, None)]
+    assert [a for a in ours if a[1] != "device"] == \
         parser_actions(captured["parser"])
+
+
+@pytest.fixture(scope="module")
+def receptor(tmp_path_factory):
+    """Test pocket 0 as PDB, one ALA residue per atom."""
+    from test_torch_scoring import pocket_pdb
+
+    pair = ProcessedLigandPocketDataset(
+        "data/processed/virtual_v3/test.npz")[0]
+    return pocket_pdb(pair, tmp_path_factory.mktemp("receptor") / "r.pdb")
 
 
 @pytest.mark.parametrize("flags", [["--receptor", "r.pdb"],
                                    ["--receptor", "r.pdb", "--dock"],
                                    ["--dock"]])
-def test_evaluate_docking_flags_raise(sdf_dir, flags):
-    with pytest.raises(NotImplementedError, match="docking"):
-        evaluate.main([str(sdf_dir)] + flags)
+def test_evaluate_docking_flags_raise(sdf_dir, receptor, flags, tmp_path,
+                                      capsys, monkeypatch):
+    """The docking flags work: ``--receptor`` appends the JAX CLI's
+    `` Vina~=`` to each file's line, equal to its text; with ``--dock``
+    (on the CPU, 2 restarts, try_20.sdf alone) a finite `` dock~=``
+    instead; ``--dock`` alone changes nothing and touches no device."""
+    flags = [receptor if f == "r.pdb" else f for f in flags]
+    target = str(sdf_dir / "try_20.sdf") if "--receptor" in flags and \
+        "--dock" in flags else str(sdf_dir)
+    jflags = [f for f in flags if f != "--dock"]
+    jevaluate.main([target, "--out", str(tmp_path / "jax.txt")] + jflags)
+    want = (tmp_path / "jax.txt").read_text()
+    capsys.readouterr()
+    if "--receptor" not in flags:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        assert evaluate.main([target] + flags) + "\n" == want
+        return
+    if "--dock" not in flags:
+        assert evaluate.main([target] + flags) + "\n" == want
+        assert "UNCALIBRATED" in capsys.readouterr().out
+        assert want.count(" Vina~=") >= 4
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # small tensors: one thread is faster
+    try:
+        got = evaluate.main([target] + flags + ["--device", "cpu",
+                                                "--dock_restarts", "2"])
+    finally:
+        torch.set_num_threads(threads)
+    lines, jlines = got.splitlines(), want.splitlines()
+    assert len(lines) == len(jlines)
+    n_docked = 0
+    for line, jline in zip(lines, jlines):
+        if " Vina~=" not in jline:
+            assert line == jline
+            continue
+        head, value = line.split(" dock~=")
+        assert head == jline.split(" Vina~=")[0]
+        assert np.isfinite(float(value))
+        n_docked += 1
+    assert n_docked == 1
 
 
 def test_plots_need_matplotlib(sdf_dir, tmp_path, monkeypatch):

@@ -1,8 +1,9 @@
 """The port's reward oracle: its Python scorer, its native scorer (built
 here by g++ from native/*.cpp into build/) and the JAX package's Python
 pipeline return the same float32 rewards, array_equal, for the SPSA and
-the SVDD weight profiles; the scorer is an explicit choice and "native"
-raises when it cannot be built; invalid molecules are counted."""
+the SVDD weight profiles, with the connectivity and affinity terms; the scorer
+is an explicit choice and "native" raises when it cannot be built;
+invalid molecules are counted."""
 
 import os
 from pathlib import Path
@@ -133,8 +134,22 @@ def test_connectivity_term_and_vina_refusal():
     base = RewardOracle(INFO, scorer="python").score_batch_types(
         coords, types, mask, SVDD)
     assert (ref[base > 0] > base[base > 0]).all()
-    with pytest.raises(NotImplementedError, match="w_vina"):
-        oracle.score_batch_types(coords, types, mask, SVDD + (1.0,))
+    # w_vina: the affinity term against a receptor, == JAX's (more in
+    # tests/test_torch_scoring.py)
+    from diffndm_tpu.chem.scoring import VinaScorer as JaxVina
+    from diffndm_tpu_torch.chem.scoring import VinaScorer
+
+    rec = np.random.default_rng(2).normal(size=(40, 3)) * 4.0
+    elements = ["C", "N", "O", "S"] * 10
+    jax_oracle = JaxOracle(jax_params["crossdock_full"])
+    jax_oracle.native = None
+    jax_oracle.set_receptor(JaxVina(rec, elements))
+    oracle.set_receptor(VinaScorer(rec, elements))
+    weights = SVDD + (1.0,)
+    got = oracle.score_batch_types(coords, types, mask, weights)
+    np.testing.assert_array_equal(
+        got, jax_oracle.score_batch_types(coords, types, mask, weights))
+    assert (got != base).sum() > 10
 
 
 @pytest.mark.parametrize("profile", ["spsa", "svdd"])

@@ -296,5 +296,11 @@ def test_guided_sampler_needs_an_oracle_and_complete_noise():
                          torch.zeros(shape))
     with pytest.raises(ValueError, match="SamplerNoise.spsa is missing"):
         guided.sample_given_pocket(pocket, SIZES, timesteps=3, noise=noise)
-    with pytest.raises(NotImplementedError, match="w_vina"):
-        SampleConfig(atp=ATPConfig(w_vina=1.0))
+    # the affinity weight reaches the oracle's reward weights
+    vina = SampleConfig(spsa=SPSAConfig(w_vina=0.5), atp=ATPConfig(
+        w_vina=1.0))
+    seen = []
+    guided.oracle.rewards = lambda c, h, m, w: seen.append(w)
+    guided.oracle.spsa_rewards(None, None, None, vina.spsa)
+    guided.oracle.svdd_rewards(None, None, None, vina.atp)
+    assert [w[6] for w in seen] == [0.5, 1.0]
