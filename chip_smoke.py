@@ -109,10 +109,33 @@ Phases, each of which fails the run on any fault or mismatch:
    best restart, poses and affinities within 1e-3), and the default
    search (64 restarts, 200 + 100 Adam steps) timed, profiled (device
    busy, idle share, the kernels that take it) with its peak memory and
-   the receptor crop's size.
+   the receptor crop's size;
+18. joint: configs/crossdock_fullatom_joint.yml at its published width
+   (hidden 128, 5 layers) on seeded random weights, every row's
+   coordinates moving: JointSampler.sample (16 rows, sizes from the
+   default joint size prior, T=500) and JointSampler.inpaint (the whole
+   pocket of [dock]'s synthetic receptor, cropped around test pocket
+   220's ligand, fixed and 16 ligands free, T=500 x 2 resamplings, jumps
+   of 10): seconds, ms per forward, launch counts, the kernels against
+   their plain versions on the calls of each run's first forward, the
+   joint centre of mass and the fixed pocket's geometry; and fixed-noise
+   runs of both (T=50) on the card against the CPU;
+19. joint-train: one joint loss value and its gradient at B=8 through the
+   backward kernels: launch counts, the loss against the plain forward,
+   each backward call against the plain backward per gradient tensor;
+20. configs: every configs/*.yml at its full width on seeded random
+   weights, one forward on its own kind of pocket (the synthetic
+   receptor's CA or full-atom crop): each kernel call against its plain
+   version and the output against the plain chain's; for each joint
+   config also the joint sampler's first forward (t = T, 16 rows at sizes
+   of the size prior, every row moving), each kernel call against its
+   plain version; then
+   generate_ligands of configs/crossdock_ca_cond.yml (16 rows, T=500)
+   with its launch counts.
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
-2 and 15-17, and ``--only phases`` prints, from
+2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, and ``--only
+phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes in
 the forward kernels and in the vector backward, with the device time of
 each kernel a backward call launches (both for work on the kernels).
@@ -120,7 +143,7 @@ each kernel a backward call launches (both for work on the kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the five prints a result line.
+None of the six prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -267,6 +290,25 @@ TRAIN_STEPS, TRAIN_EPOCH_BATCHES = 40, 40
 TRAIN_CHECK_B = 4             # the card-vs-CPU step: rows of the N=80 batch
 TRAIN_RTOL = 1e-5
 TRAIN_LOSS_MAX = 0.15         # the CLI run's mean loss (JAX: 0.099-0.100)
+# joint phases: configs/crossdock_fullatom_joint.yml at its published width
+# on seeded random weights: (a) sampling at sizes of the default joint size
+# prior, (b) RePaint with the whole pocket fixed (the synthetic receptor's
+# full-atom crop) and the ligand free; their fixed-noise checks against the
+# CPU at small sizes (the plain chain on the CPU is dense over N^2 pairs:
+# ~11 s per forward at N = 576 on a CPU); the joint loss's batch; the
+# tolerances: the joint centre of mass of the output, the fixed pocket's
+# internal distances (the JAX package's tests/test_joint.py), the loss
+# through the kernels against the plain forward (sums in another order)
+JOINT_CONFIG = os.path.join(REPO, "configs", "crossdock_fullatom_joint.yml")
+JOINT_B, JOINT_T, JOINT_R, JOINT_J = 16, 500, 2, 10
+T_JOINT_CHECK, JOINT_CHECK_SIZES = 50, ((14, 48), (20, 60))
+JOINT_TRAIN_B = 8
+JOINT_COM_ATOL, JOINT_GEOMETRY_ATOL, JOINT_LOSS_RTOL = 1e-3, 1.0, 1e-4
+# configs phase: rows of each config's forward, and its gate against the
+# plain chain (five or six layers of fp32 sums in another order, in
+# normalised units, as the path checks' 1e-3 A); the CA generation
+CONFIGS_B, CONFIG_EPS_ATOL = 4, 1e-3
+CA_CONFIG = os.path.join(REPO, "configs", "crossdock_ca_cond.yml")
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -2307,6 +2349,451 @@ def dock_phase(torch, ds, tmp, pdb, vina_sdf):
 
 
 # ---------------------------------------------------------------------------
+# joint mode and every committed configuration
+# ---------------------------------------------------------------------------
+
+def seeded_tree(torch, cfg):
+    """Seeded random weights of a config's denoiser (its own init under
+    torch.manual_seed(SEED)) as the JAX package's flat parameter tree,
+    which params_from_jax carries into a model on any device."""
+    from diffndm_tpu_torch.convert import params_to_jax
+    from diffndm_tpu_torch.models.dynamics import EGNNDynamics
+
+    torch.manual_seed(SEED)
+    return params_to_jax(EGNNDynamics(cfg.egnn, cfg.atom_nf,
+                                      cfg.residue_nf).state_dict())
+
+
+def seeded_model(torch, path, device, **kw):
+    """DiffNDM of a config on ``device`` with the config's seeded random
+    weights."""
+    from diffndm_tpu_torch.config import load_yaml, model_config_from_yaml
+    from diffndm_tpu_torch.convert import params_from_jax
+    from diffndm_tpu_torch.model import DiffNDM
+
+    cfg = model_config_from_yaml(load_yaml(path))
+    model = DiffNDM(cfg, device=device, scorer="python", **kw)
+    model.dynamics.load_state_dict(params_from_jax(seeded_tree(torch, cfg)),
+                                   strict=True)
+    return model
+
+
+def joint_receptor(ds, tmp):
+    """The synthetic receptor of [dock] around test pocket CLI_POCKET's
+    ligand as PDB, and that ligand as the reference SDF."""
+    from diffndm_tpu_torch.constants import dataset_params
+
+    pair = ds[CLI_POCKET]
+    _, sdf = write_pocket_files(pair, dataset_params["crossdock_full"][
+        "atom_decoder"], tmp, ("unused.pdb", "joint_ref.sdf"))
+    pdb = os.path.join(tmp, "joint_receptor.pdb")
+    n_atoms = write_synthetic_receptor(pdb, pair.lig_coords.mean(0))
+    return pdb, sdf, n_atoms
+
+
+def joint_ligand(torch, model, pair, b):
+    """The pair's ligand as a padded batch of b equal rows."""
+    from diffndm_tpu_torch.data.pocket import ligand_node_batch
+    from diffndm_tpu_torch.structs import repeat_batch
+
+    enc = model.dataset_info["atom_encoder"]
+    types = pair.lig_one_hot.argmax(1)
+    lig = ligand_node_batch(pair.lig_coords, types,
+                            {k: v for k, v in enc.items()
+                             if v < model.cfg.atom_nf},
+                            model.sample_cfg.lig_pad_multiple,
+                            device=model.device)
+    return repeat_batch(lig, b)
+
+
+def joint_draws(torch, lm, pm, model, count, seed):
+    """``count`` seeded joint draws (raw standard normals) for the masks'
+    shapes, on the CPU."""
+    rng = np.random.default_rng(seed)
+    b, nl = lm.shape
+    npk = pm.shape[1]
+    fl, fp = 3 + model.cfg.atom_nf, 3 + model.cfg.residue_nf
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    return [(normal(b, nl, fl), normal(b, npk, fp)) for _ in range(count)]
+
+
+def joint_com(lig, poc):
+    """Largest |joint centre of mass| over the batch, A."""
+    ml, mp = lig.mask[..., None], poc.mask[..., None]
+    total = (lig.x * ml).sum(1) + (poc.x * mp).sum(1)
+    return float((total / (ml.sum(1) + mp.sum(1))).abs().max())
+
+
+def fixed_geometry(pocket_in, pocket_out):
+    """Largest change of a fixed pocket's internal distances, A."""
+    m = pocket_in.mask[0] > 0.5
+    a, b = pocket_in.x[0][m], pocket_out.x[0][m]
+    return float(((a[:, None] - a[None]).norm(dim=-1)
+                  - (b[:, None] - b[None]).norm(dim=-1)).abs().max())
+
+
+def n_rows_of(calls):
+    return sorted({str(c[2].get("n_rows")) for c in calls
+                   if c[0] == "edge_vector_reduce_pair"})
+
+
+def joint_first_calls(torch, K, model, b):
+    """The kernel calls of the joint sampler's first forward (t = T, on the
+    joint noise) at b rows, sizes from the model's size prior."""
+    n_layers = model.cfg.egnn.n_layers
+    n_lig, n_poc = model.size_distribution.sample(
+        b, torch.Generator().manual_seed(SEED))
+    n_lig, n_poc = np.maximum(n_lig, 2), np.maximum(n_poc, 1)
+    calls, recorders, wrappers = first_forward_recorder(K, n_layers)
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    try:
+        # one step: its forward is at t = T / T, as a run of any length
+        # starts
+        model.joint_sampler.sample(n_lig, n_poc, timesteps=1, generator=(
+            torch.Generator(device=model.device).manual_seed(SEED)))
+    finally:
+        for n, f in wrappers.items():
+            setattr(K, n, f)
+    return calls
+
+
+def joint_path_check(torch, ds):
+    """Fixed-noise joint sampling (T_JOINT_CHECK steps) and joint RePaint
+    (T_JOINT_CHECK x JOINT_R, jumps of JOINT_J) on the card (kernels)
+    against the CPU (plain versions), B=2 at small sizes (the plain chain
+    is dense over N^2 pairs)."""
+    from diffndm_tpu_torch.diffusion.joint import count_joint_draws
+
+    pair = ds[CLI_POCKET]
+    n_lig, n_poc = np.array(JOINT_CHECK_SIZES).T
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = seeded_model(torch, JOINT_CONFIG, device)
+        lm, pm = model.joint_sampler._masks(n_lig, n_poc, 8, 32,
+                                            model.device)
+        lig, poc = model.joint_sampler.sample(
+            n_lig, n_poc, timesteps=T_JOINT_CHECK, noise=joint_draws(
+                torch, lm, pm, model, count_joint_draws(T_JOINT_CHECK),
+                SEED + 50))
+        ligand = joint_ligand(torch, model, pair, 2)
+        pocket = model.pocket_from_dataset(pair, 2)
+        count = count_joint_draws(T_JOINT_CHECK, JOINT_R, JOINT_J,
+                                  inpaint=True)
+        ilig, ipoc = model.joint_sampler.inpaint(
+            ligand, pocket, torch.zeros_like(ligand.mask), pocket.mask,
+            resamplings=JOINT_R, jump_length=JOINT_J,
+            timesteps=T_JOINT_CHECK, noise=joint_draws(
+                torch, ligand.mask, pocket.mask, model, count, SEED + 51))
+        out[device] = [[t.cpu() for t in nb] for nb in (lig, poc, ilig,
+                                                        ipoc)]
+    errs, same = [], True
+    for g, c in zip(out["cuda"], out["cpu"]):
+        errs.append(float((g[0] - c[0]).abs().max()))
+        m = c[2] > 0.5
+        same &= bool(torch.equal(g[1].argmax(-1)[m], c[1].argmax(-1)[m]))
+        same &= bool(torch.isfinite(g[0]).all())
+    log(f"[joint] fixed-noise path, B=2, sizes (ligand, pocket) "
+        f"{JOINT_CHECK_SIZES}: sample T={T_JOINT_CHECK} max |x_cuda - x_cpu|"
+        f" ligand {errs[0]:.3e} A, pocket {errs[1]:.3e} A; inpaint of test "
+        f"pocket {CLI_POCKET} (pocket fixed, ligand free) T={T_JOINT_CHECK} "
+        f"x R={JOINT_R}, jumps of {JOINT_J}: ligand {errs[2]:.3e} A, pocket "
+        f"{errs[3]:.3e} A (atol {PATH_COORD_ATOL}); types identical and "
+        f"finite: {same}")
+    if not (max(errs) <= PATH_COORD_ATOL and same):
+        raise AssertionError("[joint] the kernel path disagrees with the "
+                             "plain path")
+
+
+def joint_phase(torch, K, ds, tmp):
+    """[joint]: configs/crossdock_fullatom_joint.yml at its published width
+    on seeded random weights.  (a) JointSampler.sample, B=JOINT_B, sizes
+    from the default joint size prior, T=JOINT_T; (b) JointSampler.inpaint
+    with the whole pocket fixed (the synthetic receptor's full-atom crop
+    around pocket CLI_POCKET's ligand) and the ligand free, T=JOINT_T x
+    R=JOINT_R, jumps of JOINT_J.  Launch counts, seconds, the kernels on
+    the calls of each run's first forward against their plain versions,
+    the joint centre of mass and the fixed pocket's geometry; then the
+    fixed-noise path check.  Returns (launches, checks) per run and the
+    receptor files."""
+    from diffndm_tpu_torch.diffusion.joint import count_joint_forwards
+
+    model = seeded_model(torch, JOINT_CONFIG, "cuda")
+    n_layers = model.cfg.egnn.n_layers
+    pdb, sdf, n_rec = joint_receptor(ds, tmp)
+    n_lig, n_poc = model.size_distribution.sample(
+        JOINT_B, torch.Generator().manual_seed(SEED))
+    n_lig, n_poc = np.maximum(n_lig, 2), np.maximum(n_poc, 1)
+    pocket = model.pocket_from_pdb(pdb, sdf, JOINT_B)
+    ligand = joint_ligand(torch, model, ds[CLI_POCKET], JOINT_B)
+    runs = {
+        "sample": (lambda g: model.joint_sampler.sample(
+            n_lig, n_poc, timesteps=JOINT_T, generator=g),
+                   count_joint_forwards(JOINT_T), JOINT_T),
+        "inpaint": (lambda g: model.joint_sampler.inpaint(
+            ligand, pocket, torch.zeros_like(ligand.mask), pocket.mask,
+            resamplings=JOINT_R, jump_length=JOINT_J, timesteps=JOINT_T,
+            generator=g),
+                    count_joint_forwards(JOINT_T, JOINT_R, JOINT_J),
+                    count_joint_forwards(JOINT_T, JOINT_R, JOINT_J) - 1)}
+    results = {}
+    for label, (run, forwards, steps) in runs.items():
+        calls, recorders, wrappers = first_forward_recorder(K, n_layers)
+        for n, f in recorders.items():
+            setattr(K, n, f)
+        K.reset_launches()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lig, poc = run(torch.Generator(device="cuda").manual_seed(SEED))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            for n, f in wrappers.items():
+                setattr(K, n, f)
+        launches = forward_launches(K)
+        want = {k: n_layers * forwards for k in KERNELS}
+        com = joint_com(lig, poc)
+        finite = all(bool(torch.isfinite(t).all()) for t in (*lig, *poc))
+        onehot = bool(torch.equal(poc.h.sum(-1), poc.mask))
+        shape = list(calls[0][1][0].shape)
+        geometry = fixed_geometry(pocket, poc) if label == "inpaint" \
+            else None
+        log(f"[joint] ({label}) B={JOINT_B}, ligand sizes "
+            f"{n_lig.tolist() if label == 'sample' else int(ligand.mask[0].sum())}"
+            f", pocket sizes "
+            f"{n_poc.tolist() if label == 'sample' else int(pocket.mask[0].sum())}"
+            f" ({n_rec} receptor atoms), [B, N, H] = {shape}: {seconds:.3f} s "
+            f"per batch, {1e3 * seconds / forwards:.3f} ms per denoiser "
+            f"forward ({steps} steps + the decode); launches {launches} "
+            f"(expected {want}: {n_layers} x {forwards} forwards); pair "
+            f"n_rows {n_rows_of(calls)}; joint centre of mass {com:.2e} A "
+            f"(atol {JOINT_COM_ATOL}); fixed pocket's largest distance "
+            f"change {geometry} A (atol {JOINT_GEOMETRY_ATOL}); finite "
+            f"{finite}, pocket types one-hot {onehot}")
+        if launches != want:
+            raise AssertionError(f"[joint] ({label}) launch counts "
+                                 f"{launches} != {want}")
+        if n_rows_of(calls) != ["None"]:
+            raise AssertionError(f"[joint] ({label}) the pair kernel did not "
+                                 f"take every row: {n_rows_of(calls)}")
+        if not (finite and onehot and com <= JOINT_COM_ATOL):
+            raise AssertionError(f"[joint] ({label}) outputs not finite, "
+                                 f"types not one-hot or the centre of mass "
+                                 f"off zero")
+        if geometry is not None and not geometry <= JOINT_GEOMETRY_ATOL:
+            raise AssertionError("[joint] (inpaint) the fixed pocket did not "
+                                 "keep its geometry")
+        checks = check_first_forward(torch, K, f"joint {label}", calls,
+                                     n_layers, reps=10)
+        del calls
+        results[label] = dict(launches=launches, checks=checks,
+                              seconds=seconds, forwards=forwards)
+    joint_path_check(torch, ds)
+    return results, (pdb, sdf)
+
+
+def joint_train_phase(torch, K, ds, pdb, sdf):
+    """[joint-train]: one joint_loss_terms value at B=JOINT_TRAIN_B (the
+    synthetic receptor's crop and pocket CLI_POCKET's ligand, seeded t
+    and noise) and its gradient through the CUDA backward kernels: launch
+    counts; the loss against the plain forward on the card; each backward
+    call against the plain backward per gradient tensor (the first of each
+    wrapper also against autograd through the plain forward, and timed)."""
+    from diffndm_tpu_torch.train.losses import joint_loss_terms
+
+    model = seeded_model(torch, JOINT_CONFIG, "cuda")
+    n_layers = model.cfg.egnn.n_layers
+    core = model.joint_sampler.core
+    lig = joint_ligand(torch, model, ds[CLI_POCKET], JOINT_TRAIN_B)
+    poc = model.pocket_from_pdb(pdb, sdf, JOINT_TRAIN_B)
+    # t >= 1: the error terms, not the t = 0 reconstruction, carry the
+    # denoiser's gradient
+    rng = np.random.default_rng(SEED + 60)
+    t_int = torch.from_numpy(rng.integers(1, JOINT_T + 1, JOINT_TRAIN_B)
+                             .astype(np.float32)).to(model.device)
+    noise = joint_draws(torch, lig.mask, poc.mask, model, 1, SEED + 61)[0]
+    keys = ("error_t_lig", "error_t_pocket", "loss_0_x", "loss_0_x_pocket",
+            "kl_prior")
+
+    def loss_value():
+        terms = joint_loss_terms(core, model.dynamics, lig, poc, True,
+                                 t_int, noise)
+        return sum(terms[k].mean() for k in keys)
+
+    calls, recorders, originals = first_forward_recorder(K, n_layers)
+    params = list(model.dynamics.parameters())
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    K.reset_launches()
+    try:
+        with torch.enable_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = loss_value()
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        for n, f in originals.items():
+            setattr(K, n, f)
+    launches = dict(K.LAUNCHES)
+    want = {"gcl_messages": n_layers, "edge_vector_reduce": n_layers,
+            "gcl_messages_bwd": 2 * n_layers,
+            "edge_vector_reduce_bwd": 2 * n_layers}
+    for n in WRAPPERS:
+        setattr(K, n, getattr(K, n + "_plain"))
+    try:
+        plain = float(loss_value())
+    finally:
+        for n, f in originals.items():
+            setattr(K, n, f)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    rel = abs(float(loss) - plain) / abs(plain)
+    shape = list(calls[0][1][0].shape)
+    log(f"[joint-train] joint loss at [B, N, H] = {shape} (pair n_rows "
+        f"{n_rows_of(calls)}): {float(loss):.6f}, plain forward on the card "
+        f"{plain:.6f} (relative difference {rel:.2e}, rtol {JOINT_LOSS_RTOL})"
+        f"; value and gradient {seconds:.3f} s; gradients finite {finite}; "
+        f"launches {launches} (expected {want})")
+    if launches != want or not finite or not rel <= JOINT_LOSS_RTOL:
+        raise AssertionError("[joint-train] launch counts, gradients or the "
+                             "loss value are off")
+    results = {}
+    for wrapper, kernel in (("gcl_messages", "gcl_messages_bwd"),
+                            ("edge_vector_reduce_pair",
+                             "edge_vector_reduce_bwd")):
+        mine = [c for c in calls if c[0] == wrapper]
+        worst, first = 0.0, None
+        for i, (_, args, kw) in enumerate(mine):
+            args = [tuple(t.detach() for t in a)
+                    if isinstance(a, (tuple, list))
+                    else (a.detach() if a is not None else None)
+                    for a in args]
+            g = torch.Generator(device=model.device).manual_seed(SEED + i)
+            pair = wrapper.endswith("_pair")
+            a0 = args[0][0] if pair else args[0]
+            gout = torch.randn((*a0.shape[:2], 3 if pair else a0.shape[2]),
+                               generator=g, device=model.device) * 1e-2
+            res = check_backward(torch, K, wrapper, args, kw, gout, i == 0,
+                                 5 if i == 0 else 0)
+            worst = max(worst, res["tolerance_share"])
+            first = first or res
+        first["tolerance_share"] = worst
+        results[kernel] = first
+        log(f"[joint-train] {wrapper} backward {first['shape']} ({len(mine)}"
+            f" calls checked, gate {BWD_RTOL} x max|plain| + {BWD_ATOL}): "
+            f"{describe_bwd(first)}")
+    del calls
+    return launches, results
+
+
+def configs_phase(torch, K, ds, pdb, sdf):
+    """[configs]: every configs/*.yml at its full width on seeded random
+    weights, one forward (the conditional sampler's first state, B =
+    CONFIGS_B, sizes from the config's size prior) on its own kind of
+    pocket (the synthetic receptor's CA crop for the CA configs, its
+    full-atom crop otherwise): each kernel call against its plain version,
+    and the forward's output against the plain chain's on the card.  Then
+    generate_ligands of CA_CONFIG (B=N_SAMPLES, T=500) with its launch
+    counts.  A joint config also has the kernel calls of its joint
+    sampler's first forward (t = T, B = JOINT_B, sizes from its size prior)
+    held against their plain versions ("joint_first" in its checks).
+    Returns ({config: checks}, the generation's launches)."""
+    import glob
+
+    from diffndm_tpu_torch.config import SampleConfig
+
+    results = {}
+    for path in sorted(glob.glob(os.path.join(REPO, "configs", "*.yml"))):
+        name = os.path.basename(path)[:-4]
+        model = seeded_model(torch, path, "cuda")
+        cfg = model.cfg
+        pocket = model.pocket_from_pdb(pdb, sdf, CONFIGS_B)
+        sizes = model.sample_ligand_sizes(
+            pocket, torch.Generator().manual_seed(SEED))
+        calls = capture_kernel_calls(torch, K, model, pocket, sizes)
+        checks = {WRAPPERS[w]: check_calls(
+            torch, K, w, [c for c in calls if c[0] == w], reps=5)
+            for w in ("gcl_messages", "edge_vector_reduce_pair")}
+        state = first_state(torch, model, pocket, sizes)
+        out = model.dynamics(*state)
+        originals = {n: getattr(K, n) for n in WRAPPERS}
+        for n in WRAPPERS:
+            setattr(K, n, getattr(K, n + "_plain"))
+        try:
+            ref = model.dynamics(*state)
+        finally:
+            for n, f in originals.items():
+                setattr(K, n, f)
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        rows = n_rows_of(calls)
+        want_rows = ["None"] if cfg.mode == "joint" else [
+            str(state[0].shape[1])]
+        shape = checks["gcl_messages"]["shape"]
+        log(f"[configs] {name}: {cfg.mode}, {cfg.pocket_representation} "
+            f"({cfg.dataset}, residue_nf {cfg.residue_nf}), H "
+            f"{cfg.egnn.hidden_nf}, {cfg.egnn.n_layers} layers, [B, N, H] = "
+            f"{shape}, pair n_rows {rows}; kernels against plain per call: "
+            f"gcl_messages {checks['gcl_messages']['max_abs_err']:.3e}, pair "
+            f"{checks['edge_vector_reduce']['max_abs_err']:.3e} (atol "
+            f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}); forward against the plain "
+            f"chain {err:.3e} (atol {CONFIG_EPS_ATOL}); kernel "
+            f"{checks['gcl_messages']['ms']:.4f} / "
+            f"{checks['edge_vector_reduce']['ms']:.4f} ms per launch")
+        if len(calls) != 2 * cfg.egnn.n_layers or rows != want_rows:
+            raise AssertionError(f"[configs] {name}: {len(calls)} wrapper "
+                                 f"calls, pair n_rows {rows}")
+        if not (err <= CONFIG_EPS_ATOL and all(
+                bool(torch.isfinite(o).all()) for o in out)):
+            raise AssertionError(f"[configs] {name}: the forward disagrees "
+                                 f"with the plain chain")
+        if cfg.mode == "joint":
+            # the joint sampler's own first state: every row moves, dense
+            # joint noise at the prior's sizes
+            calls = joint_first_calls(torch, K, model, JOINT_B)
+            joint_checks = check_first_forward(
+                torch, K, f"configs {name} joint t=T", calls,
+                cfg.egnn.n_layers, reps=5)
+            if n_rows_of(calls) != ["None"]:
+                raise AssertionError(f"[configs] {name}: the joint forward's "
+                                     f"pair n_rows {n_rows_of(calls)}")
+            for w, res in joint_checks.items():
+                checks[w]["joint_first"] = {k: res[k] for k in CALL_KEYS}
+        results[name] = checks
+        del calls, model
+    model = seeded_model(torch, CA_CONFIG, "cuda",
+                         sample_cfg=SampleConfig(n_samples=N_SAMPLES,
+                                                 timesteps=T_MAIN))
+    n_layers = model.cfg.egnn.n_layers
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mols, res = model.generate_ligands(pdb, sdf, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = forward_launches(K)
+    forwards = T_MAIN + 1
+    want = {k: n_layers * forwards for k in KERNELS}
+    n_poc = int(res.pocket.mask[0].sum())
+    log(f"[configs] generate_ligands {os.path.basename(CA_CONFIG)} on the "
+        f"synthetic receptor's CA crop ({n_poc} residues, residue_nf "
+        f"{res.pocket.h.shape[-1]}), B={N_SAMPLES}, T={T_MAIN}: "
+        f"{seconds:.3f} s per batch, {1e3 * seconds / forwards:.3f} ms per "
+        f"forward; {sum(m is not None for m in mols)} molecules; launches "
+        f"{launches} (expected {want}: {n_layers} x {forwards} forwards)")
+    if launches != want or len(mols) != N_SAMPLES or not bool(
+            torch.isfinite(res.ligand.x).all()) or res.pocket.h.shape[-1] \
+            != 20:
+        raise AssertionError("[configs] CA generation: launch counts or "
+                             "outputs are off")
+    return results, launches
+
+
+# ---------------------------------------------------------------------------
 # backward kernels
 # ---------------------------------------------------------------------------
 
@@ -2907,13 +3394,15 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
-                                           "train", "vina"],
+                                           "train", "vina", "joint"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
                         "run the backward checks and the train phase "
-                        "alone, or run the kernel checks and the vina, "
-                        "optimize-vina and dock phases alone")
+                        "alone, run the kernel checks and the vina, "
+                        "optimize-vina and dock phases alone, or run the "
+                        "kernel checks and the joint, joint-train and "
+                        "configs phases alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3016,6 +3505,13 @@ def main() -> int:
             dock_phase(torch, ds, tmp, pdb, vina_sdf)
         log("[dock] done (--only vina: no result)")
         return 0
+    if opts.only == "joint":
+        with tempfile.TemporaryDirectory() as tmp:
+            _, (pdb, sdf) = joint_phase(torch, K, ds, tmp)
+            joint_train_phase(torch, K, ds, pdb, sdf)
+            configs_phase(torch, K, ds, pdb, sdf)
+        log("[configs] done (--only joint: no result)")
+        return 0
     if opts.only == "train":
         train_path_check(torch, batches)
         with tempfile.TemporaryDirectory() as tmp:
@@ -3061,6 +3557,11 @@ def main() -> int:
         opt_vina_launches, opt_vina_checks = optimize_vina_phase(
             torch, K, tmp, pdb, sdf)
         dock_phase(torch, ds, tmp, pdb, vina_sdf)
+    with tempfile.TemporaryDirectory() as tmp:
+        joint, (pdb, sdf) = joint_phase(torch, K, ds, tmp)
+        joint_train_launches, joint_train = joint_train_phase(
+            torch, K, ds, pdb, sdf)
+        config_checks, ca_launches = configs_phase(torch, K, ds, pdb, sdf)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -3089,7 +3590,16 @@ def main() -> int:
                                  for k in CALL_KEYS},
                   fanout={k: fanout[name][k] for k in (
                       "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                      "bound_by", "blocks", "rows_per_block")})
+                      "bound_by", "blocks", "rows_per_block")},
+                  joint_sample_launches=joint["sample"]["launches"][name],
+                  joint_inpaint_launches=joint["inpaint"]["launches"][name],
+                  joint={label: {k: run["checks"][name][k]
+                                 for k in CALL_KEYS}
+                         for label, run in joint.items()},
+                  ca_generate_launches=ca_launches[name],
+                  configs={cfg: {k: checks[name][k] for k in (
+                      *CALL_KEYS, "joint_first") if k in checks[name]}
+                           for cfg, checks in config_checks.items()})
              for name, src in KERNELS.items()]
     for name, forward in BWD_KERNELS.items():
         at = bwd_results[name]
@@ -3108,7 +3618,11 @@ def main() -> int:
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
                 "bound_ms", "bound_by", "blocks")
                 if c in r} for k, r in at.items()},
-            ptxas=bwd_ptxas[name]))
+            ptxas=bwd_ptxas[name],
+            joint_train_launches=joint_train_launches[name],
+            joint_train={c: joint_train[name][c] for c in (
+                "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
+                "bound_ms", "bound_by", "blocks")}))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

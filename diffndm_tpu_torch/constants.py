@@ -1,11 +1,14 @@
-"""Chemistry tables and the ``crossdock_full`` dataset encoding.
+"""Chemistry tables and the dataset encodings.
 
 A self-contained copy of the subset of the JAX package's ``constants.py``
-that bond perception, molecule building and the full-atom pocket encoding
-read: bond-length tables (pm), OpenBabel covalent radii and bond caps,
-allowed valences, masses, the 11-type atom decoder, the standard amino
-acids that pocket extraction from a PDB file keeps, and the Lennard-Jones
-r_m table of the training loss's auxiliary term.
+that bond perception, molecule building and the pocket encodings read:
+bond-length tables (pm), OpenBabel covalent radii and bond caps, allowed
+valences, masses, the backbone geometry of the CA frames, the atom and
+amino-acid decoders, the standard amino acids that pocket extraction from
+a PDB file keeps, and the Lennard-Jones r_m table of the training loss's
+auxiliary term.  ``dataset_params`` holds the three encodings of the
+committed configurations: ``crossdock_full`` (full-atom CrossDocked),
+``crossdock`` (CrossDocked with CA pockets) and ``bindingmoad``.
 """
 
 from __future__ import annotations
@@ -90,6 +93,10 @@ ATOMIC_NUMBER = {
     "Bi": 83,
 }
 
+# backbone geometry (Bhagavan & Ha 2015) of the CA frames (utils/geometry)
+N_CA_DIST = 1.47
+CA_C_DIST = 1.53
+N_CA_C_ANGLE = 110.0 * np.pi / 180.0
 
 AA_3TO1 = {
     "ALA": "A", "ARG": "R", "ASN": "N", "ASP": "D", "CYS": "C", "GLN": "Q",
@@ -112,8 +119,9 @@ def _sym_table(pairs: dict, decoder: list) -> np.ndarray:
     return np.maximum(out, out.T)
 
 
-_LIG_DECODER_11 = ["C", "N", "O", "S", "B", "Br", "Cl", "P", "I", "F",
-                   "others"]
+_LIG_DECODER_10 = ["C", "N", "O", "S", "B", "Br", "Cl", "P", "I", "F"]
+_LIG_DECODER_11 = _LIG_DECODER_10 + ["others"]
+_AA_DECODER_20 = list("ACDEFGHIKLMNPQRSTVWY")
 
 
 # pm, multi-bond covalent radii (the Lennard-Jones table's fallback)
@@ -166,11 +174,21 @@ def _make_params(atom_decoder, aa_decoder, atom_hist):
     }
 
 
-# full-atom CrossDocked encoding: ligand and pocket share the 11-type
-# decoder, whose last ("others") column is dropped at model level
+# the encodings of the committed configurations: full-atom CrossDocked
+# (ligand and pocket share the 11-type decoder, whose last "others" column
+# is dropped at model level), CrossDocked with CA pockets (20 amino acids)
+# and Binding MOAD (10 ligand types; CA or full-atom pockets)
 dataset_params = {
+    "bindingmoad": _make_params(
+        _LIG_DECODER_10, _AA_DECODER_20,
+        {"C": 545542, "N": 90205, "O": 132965, "S": 9342, "B": 109,
+         "Br": 1424, "Cl": 5516, "P": 5154, "I": 445, "F": 9742}),
     "crossdock_full": _make_params(
         _LIG_DECODER_11, _LIG_DECODER_11,
         {"C": 1570767, "N": 273858, "O": 396837, "S": 26352, "B": 0,
          "Br": 0, "Cl": 15058, "P": 25994, "I": 0, "F": 30687, "others": 0}),
+    "crossdock": _make_params(
+        _LIG_DECODER_10, _AA_DECODER_20,
+        {"C": 1570032, "N": 273792, "O": 396623, "S": 26339, "B": 0,
+         "Br": 0, "Cl": 15055, "P": 25975, "I": 0, "F": 30673}),
 }

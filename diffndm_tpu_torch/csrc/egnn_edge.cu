@@ -51,6 +51,15 @@
 //     K-major (W2 arrives N-major) and 64-row tiles, while the tiles here
 //     are small and the tensor-core work of a launch is microseconds;
 //     mma.sync needs no descriptors, swizzle or transposed weight copy.
+//   * The tensor cores' fp32 accumulation truncates toward zero, so a sum
+//     carried through many mma.sync drifts one way.  On the first forward
+//     of a joint run (dense [16, 584, H] clouds, every row moving) the
+//     carried sum missed the kernel-vs-plain gate by 2.3x at H = 128 and
+//     7.3x at H = 256.  So each chunk's six products (two k-steps of the
+//     three terms) go into zeroed accumulators, added to the running sum
+//     with one rounded add: at most 0.47 of the gate there.  At H = 128
+//     this costs ~1 %; at H = 192 / 256 the added registers spill and the
+//     kernels are 10-55 % slower (scripts/forward_build_ab.py).
 //   * z never touches shared memory: it is elementwise in (edge, k), so
 //     each thread computes exactly the A-fragment elements it owns from
 //     a_i (shared memory), b_j (global, read-only path, fetched one chunk
@@ -375,20 +384,30 @@ edge_chain_mma(const EdgeArgs p) {
             zh[1] = silu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y)));
             zh[2] = silu_fast(fmaf(di_hi, w1.z, fmaf(dc_hi, w0.z, ah.z + bh.z)));
             zh[3] = silu_fast(fmaf(di_hi, w1.w, fmaf(dc_hi, w0.w, ah.w + bh.w)));
+            // the chunk's two k-steps of 8: slots t and t + 4 hold
+            // k = 4t + 2*half, +1
+            uint32_t ab[2][4], asml[2][4];
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                // k-step of 8: slots t and t + 4 hold k = 4t + 2*half, +1
-                uint32_t ab[4], asml[4];
-                split_tf32(zl[2 * half], ab[0], asml[0]);
-                split_tf32(zh[2 * half], ab[1], asml[1]);
-                split_tf32(zl[2 * half + 1], ab[2], asml[2]);
-                split_tf32(zh[2 * half + 1], ab[3], asml[3]);
-                const float2* wk = wst + (half * 8 + t) * LD + g;
-                // NG column tiles at a time, one product term after
-                // the other, so that one mma does not wait on the
-                // accumulator of the mma just before it
+                split_tf32(zl[2 * half], ab[half][0], asml[half][0]);
+                split_tf32(zh[2 * half], ab[half][1], asml[half][1]);
+                split_tf32(zl[2 * half + 1], ab[half][2], asml[half][2]);
+                split_tf32(zh[2 * half + 1], ab[half][3], asml[half][3]);
+            }
+            // NG column tiles at a time, one product term after the other,
+            // so that one mma does not wait on the accumulator of the mma
+            // just before it; the chunk's six products into zeroed
+            // accumulators, then one rounded add each
 #pragma unroll
-                for (int n0 = 0; n0 < NT; n0 += NG) {
+            for (int n0 = 0; n0 < NT; n0 += NG) {
+                float part[NG][4];
+#pragma unroll
+                for (int j = 0; j < NG; ++j)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const float2* wk = wst + (half * 8 + t) * LD + g;
                     uint32_t bb0[NG], bs0[NG], bb1[NG], bs1[NG];
 #pragma unroll
                     for (int j = 0; j < NG; ++j) {
@@ -401,14 +420,19 @@ edge_chain_mma(const EdgeArgs p) {
                     }
 #pragma unroll
                     for (int j = 0; j < NG; ++j)
-                        mma_tf32(acc[n0 + j], ab, bs0[j], bs1[j]);
+                        mma_tf32(part[j], ab[half], bs0[j], bs1[j]);
 #pragma unroll
                     for (int j = 0; j < NG; ++j)
-                        mma_tf32(acc[n0 + j], asml, bb0[j], bb1[j]);
+                        mma_tf32(part[j], asml[half], bb0[j], bb1[j]);
 #pragma unroll
                     for (int j = 0; j < NG; ++j)
-                        mma_tf32(acc[n0 + j], ab, bb0[j], bb1[j]);
+                        mma_tf32(part[j], ab[half], bb0[j], bb1[j]);
                 }
+#pragma unroll
+                for (int j = 0; j < NG; ++j)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        acc[n0 + j][i] += part[j][i];
             }
         }
 

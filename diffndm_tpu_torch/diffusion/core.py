@@ -44,8 +44,9 @@ def draw_noise(like: torch.Tensor, noise: Optional[torch.Tensor],
                        dtype=like.dtype)
 
 
-class CondDiffusion:
-    """Schedule + normalisation settings of the conditional model."""
+class DiffusionSettings:
+    """Schedule and normalisation settings, shared by the conditional and
+    the joint model."""
 
     def __init__(self, schedule: GammaSchedule, cfg: DiffusionConfig,
                  atom_nf: int, residue_nf: int, n_dims: int = 3):
@@ -69,6 +70,10 @@ class CondDiffusion:
         x = xh[..., :self.n_dims] * nx
         h = xh[..., self.n_dims:] * nh + bh
         return torch.cat([x, h], -1) * mask[..., None]
+
+
+class CondDiffusion(DiffusionSettings):
+    """The conditional model's diffusion math."""
 
     # -- schedule shortcut -----------------------------------------------------
     def gamma_int(self, step) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""Joint node-count prior p(N_lig, N_pocket) and conditional size
-sampling.  Tables are host-side; sizes are drawn with a CPU generator."""
+"""Joint node-count prior p(N_lig, N_pocket): joint and conditional size
+sampling and the log-probabilities.  Tables are host-side; sizes are
+drawn with a CPU generator."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,12 +22,40 @@ class DistributionNodes:
         self.log_n2_given_n1 = torch.from_numpy(
             np.log(p / p.sum(axis=1, keepdims=True)).astype(np.float32))
 
+    @property
+    def entropy(self) -> float:
+        p = self.prob.reshape(-1)
+        return float(-(p * torch.log(p + 1e-30)).sum())
+
+    def sample(self, n_samples: int = 1,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(N_lig, N_pocket) pairs [n_samples] each from the joint
+        histogram."""
+        idx = torch.multinomial(self.prob.reshape(-1), n_samples,
+                                replacement=True, generator=generator)
+        n2 = self.prob.shape[1]
+        return (idx // n2).numpy(), (idx % n2).numpy()
+
     def sample_conditional(self, n2, generator: Optional[torch.Generator]
                            = None) -> np.ndarray:
         """N_lig ~ p(N_lig | N_pocket = n2) for each entry of n2 [B]."""
         n2 = torch.as_tensor(np.asarray(n2), dtype=torch.long)
         probs = torch.exp(self.log_n1_given_n2.T[n2])      # [B, max_n1]
         return torch.multinomial(probs, 1, generator=generator)[:, 0].numpy()
+
+    def log_prob(self, n1, n2) -> torch.Tensor:
+        return self.log_prob_table[_index(n1), _index(n2)]
+
+    def log_prob_n1_given_n2(self, n1, n2) -> torch.Tensor:
+        return self.log_n1_given_n2[_index(n1), _index(n2)]
+
+    def log_prob_n2_given_n1(self, n2, n1) -> torch.Tensor:
+        return self.log_n2_given_n1[_index(n1), _index(n2)]
+
+
+def _index(n) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(n), dtype=torch.long)
 
 
 def smoothed_histogram(n_lig, n_pocket, smooth_sigma: float = 1.0

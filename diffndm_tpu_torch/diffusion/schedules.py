@@ -53,6 +53,10 @@ def gamma_table(name: str, timesteps: int, precision: float = 1e-4
     elif "polynomial" in name:
         power = float(name.split("_")[1])
         alphas2 = polynomial_alphas2(timesteps, s=precision, power=power)
+    elif name == "learned":
+        raise NotImplementedError("the learned noise schedule (the JAX "
+                                  "package's diffusion/learned_gamma.py) "
+                                  "is not ported")
     else:
         raise ValueError(f"unknown noise schedule {name!r}")
     sigmas2 = 1.0 - alphas2

@@ -8,7 +8,10 @@ or with the SPSA / ATP guidance the sample config enables, scored by the
 chemistry reward oracle; optionally adjusted and trained by the RL
 AdjustNet), completes fixed fragments (RePaint inpainting, optionally
 guided), diversifies ligands by partial noising and denoising, and turns
-the result into filtered molecules.
+the result into filtered molecules.  A joint-mode config (``mode:
+'joint'``) also gets ``joint_sampler``, which generates or inpaints ligand
+and pocket together; its conditional entry points run the conditional
+sampler on the joint-mode denoiser, as the JAX package does.
 
 The JAX package picks a sorted-band column window per PDB pocket
 (``DIFFNDM_AUTO_BAND``).  The window provably drops only pairs beyond the
@@ -43,6 +46,7 @@ from diffndm_tpu_torch.diffusion.core import CondDiffusion
 from diffndm_tpu_torch.diffusion.diversify import (DiversifyNoise,
                                                    DiversifySampler)
 from diffndm_tpu_torch.diffusion.inpaint import InpaintNoise, InpaintSampler
+from diffndm_tpu_torch.diffusion.joint import JointDiffusion, JointSampler
 from diffndm_tpu_torch.diffusion.node_distribution import (DistributionNodes,
                                                            default_histogram)
 from diffndm_tpu_torch.diffusion.sampler import (ConditionalSampler,
@@ -64,10 +68,10 @@ class DiffNDM:
         ``sample_cfg`` enables guidance or RL training: "native" (the C++
         scorer, built at first use; raises if it cannot be built) or
         "python"."""
-        if model_cfg.mode != "pocket_conditioning":
+        if model_cfg.mode not in ("pocket_conditioning", "joint"):
             raise NotImplementedError(
                 f"mode {model_cfg.mode!r}: the port runs the "
-                "pocket-conditional model only")
+                "pocket-conditional and the joint model only")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.sample_cfg = sample_cfg or SampleConfig()
@@ -94,6 +98,12 @@ class DiffNDM:
         self.inpaint_sampler = InpaintSampler(self.core, self.dynamics,
                                               self.sample_cfg, self.oracle)
         self.diversify_sampler = DiversifySampler(self.core, self.dynamics)
+        # the joint sampler shares the denoiser, so loaded weights reach it
+        self.joint_sampler: Optional[JointSampler] = None
+        if model_cfg.mode == "joint":
+            self.joint_sampler = JointSampler(
+                JointDiffusion(schedule, d, model_cfg.atom_nf,
+                               model_cfg.residue_nf), self.dynamics)
         self.adjust_state: Optional[AdjustNetState] = None
 
     @classmethod

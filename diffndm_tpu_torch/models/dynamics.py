@@ -1,6 +1,9 @@
 """Dynamics wrapper: encodes ligand atoms and pocket atoms into a joint
 feature space, builds the cutoff adjacency, runs the EGNN and decodes
-per-node noise predictions (conditional mode: the pocket is frozen)."""
+per-node noise predictions.  Conditional mode freezes the pocket: only the
+ligand rows' coordinate updates are computed.  Joint mode
+(``update_pocket_coords``) moves every row and projects the velocity onto
+the zero centre-of-mass subspace of the whole ligand and pocket cloud."""
 
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch.nn.functional as F
 
 from diffndm_tpu_torch.config import EGNNConfig
 from diffndm_tpu_torch.models.egnn import EGNN, pairwise_d2
+from diffndm_tpu_torch.ops.segment import masked_mean
 
 
 def build_adjacency(x_lig, x_pocket, lig_mask, pocket_mask,
@@ -60,9 +64,6 @@ class EGNNDynamics(nn.Module):
     def __init__(self, cfg: EGNNConfig, atom_nf: int, residue_nf: int,
                  n_dims: int = 3):
         super().__init__()
-        if cfg.update_pocket_coords:
-            raise NotImplementedError("the port runs the pocket-conditional "
-                                      "model only (frozen pocket)")
         self.cfg = cfg
         self.n_dims = n_dims
         jn = cfg.joint_nf
@@ -98,11 +99,17 @@ class EGNNDynamics(nn.Module):
             h = torch.cat([h, h_time], dim=-1)
 
         adj = build_adjacency(x_lig, x_poc, lig_mask, pocket_mask, cfg)
+        # joint mode moves every row; conditional mode only the ligand's
+        joint = cfg.update_pocket_coords
         h_final, x_final = self.egnn(
             h, x.contiguous(), adj, mask,
-            update_coords_mask=update_coords_mask(lig_mask, pocket_mask),
-            coord_rows=nl)
+            update_coords_mask=(None if joint else
+                                update_coords_mask(lig_mask, pocket_mask)),
+            coord_rows=None if joint else nl)
         vel = (x_final - x) * mask[..., None]
+        if joint:
+            vel = vel - masked_mean(vel, mask, dim=1, keepdim=True)
+            vel = vel * mask[..., None]
         if cfg.condition_time:
             h_final = h_final[..., :-1]
 

@@ -40,3 +40,15 @@ def remove_mean_ligand(x_lig: torch.Tensor, x_pocket: torch.Tensor,
     x_pocket = (x_pocket - mean) * pocket_mask.unsqueeze(-1).to(
         x_pocket.dtype)
     return x_lig, x_pocket
+
+
+def remove_mean_joint(x_lig: torch.Tensor, x_pocket: torch.Tensor,
+                      lig_mask: torch.Tensor, pocket_mask: torch.Tensor):
+    """Subtract the joint (ligand and pocket) centre of mass from both
+    parts (joint-model convention)."""
+    ml = lig_mask.unsqueeze(-1).to(x_lig.dtype)
+    mp = pocket_mask.unsqueeze(-1).to(x_pocket.dtype)
+    total = (x_lig * ml).sum(1) + (x_pocket * mp).sum(1)
+    count = ml.sum((1, 2)) + mp.sum((1, 2))
+    mean = (total / count.clamp_min(1e-12)[:, None])[:, None, :]
+    return (x_lig - mean) * ml, (x_pocket - mean) * mp

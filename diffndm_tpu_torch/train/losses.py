@@ -1,11 +1,14 @@
-"""Training losses of the conditional DDPM over padded batches.
+"""Training losses of the conditional and the joint DDPM over padded
+batches.
 
 The JAX package's ``train/losses.py``: the diffusion terms of one batch
-(``conditional_loss_terms``), the L2 / VLB assembly (``assemble_loss``),
-the intra-ligand Lennard-Jones auxiliary term and its weight schedule.
-Torch cannot replay JAX's threefry streams, so the draws (the timestep
-``t_int``, the noise and the t = 0 noise of the eval loss) are arguments;
-what is not given is drawn from ``generator``.
+(``conditional_loss_terms``, and ``joint_loss_terms`` for the joint
+model), the L2 / VLB assembly (``assemble_loss``), the intra-ligand
+Lennard-Jones auxiliary term and its weight schedule.  Torch cannot replay
+JAX's threefry streams, so the draws (the timestep ``t_int``, the noise
+and the t = 0 noise of the eval loss) are arguments; what is not given is
+drawn from ``generator``.  The trainer trains with the conditional terms,
+as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ import torch
 
 from diffndm_tpu_torch.config import TrainConfig
 from diffndm_tpu_torch.diffusion import schedules as S
-from diffndm_tpu_torch.diffusion.core import CondDiffusion, EpsFn
-from diffndm_tpu_torch.ops.segment import remove_mean_ligand, sum_except_batch
+from diffndm_tpu_torch.diffusion.core import CondDiffusion, EpsFn, _b11
+from diffndm_tpu_torch.diffusion.joint import JointDiffusion, JointDraw
+from diffndm_tpu_torch.ops.segment import (remove_mean_joint,
+                                           remove_mean_ligand,
+                                           sum_except_batch)
 from diffndm_tpu_torch.structs import NodeBatch
 
 
@@ -109,10 +115,97 @@ def conditional_loss_terms(core: CondDiffusion, eps_fn: EpsFn,
     }
 
 
-def joint_loss_terms(*args, **kwargs):
-    raise NotImplementedError(
-        "joint-mode training waits for the joint model (ROADMAP Queue A, "
-        "joint mode and model variants)")
+def joint_loss_terms(core: JointDiffusion, eps_fn: EpsFn, ligand: NodeBatch,
+                     pocket: NodeBatch, training: bool, t_int=None,
+                     noise: Optional[JointDraw] = None,
+                     noise0: Optional[JointDraw] = None, generator=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The joint model's NLL terms of a batch: both parts noised in the
+    joint zero-COM subspace of (N_lig + N_pocket - 1) * 3 dimensions, the
+    pocket's error included, the joint KL prior.  t_int: [B] steps;
+    noise / noise0: joint draws (``diffusion.joint.JointDraw``), the
+    q(z_t | x) noise and (eval only) the noise of the t = 0 term."""
+    b = ligand.x.shape[0]
+    dev = ligand.x.device
+    T = core.schedule.timesteps
+    lm, pm = ligand.mask, pocket.mask
+    nd = core.n_dims
+    joint_size = ligand.size + pocket.size
+
+    xh0_lig = core.normalize_xh(torch.cat([ligand.x, ligand.h], -1), lm)
+    xh0_poc = core.normalize_xh(torch.cat([pocket.x, pocket.h], -1), pm)
+    lx, px = remove_mean_joint(xh0_lig[..., :nd], xh0_poc[..., :nd], lm, pm)
+    xh0_lig = torch.cat([lx, xh0_lig[..., nd:]], -1)
+    xh0_poc = torch.cat([px, xh0_poc[..., nd:]], -1)
+
+    subspace = (joint_size - 1) * 3.0
+    delta_log_px = -subspace * math.log(core.cfg.norm_values[0])
+
+    if t_int is None:
+        t_int = draw_timesteps(b, T, training, generator, dev)
+    t_int = torch.as_tensor(t_int, device=dev).float()
+    t_is_zero = (t_int == 0).float()
+    gamma_s = core.schedule((t_int - 1) / T)
+    gamma_t = core.schedule(t_int / T)
+
+    z_l, z_p, eps_l, eps_p = core.noised_representation(
+        xh0_lig, xh0_poc, lm, pm, gamma_t, noise, generator)
+    net_l, net_p = eps_fn(z_l, z_p, t_int / T, lm, pm)
+
+    error_t_lig = sum_except_batch((eps_l - net_l) ** 2, lm)
+    error_t_pocket = sum_except_batch((eps_p - net_p) ** 2, pm)
+    snr_weight = 1.0 - S.snr(gamma_s - gamma_t)
+
+    gamma_0s = core.schedule.table[0]
+    neg_log_constants = -subspace * (-0.5 * gamma_0s
+                                     - 0.5 * math.log(2 * math.pi))
+
+    # the joint KL prior
+    gamma_T = core.schedule(torch.ones(b, device=dev))
+    alpha_T = _b11(S.alpha(gamma_T))
+    sigma_T = S.sigma(gamma_T)
+    mu_l, mu_p = alpha_T * xh0_lig, alpha_T * xh0_poc
+    mu_h2 = (sum_except_batch(mu_l[..., nd:] ** 2, lm)
+             + sum_except_batch(mu_p[..., nd:] ** 2, pm))
+    mu_x2 = (sum_except_batch(mu_l[..., :nd] ** 2, lm)
+             + sum_except_batch(mu_p[..., :nd] ** 2, pm))
+
+    def gkl(mu2, q_sigma, d):
+        return (d * torch.log(1.0 / q_sigma)
+                + 0.5 * (d * q_sigma ** 2 + mu2) - 0.5 * d)
+
+    kl_prior = gkl(mu_h2, sigma_T, 1.0) + gkl(mu_x2, sigma_T, subspace)
+
+    if training:
+        loss_0_x = -(-0.5 * sum_except_batch(
+            (eps_l[..., :nd] - net_l[..., :nd]) ** 2, lm)) * t_is_zero
+        loss_0_x_p = -(-0.5 * sum_except_batch(
+            (eps_p[..., :nd] - net_p[..., :nd]) ** 2, pm)) * t_is_zero
+        error_t_lig = error_t_lig * (1.0 - t_is_zero)
+        error_t_pocket = error_t_pocket * (1.0 - t_is_zero)
+    else:
+        zeros = torch.zeros(b, device=dev)
+        gamma_0 = core.schedule(zeros)
+        z0_l, z0_p, e0_l, e0_p = core.noised_representation(
+            xh0_lig, xh0_poc, lm, pm, gamma_0, noise0, generator)
+        n0_l, n0_p = eps_fn(z0_l, z0_p, zeros, lm, pm)
+        loss_0_x = 0.5 * sum_except_batch(
+            (e0_l[..., :nd] - n0_l[..., :nd]) ** 2, lm)
+        loss_0_x_p = 0.5 * sum_except_batch(
+            (e0_p[..., :nd] - n0_p[..., :nd]) ** 2, pm)
+
+    return {
+        "delta_log_px": delta_log_px,
+        "error_t_lig": error_t_lig,
+        "error_t_pocket": error_t_pocket,
+        "snr_weight": snr_weight,
+        "loss_0_x": loss_0_x,
+        "loss_0_x_pocket": loss_0_x_p,
+        "loss_0_h": torch.zeros(b, device=dev),
+        "neg_log_constants": neg_log_constants,
+        "kl_prior": kl_prior,
+        "t_int": t_int,
+    }
 
 
 def lj_potential(x, h_onehot, mask, lj_rm: torch.Tensor, norm_x: float,

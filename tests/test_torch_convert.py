@@ -141,13 +141,7 @@ def test_yaml_reader_and_model_config_match(path):
         text = f.read()
     raw = yaml.safe_load(text)
     assert tcfg.parse_yaml(text) == raw
-    try:
-        port = tcfg.model_config_from_yaml(raw)
-    except ValueError as e:
-        # the port carries only the full-atom CrossDocked encoding
-        assert "not supported by the port" in str(e)
-        assert jcfg.model_config_from_yaml(raw).dataset != "crossdock_full"
-        return
+    port = tcfg.model_config_from_yaml(raw)
     ref = jcfg.model_config_from_yaml(raw)
     for name in ("dataset", "mode", "pocket_representation", "atom_nf",
                  "residue_nf", "n_dims"):

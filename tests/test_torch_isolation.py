@@ -62,7 +62,9 @@ def test_sources_found():
                    "train/losses.py", "train/trainer.py",
                    "train/metrics_logger.py", "train/eval_dashboard.py",
                    "data/virtual.py", "cli/train.py", "chem/scoring.py",
-                   "chem/rmsd.py", "chem/dock.py", "chem/docking.py"):
+                   "chem/rmsd.py", "chem/dock.py", "chem/docking.py",
+                   "diffusion/joint.py", "diffusion/node_distribution.py",
+                   "utils/geometry.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
@@ -144,10 +146,11 @@ def test_new_clis_raise_without_a_gpu(monkeypatch, tmp_path):
     dict(egnn=dict(sin_embedding=True)),
     dict(egnn=dict(aggregation_method="mean")),
     dict(egnn=dict(edge_embedding_dim=4)),
-    dict(egnn=dict(update_pocket_coords=True))])
+    dict(diffusion=dict(noise_schedule="learned"))])
 def test_unported_variants_raise_instead_of_running(change):
-    """Configurations this slice does not port are refused, never run
-    with other semantics."""
+    """Configurations the port does not run are refused, never run with
+    other semantics (joint mode, ``update_pocket_coords``, runs: see
+    tests/test_torch_joint.py)."""
     import dataclasses
 
     from diffndm_tpu_torch.config import load_yaml, model_config_from_yaml
@@ -155,6 +158,8 @@ def test_unported_variants_raise_instead_of_running(change):
 
     cfg = model_config_from_yaml(load_yaml("configs/virtual_cond_v3b.yml"))
     egnn = dataclasses.replace(cfg.egnn, **change.pop("egnn", {}))
-    cfg = dataclasses.replace(cfg, egnn=egnn, **change)
+    diffusion = dataclasses.replace(cfg.diffusion,
+                                    **change.pop("diffusion", {}))
+    cfg = dataclasses.replace(cfg, egnn=egnn, diffusion=diffusion, **change)
     with pytest.raises(NotImplementedError):
         DiffNDM(cfg, device="cpu")

@@ -10,6 +10,9 @@
   ``Trainer._loss_fn`` on the same weights: loss within rtol 1e-5, each
   gradient tensor within 1e-5 + 1e-4 of its largest entry (a weight's
   gradient sums over every edge of the batch).
+- ``joint_loss_terms`` on the Lennard-Jones test's inputs, through a
+  denoiser that predicts zero, equals JAX's term by term (the joint
+  model's loss through a real denoiser: tests/test_torch_joint_loss.py).
 """
 
 import dataclasses
@@ -60,6 +63,17 @@ def jax_draws(key, ligand, training):
     return (torch.from_numpy(np.asarray(t_int).astype(np.float32)),
             torch.from_numpy(np.asarray(jax.random.normal(k_noise, shape))),
             torch.from_numpy(np.asarray(jax.random.normal(k_noise0, shape))))
+
+
+def joint_draw(key, b, nl, npk):
+    """The raw draws of JAX's JointDiffusion.sample_joint_noise(key)."""
+    kx, khl, khp = jax.random.split(key, 3)
+    parts = [jax.random.normal(kx, (b, nl, 3)),
+             jax.random.normal(khl, (b, nl, NF)),
+             jax.random.normal(jax.random.fold_in(kx, 1), (b, npk, 3)),
+             jax.random.normal(khp, (b, npk, NF))]
+    return tuple(torch.from_numpy(np.array(jnp.concatenate(p, -1)))
+                 for p in (parts[:2], parts[2:]))
 
 
 def to_torch(nb):
@@ -154,8 +168,38 @@ def test_lj_potential_and_schedule_equal_jax():
     for mode in ("linear", "constant"):
         close(mode, tlosses.aux_weight_schedule(T, 1e-3, mode),
               jlosses.aux_weight_schedule(T, 1e-3, mode), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="joint mode"):
-        tlosses.joint_loss_terms()
+    # the joint model's terms on these inputs (ligand: x, h's argmax
+    # types, mask; pocket: the same shifted), a denoiser that predicts
+    # zero, JAX's draws: equal to JAX's
+    from diffndm_tpu.diffusion import joint as jjoint
+    from diffndm_tpu.structs import NodeBatch as JNodeBatch
+    from diffndm_tpu_torch.diffusion import joint as tjoint
+
+    onehot = np.eye(NF, dtype=np.float32)[h.argmax(-1)] * mask[..., None]
+    parts = [(x * mask[..., None], onehot, mask),
+             ((x + 2.0) * mask[..., None], onehot, mask)]
+    jl, jp = (JNodeBatch(*(jnp.asarray(a) for a in p)) for p in parts)
+    tl, tp = (NodeBatch(*(torch.from_numpy(a) for a in p)) for p in parts)
+    zero_eps = (lambda zl, zp, t, lm, pm: (zl * 0, zp * 0))
+    key = jax.random.PRNGKey(13)
+    for training in (True, False):
+        jterms = jlosses.joint_loss_terms(
+            key, jjoint.JointDiffusion(jS.make_schedule("polynomial_2", T,
+                                                        5e-4),
+                                       jcfg.DiffusionConfig(timesteps=T),
+                                       NF, NF),
+            zero_eps, jl, jp, training)
+        k_t, k_noise, k_noise0 = jax.random.split(key, 3)
+        t_int = jax.random.randint(k_t, (3,), 0 if training else 1, T + 1)
+        tterms = tlosses.joint_loss_terms(
+            tjoint.JointDiffusion(tS.make_schedule("polynomial_2", T, 5e-4),
+                                  tcfg.DiffusionConfig(timesteps=T), NF, NF),
+            zero_eps, tl, tp, training,
+            torch.from_numpy(np.array(t_int, np.float32)),
+            joint_draw(k_noise, 3, 9, 9), joint_draw(k_noise0, 3, 9, 9))
+        assert sorted(tterms) == sorted(jterms)
+        for k in jterms:
+            close(f"joint {k}", tterms[k], jterms[k], atol=1e-5)
 
 
 @pytest.mark.parametrize("vidx", [None, 2])
