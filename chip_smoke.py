@@ -131,10 +131,23 @@ Phases, each of which fails the run on any fault or mismatch:
    of the size prior, every row moving), each kernel call against its
    plain version; then
    generate_ligands of configs/crossdock_ca_cond.yml (16 rows, T=500)
-   with its launch counts.
+   with its launch counts;
+21. variants: the JAX package's model variants at v3b's published width
+   on test pocket 220 (16 rows, N = 80): (a) the sinusoid distance
+   embedding, (b) mean aggregation, (c) the edge-type embedding (dim 8),
+   (d) the GNN denoiser, all four on seeded random weights and on the
+   dense edge chain (no kernel launch), (e) pocket_conditioning_simple
+   and (f) the learned noise schedule (VLB), both on v3b's EMA weights
+   and on the kernels (5 launches per wrapper per forward): one forward
+   on the card against the CPU, one sampling at T=500 (s per batch, ms
+   per forward, launch counts); for (f) also the train CLI for 8
+   micro-steps (launch counts forward and backward, ms per micro-step,
+   peak memory, the gamma network moved) and the first micro-step's
+   gradients of both trees, card against CPU.
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
-2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, and ``--only
+2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
+phases 1 and 21, and ``--only
 phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes in
 the forward kernels and in the vector backward, with the device time of
@@ -143,7 +156,7 @@ each kernel a backward call launches (both for work on the kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the six prints a result line.
+None of the seven prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -309,6 +322,30 @@ JOINT_COM_ATOL, JOINT_GEOMETRY_ATOL, JOINT_LOSS_RTOL = 1e-3, 1.0, 1e-4
 # normalised units, as the path checks' 1e-3 A); the CA generation
 CONFIGS_B, CONFIG_EPS_ATOL = 4, 1e-3
 CA_CONFIG = os.path.join(REPO, "configs", "crossdock_ca_cond.yml")
+# variants phase: the JAX package's model variants at v3b's published
+# width on test pocket VARIANT_POCKET (N = 80 at B = N_SAMPLES).  Per
+# variant: its YAML changes, its EGNNConfig changes (the GNN's mode is not
+# a YAML key) and whether v3b's EMA weights fit it (else seeded weights);
+# the labels' letters, and those that run on the kernels (the rest on the
+# dense chain, as the JAX package dispatches them); (f)'s CLI training
+VARIANT_CONFIG = os.path.join(REPO, "configs", "virtual_cond_v3b.yml")
+VARIANT_POCKET, VARIANT_TRAIN_STEPS, VARIANT_EDGE_DIM = 220, 8, 8
+VARIANTS = {
+    "a_sin": (dict(egnn_params=dict(sin_embedding=True)), {}, False),
+    "b_mean": (dict(egnn_params=dict(aggregation_method="mean")), {}, False),
+    "c_edge_embedding": (dict(egnn_params=dict(
+        edge_embedding_dim=VARIANT_EDGE_DIM)), {}, False),
+    "d_gnn": ({}, dict(mode="gnn_dynamics"), False),
+    "e_simple": (dict(mode="pocket_conditioning_simple"), {}, True),
+    "f_learned": (dict(diffusion_params=dict(
+        diffusion_noise_schedule="learned", diffusion_loss_type="vlb")), {},
+        True),
+}
+VARIANT_KERNEL_LABELS = "ef"
+L3_BIAS = "l3.bias"           # the gamma network's cancelling bias
+# (f)'s gradient check: the gamma network alone in float64, card against
+# CPU
+GAMMA_F64_RTOL = 1e-7
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -2794,6 +2831,329 @@ def configs_phase(torch, K, ds, pdb, sdf):
 
 
 # ---------------------------------------------------------------------------
+# model variants
+# ---------------------------------------------------------------------------
+
+def seeded_gamma(torch):
+    """Seeded random weights of a learned schedule's gamma network (its
+    own init under torch.manual_seed(SEED))."""
+    from diffndm_tpu_torch.diffusion.learned_gamma import GammaNetwork
+
+    torch.manual_seed(SEED)
+    return GammaNetwork().state_dict()
+
+
+def variant_config(label, tmp):
+    """(YAML path, ModelConfig) of a variant: VARIANT_CONFIG with the
+    variant's YAML keys changed, written into ``tmp``; the GNN's mode is a
+    config field that YAML does not carry."""
+    import dataclasses
+
+    from diffndm_tpu_torch.config import (dump_yaml, load_yaml,
+                                          model_config_from_yaml)
+
+    yaml_change, egnn_change, _ = VARIANTS[label]
+    raw = load_yaml(VARIANT_CONFIG)
+    for key, value in yaml_change.items():
+        if isinstance(value, dict):
+            raw[key] = dict(raw[key], **value)
+        else:
+            raw[key] = value
+    path = os.path.join(tmp, f"variant_{label}.yml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(raw))
+    cfg = model_config_from_yaml(load_yaml(path))
+    return path, dataclasses.replace(
+        cfg, egnn=dataclasses.replace(cfg.egnn, **egnn_change))
+
+
+def variant_model(torch, label, cfg, device, hist):
+    """DiffNDM of a variant on ``device``: v3b's EMA weights where the
+    architecture is v3b's, else the config's seeded random weights; a
+    learned schedule's gamma network seeded."""
+    from diffndm_tpu_torch.config import SampleConfig
+    from diffndm_tpu_torch.convert import params_from_jax
+    from diffndm_tpu_torch.model import DiffNDM
+
+    model = DiffNDM(cfg, device=device, size_histogram=hist,
+                    sample_cfg=SampleConfig(pocket_pad_multiple=16),
+                    scorer="python")
+    if VARIANTS[label][2]:
+        with np.load(WEIGHTS) as f:
+            tree = {k: f[k] for k in f.files}
+    else:
+        tree = seeded_tree(torch, cfg)
+    model.dynamics.load_state_dict(params_from_jax(tree), strict=True)
+    if model.gamma is not None:
+        model.gamma.load_state_dict(seeded_gamma(torch), strict=True)
+    return model
+
+
+def variants_phase(torch, K, ds, train_ds, tmp):
+    """[variants]: the JAX package's model variants at v3b's published
+    width (VARIANT_CONFIG: hidden 192, 5 layers, joint_nf 64, 5 A
+    cutoffs, fp32) on test pocket VARIANT_POCKET, B = N_SAMPLES: (a) the
+    sinusoid distance embedding, (b) mean aggregation, (c) the edge-type
+    embedding, (d) the GNN denoiser, (e) pocket_conditioning_simple, (f)
+    the learned schedule (VLB).  Each: one forward on the card against the
+    same forward on the CPU (CONFIG_EPS_ATOL) with its launch counts
+    (n_layers per wrapper on the kernel path of (e) and (f), none on the
+    dense chain of (a)-(d), as the JAX package dispatches), then one
+    sampling at T = T_MAIN with its launch counts, s per batch and ms per
+    forward.  (f) also trains through the train CLI (variant_train_phase).
+    Returns ({label: result}, the train CLI's launches)."""
+    hist = np.load(os.path.join(DATA, "size_distribution.npy"))
+    results, learned_yaml = {}, None
+    for label in VARIANTS:
+        path, cfg = variant_config(label, tmp)
+        if label.startswith("f"):
+            learned_yaml = path
+        model = variant_model(torch, label, cfg, "cuda", hist)
+        kernels = label[0] in VARIANT_KERNEL_LABELS
+        n_layers = cfg.egnn.n_layers
+        pocket = model.pocket_from_dataset(ds[VARIANT_POCKET], N_SAMPLES)
+        sizes = model.sample_ligand_sizes(
+            pocket, torch.Generator().manual_seed(SEED))
+        state = first_state(torch, model, pocket, sizes)
+        K.reset_launches()
+        out = model.dynamics(*state)
+        torch.cuda.synchronize()
+        fwd_launches = forward_launches(K)
+        cpu = variant_model(torch, label, cfg, "cpu", hist)
+        ref = cpu.dynamics(*(t.cpu() for t in state))
+        err = max(float((o.cpu() - r).abs().max()) for o, r in zip(out, ref))
+        del cpu
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.sample_given_pocket(
+            pocket, sizes, timesteps=T_MAIN,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = forward_launches(K)
+        forwards = T_MAIN + 1
+        per = n_layers if kernels else 0
+        want_fwd = {k: per for k in KERNELS}
+        want = {k: per * forwards for k in KERNELS}
+        n = state[0].shape[1] + state[1].shape[1]
+        log(f"[variants] ({label}) {cfg.mode}, egnn {cfg.egnn.mode}, sin "
+            f"{cfg.egnn.sin_embedding}, aggregation "
+            f"{cfg.egnn.aggregation_method}, edge embedding "
+            f"{cfg.egnn.edge_embedding_dim}, schedule "
+            f"{cfg.diffusion.noise_schedule} / {cfg.diffusion.loss_type}; "
+            f"weights {'v3b EMA' if VARIANTS[label][2] else 'seeded'}; "
+            f"[B, N, H] = [{N_SAMPLES}, {n}, {cfg.egnn.hidden_nf}]: forward "
+            f"card vs CPU max abs {err:.3e} (atol {CONFIG_EPS_ATOL}), "
+            f"launches {fwd_launches} (expected {want_fwd}); sampling at "
+            f"T={T_MAIN}: {seconds:.3f} s per batch, "
+            f"{1e3 * seconds / forwards:.3f} ms per forward, launches "
+            f"{launches} (expected {want})")
+        if fwd_launches != want_fwd or launches != want:
+            raise AssertionError(f"[variants] ({label}): launch counts off")
+        if not (err <= CONFIG_EPS_ATOL and all(
+                bool(torch.isfinite(o).all()) for o in out)
+                and bool(torch.isfinite(res.ligand.x).all())):
+            raise AssertionError(f"[variants] ({label}): the card's forward "
+                                 f"disagrees with the CPU's, or the sample "
+                                 f"is not finite")
+        results[label] = dict(forward_max_abs_err=err, shape=[
+            N_SAMPLES, n, cfg.egnn.hidden_nf], forward_launches=fwd_launches,
+            sample_launches=launches, sample_s=seconds,
+            ms_per_forward=1e3 * seconds / forwards)
+        del model, res, out
+    train = variant_train_phase(torch, K, train_ds, tmp, learned_yaml)
+    results["f_learned"]["train"] = {k: v for k, v in train.items()
+                                     if k != "launches"}
+    return results, train["launches"]
+
+
+def variant_train_phase(torch, K, train_ds, tmp, yaml_path):
+    """(f)'s training: the train CLI in this process on the first
+    VARIANT_TRAIN_STEPS batches of virtual_v3's training split (no
+    validation split: no eval), from a seeded state (torch.manual_seed),
+    VLB with the learned schedule: launch counts per micro-step (both
+    kernels forward and backward), ms per micro-step and peak memory, the
+    gamma network moved.  Then the first micro-step's loss and gradients,
+    both trees, on its batch's first TRAIN_CHECK_B rows under fixed draws
+    from its starting state, card against CPU: each tensor within the
+    backward gate (BWD_RTOL of the CPU's largest entry + BWD_ATOL), the
+    loss within TRAIN_RTOL, but for the gamma network's layers (l1, l2,
+    l3; gamma_0 and gamma_1 are gated).  The VLB weight 1 - exp(gamma_s -
+    gamma_t) takes gammas one step of 500 apart, so those layers'
+    gradients are differences of the network's derivatives at adjacent t,
+    each ~500x the difference: what float32 leaves of them is rounding on
+    any device, 1e-1 to 20x of their largest entry (the CPU's distance
+    from a float64 evaluation is printed beside the card's, not gated).
+    That the card computes the network's function and its gradient is
+    held in float64 instead: values and the gradient of a weighted sum
+    over t, card against CPU, within GAMMA_F64_RTOL.  l3's bias cancels in
+    g(t) - g(0): gamma does not depend on it and it is not counted as a
+    move of the network."""
+    import shutil
+
+    from diffndm_tpu_torch.cli import train as train_cli
+    from diffndm_tpu_torch.config import (load_yaml, model_config_from_yaml,
+                                          train_config_from_yaml)
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.structs import NodeBatch
+    from diffndm_tpu_torch.train.trainer import Trainer, load_train_state
+
+    datadir = os.path.join(tmp, "variant_data")
+    os.makedirs(datadir)
+    write_split(os.path.join(datadir, "train.npz"),
+                train_ds.pairs[:VARIANT_TRAIN_STEPS * N_SAMPLES])
+    shutil.copy(os.path.join(DATA, "size_distribution.npy"), datadir)
+    argv = ["--config", yaml_path, "--max_steps", str(VARIANT_TRAIN_STEPS),
+            "--set", f"logdir={tmp}", "--set", f"datadir={datadir}",
+            "--set", "run_name=variant_learned"]
+    log(f"[variants] (f) python -m diffndm_tpu_torch.cli.train "
+        f"{' '.join(argv)}")
+    records, first = [], {}
+    original = Trainer.train_step
+
+    def counted(self, ligand, pocket, *args, **kw):
+        if not first:
+            first.update(
+                batch=[nb.to("cpu") for nb in (ligand, pocket)],
+                dynamics={k: v.detach().cpu().clone() for k, v in
+                          self.module.state_dict().items()},
+                gamma={k: v.detach().cpu().clone() for k, v in
+                       self.gamma.state_dict().items()})
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = original(self, ligand, pocket, *args, **kw)
+        torch.cuda.synchronize()
+        records.append(dict(
+            launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES},
+            ms=1e3 * (time.perf_counter() - t0),
+            peak=torch.cuda.max_memory_allocated(), loss=out[0]))
+        return out
+
+    Trainer.train_step = counted
+    K.reset_launches()
+    torch.manual_seed(SEED)
+    try:
+        summary = train_cli.main(argv)
+    finally:
+        Trainer.train_step = original
+    launches = dict(K.LAUNCHES)
+    per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
+                "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
+    bad = [r["launches"] for r in records if r["launches"] != per_step]
+    params, _, step = load_train_state(os.path.join(summary["outdir"],
+                                                    "last.npz"))
+    moved = max(float(np.abs(params["gamma/params/" + k.replace(".", "/")]
+                             - v.numpy()).max())
+                for k, v in first["gamma"].items() if k != L3_BIAS)
+    ms = [r["ms"] for r in records]
+    peak = max(r["peak"] for r in records)
+
+    # the first micro-step's gradients: card, CPU, CPU in float64
+    raw = load_yaml(yaml_path)
+    cfg, tcfg = model_config_from_yaml(raw), train_config_from_yaml(raw)
+    rows = slice(0, TRAIN_CHECK_B)
+    cut = [NodeBatch(*(a[rows] for a in nb)) for nb in first["batch"]]
+    draws = step_draws(torch, cut[0], SEED + 40)
+    grads, losses = {}, {}
+    for key, device, dtype in (("cuda", "cuda", torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("f64", "cpu", torch.float64)):
+        model = DiffNDM(cfg, device=device)
+        model.set_params(first["dynamics"], first["gamma"])
+        model.dynamics.to(dtype)
+        model.gamma.to(dtype)
+        trainer = Trainer(model.core, model.dynamics, tcfg,
+                          gamma=model.gamma)
+        with torch.enable_grad():
+            loss, _ = trainer._loss(
+                *(NodeBatch(*(a.to(device, dtype) for a in nb))
+                  for nb in cut), True,
+                *(d.to(device, dtype) for d in draws))
+            g = torch.autograd.grad(loss, trainer.trained,
+                                    allow_unused=True)
+        names = ([f"dynamics.{n}" for n in trainer.names]
+                 + [f"gamma.{n}" for n in trainer.gamma_names])
+        grads[key] = {n: (torch.zeros_like(p) if gi is None else gi)
+                      .detach().cpu().double() for n, p, gi in
+                      zip(names, trainer.trained, g)}
+        losses[key] = float(loss)
+    # the backward gate against the CPU; the gamma network's layers
+    # reported against float64 (their float32 floor, both devices)
+    share, worst, layers = 0.0, None, {}
+    for n, ref in grads["cpu"].items():
+        exact, got = grads["f64"][n], grads["cuda"][n]
+        if n.startswith("gamma.l"):
+            top = float(exact.abs().max())
+            layers[n] = [float((x - exact).abs().max()) / (top + BWD_ATOL)
+                         for x in (got, ref)]
+            continue
+        sh = float((got - ref).abs().max()) / (
+            BWD_RTOL * float(ref.abs().max()) + BWD_ATOL)
+        if sh > share:
+            share, worst = sh, n
+    f64_rel = {k: abs(losses[k] - losses["f64"]) / abs(losses["f64"])
+               for k in ("cuda", "cpu")}
+    # the gamma network alone in float64, card against CPU: values and
+    # the gradient of a seeded weighted sum over t = 0, 1/T, ..., 1
+    from diffndm_tpu_torch.diffusion.learned_gamma import GammaNetwork
+
+    t = torch.linspace(0.0, 1.0, cfg.diffusion.timesteps + 1,
+                       dtype=torch.float64)
+    w = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        t.shape[0]))
+    net64 = {}
+    for device in ("cuda", "cpu"):
+        net = GammaNetwork().to(device, torch.float64)
+        net.load_state_dict(first["gamma"])
+        with torch.enable_grad():
+            out = net(t.to(device))
+            (out * w.to(device)).sum().backward()
+        net64[device] = [out.detach().cpu()] + [
+            torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+            for p in net.parameters()]
+    net_rel = max(float((a - b).abs().max()) / float(b.abs().max().clamp_min(
+        1e-300)) for a, b in zip(net64["cuda"], net64["cpu"]))
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"[variants] (f) train CLI: {len(records)} micro-steps (VLB, "
+        f"learned schedule, seeded state) at [{N_SAMPLES}, N, 192]: losses "
+        f"{[round(r['loss'], 3) for r in records]}; ms per micro-step (host "
+        f"clock, synchronised) median {float(np.median(ms)):.2f}, min "
+        f"{min(ms):.2f}, max {max(ms):.2f}; peak device memory per "
+        f"micro-step {peak / 2**20:.1f} MiB; launches {launches} (per "
+        f"micro-step {per_step}; mismatches {bad[:3]}); checkpoint at step "
+        f"{step}, the gamma network moved by up to {moved:.3e}")
+    log(f"[variants] (f) first micro-step ({TRAIN_CHECK_B} rows, fixed "
+        f"draws), card vs CPU: loss {losses['cuda']:.6f} / "
+        f"{losses['cpu']:.6f} (rel {loss_rel:.2e}, gate {TRAIN_RTOL}; "
+        f"float64 {losses['f64']:.6f}: card {f64_rel['cuda']:.2e}, CPU "
+        f"{f64_rel['cpu']:.2e} from it); gradients at most {share:.3f} of "
+        f"their gate (worst {worst}): the dynamics tree, gamma_0 and "
+        f"gamma_1 against the CPU, {BWD_RTOL} x max|CPU| + {BWD_ATOL}; "
+        f"the gamma network alone in float64, card vs CPU, values and "
+        f"gradients max rel {net_rel:.2e} (gate {GAMMA_F64_RTOL}); not "
+        f"gated, the float32 gradients of the gamma network's layers, "
+        f"distance from float64 over its largest entry (card / CPU): "
+        f"{ {n: [f'{e:.2e}' for e in v] for n, v in layers.items()} }")
+    if bad or len(records) != VARIANT_TRAIN_STEPS or \
+            step != VARIANT_TRAIN_STEPS:
+        raise AssertionError("[variants] (f) launch counts or steps off")
+    if not (moved > 0 and all(np.isfinite(r["loss"]) for r in records)):
+        raise AssertionError("[variants] (f) the gamma network did not "
+                             "train, or a loss is not finite")
+    if not (share <= 1.0 and loss_rel <= TRAIN_RTOL
+            and net_rel <= GAMMA_F64_RTOL):
+        raise AssertionError("[variants] (f) the card's gradients disagree "
+                             "with the CPU's")
+    return dict(launches=launches, ms=ms, peak_mib=peak / 2**20,
+                gamma_moved=moved, grad_gate_share=share,
+                loss_rel=loss_rel, gamma_layers_from_f64=layers,
+                gamma_f64_rel=net_rel)
+
+
+# ---------------------------------------------------------------------------
 # backward kernels
 # ---------------------------------------------------------------------------
 
@@ -3394,15 +3754,17 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
-                                           "train", "vina", "joint"],
+                                           "train", "vina", "joint",
+                                           "variants"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
                         "run the backward checks and the train phase "
                         "alone, run the kernel checks and the vina, "
-                        "optimize-vina and dock phases alone, or run the "
+                        "optimize-vina and dock phases alone, run the "
                         "kernel checks and the joint, joint-train and "
-                        "configs phases alone")
+                        "configs phases alone, or run the variants phase "
+                        "alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3491,6 +3853,12 @@ def main() -> int:
             "cuda", guided_cfg)})
         inpaint_quality_spread(torch, ds, make_model("cuda"))
         return 0
+    if opts.only == "variants":
+        with tempfile.TemporaryDirectory() as tmp:
+            variants_phase(torch, K, ds, ProcessedLigandPocketDataset(
+                os.path.join(DATA, "train.npz")), tmp)
+        log("[variants] done (--only variants: no result)")
+        return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
     train_ds, batches = train_batches(torch, model.device)
     bwd_results = backward_phase(torch, K, batches,
@@ -3562,6 +3930,9 @@ def main() -> int:
         joint_train_launches, joint_train = joint_train_phase(
             torch, K, ds, pdb, sdf)
         config_checks, ca_launches = configs_phase(torch, K, ds, pdb, sdf)
+    with tempfile.TemporaryDirectory() as tmp:
+        variants, variant_train_launches = variants_phase(
+            torch, K, ds, train_ds, tmp)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -3597,6 +3968,13 @@ def main() -> int:
                                  for k in CALL_KEYS}
                          for label, run in joint.items()},
                   ca_generate_launches=ca_launches[name],
+                  variants_launches={
+                      label: {"forward": res["forward_launches"][name],
+                              "sample": res["sample_launches"][name]}
+                      for label, res in variants.items()},
+                  variants={label: {k: v for k, v in res.items()
+                                    if not k.endswith("launches")}
+                            for label, res in variants.items()},
                   configs={cfg: {k: checks[name][k] for k in (
                       *CALL_KEYS, "joint_first") if k in checks[name]}
                            for cfg, checks in config_checks.items()})
@@ -3620,6 +3998,7 @@ def main() -> int:
                 if c in r} for k, r in at.items()},
             ptxas=bwd_ptxas[name],
             joint_train_launches=joint_train_launches[name],
+            variants_train_launches=variant_train_launches[name],
             joint_train={c: joint_train[name][c] for c in (
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
                 "bound_ms", "bound_by", "blocks")}))

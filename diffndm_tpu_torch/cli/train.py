@@ -8,6 +8,9 @@ package's ``cli/train.py``), on the GPU unless ``--device cpu``.
   eval / epoch cadence follow the current invocation);
 - ``--set KEY=VALUE`` (dotted keys reach nested mappings) applies after
   the merge; values are read as YAML scalars;
+- with ``diffusion_noise_schedule: learned`` (and the ``vlb`` loss) the
+  schedule's gamma network trains with the denoiser and checkpoints
+  beside it;
 - every ``eval_epochs`` epochs: the validation loss (VLB), then ligands
   sampled from the EMA weights for the first validation pocket batch and
   scored by the chemistry dashboard, all in ``metrics.jsonl``; ``best``
@@ -127,8 +130,10 @@ def main(argv=None) -> dict:
     eval_model = DiffNDM(mcfg, size_histogram=hist, device=device)
     di = dataset_params[mcfg.dataset]
     generator = torch.Generator(device=device).manual_seed(tcfg.seed)
+    # a learned schedule's gamma network trains with the dynamics (VLB)
     trainer = Trainer(model.core, model.dynamics, tcfg,
-                      lj_rm=di["lennard_jones_rm"], generator=generator)
+                      lj_rm=di["lennard_jones_rm"], generator=generator,
+                      gamma=model.gamma)
     if args.resume:
         trainer.load_checkpoint(args.resume)
 
@@ -181,8 +186,10 @@ def main(argv=None) -> dict:
             val_losses.append(v)
             metrics = {"loss": v}
             if first_pocket is not None:
-                # sample from the EMA weights (the raw ones without EMA)
-                eval_model.set_params(trainer.ema_state_dict())
+                # sample from the EMA weights (the raw ones without EMA),
+                # a learned schedule's included
+                eval_model.set_params(trainer.ema_state_dict(),
+                                      trainer.gamma_ema_state_dict() or None)
                 metrics.update(dashboard.sample_and_analyze(
                     eval_model, first_pocket.to(device), epoch=epoch,
                     dump_sdf=True, seed=tcfg.seed + n_evals))

@@ -38,6 +38,9 @@ class EGNNConfig:
     edge_embedding_dim: Optional[int] = None
     update_pocket_coords: bool = False  # conditional mode freezes the pocket
     condition_time: bool = True
+    # 'egnn_dynamics' (the EGNN) or 'gnn_dynamics' (a plain GNN over the
+    # concatenated [x, h]); the YAML loader does not read it
+    mode: str = "egnn_dynamics"
     # recompute each block's edge tensors in the backward instead of
     # keeping them: the edge-chain kernels' backward already saves only
     # their inputs, so this is read and has nothing left to save

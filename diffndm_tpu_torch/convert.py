@@ -2,13 +2,20 @@
 PyTorch checkpoint -> a JAX-shaped tree.
 
 The JAX ``EGNNDynamics`` parameters are a nested dict (optionally under a
-top-level ``"params"`` key).  Two kinds of leaves occur:
+top-level ``"params"`` key).  Three kinds of leaves occur:
 
 - ``<layer>/kernel`` and ``<layer>/bias`` of a flax ``nn.Dense``: these
   become ``<layer>.weight`` (transposed to torch's [out, in]) and
   ``<layer>.bias`` of an ``nn.Linear``;
-- explicit ``<name>_kernel`` / ``<name>_bias`` arrays of the EGNN layers:
-  the port keeps them as parameters of the same name and layout.
+- ``<layer>/embedding`` of a flax ``nn.Embed`` (the edge-type embedding):
+  ``<layer>.weight`` of an ``nn.Embedding``, in the same [num, dim]
+  layout;
+- explicit ``<name>_kernel`` / ``<name>_bias`` arrays of the EGNN and GNN
+  layers: the port keeps them as parameters of the same name and layout.
+
+The learned schedule's ``GammaNetwork`` tree (``l1``, ``l2``, ``l3``,
+``gamma_0``, ``gamma_1``) keeps its [din, dout] kernels as they are:
+``gamma_params_from_jax`` reads it and ``params_to_jax`` writes it back.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if parts[-1] == "kernel":
             key = ".".join(parts[:-1]) + ".weight"
             value = value.T
+        elif parts[-1] == "embedding":
+            key = ".".join(parts[:-1]) + ".weight"
         elif parts[-1] == "bias":
             key = ".".join(parts[:-1]) + ".bias"
         else:
@@ -58,12 +67,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of ``params_from_jax``: a state_dict of the port's
     EGNNDynamics -> the flat JAX tree (``params/<module>/kernel`` for an
-    ``nn.Linear`` weight, transposed back; explicit parameters under their
-    own names)."""
+    ``nn.Linear`` weight, transposed back; ``params/edge_embedding/
+    embedding``; explicit parameters under their own names).  Also the
+    inverse of ``gamma_params_from_jax``, whose kernels and biases are
+    explicit parameters."""
     out = {}
     for key, value in state.items():
         value = value.detach().cpu().numpy().astype(np.float32)
-        if key.endswith(".weight"):
+        if key.endswith("edge_embedding.weight"):
+            path = key[:-len(".weight")] + "/embedding"
+        elif key.endswith(".weight"):
             path, value = key[:-len(".weight")] + "/kernel", value.T
         elif key.endswith(".bias"):
             path = key[:-len(".bias")] + "/bias"
@@ -71,6 +84,38 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             path = key
         out["params/" + path.replace(".", "/")] = np.ascontiguousarray(value)
     return out
+
+
+def gamma_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax ``GammaNetwork`` tree (optionally under ``"params"``) ->
+    the state_dict of ``diffusion.learned_gamma.GammaNetwork``: the
+    ``PositiveLinear`` kernels stay [din, dout]."""
+    state = {}
+    for path, value in flatten_tree(tree).items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        state[".".join(parts)] = torch.tensor(
+            np.asarray(value, dtype=np.float32))
+    expected = {f"l{i}.{k}" for i in (1, 2, 3) for k in ("kernel", "bias")}
+    if set(state) != expected | {"gamma_0", "gamma_1"}:
+        raise ValueError(f"not a GammaNetwork tree: {sorted(state)}")
+    return state
+
+
+def split_trees(flat: dict):
+    """A flat parameter tree -> (dynamics tree, gamma tree or None): a
+    tree with a learned schedule's gamma network holds the two under
+    ``dynamics/`` and ``gamma/``."""
+    if not any(k.startswith("gamma/") for k in flat):
+        return flat, None
+    trees = {"dynamics": {}, "gamma": {}}
+    for key, value in flat.items():
+        head, _, rest = key.partition("/")
+        if head not in trees:
+            raise ValueError(f"{key}: outside the dynamics and gamma trees")
+        trees[head][rest] = value
+    return trees["dynamics"], trees["gamma"]
 
 
 def adjust_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:

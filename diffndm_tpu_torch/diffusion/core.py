@@ -1,7 +1,10 @@
 """Conditional variational-DDPM math over padded batches.
 
 The JAX package's ``CondDiffusion``: sampling, and the likelihood terms
-of the training loss (KL prior, the t = 0 reconstruction).  Per-sample
+of the training loss (KL prior, the t = 0 reconstruction); with
+``simple`` its ``pocket_conditioning_simple`` variant (no projection to
+the ligand-COM-free subspace, the full-dimensional likelihood; the caller
+subtracts the pocket's centre of mass).  Per-sample
 gammas are [B] tensors broadcast as [B, 1, 1].  Every function that draws
 noise takes it as an optional ``noise`` argument (the replay tests feed
 the noise JAX drew); otherwise it draws from the given
@@ -10,6 +13,7 @@ the noise JAX drew); otherwise it draws from the given
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Tuple
 
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 
 from diffndm_tpu_torch.config import DiffusionConfig
 from diffndm_tpu_torch.diffusion import schedules as S
+from diffndm_tpu_torch.diffusion.learned_gamma import LearnedGamma
 from diffndm_tpu_torch.diffusion.schedules import GammaSchedule
 from diffndm_tpu_torch.ops.segment import (masked_mean, remove_mean_ligand,
                                            sum_except_batch)
@@ -56,6 +61,26 @@ class DiffusionSettings:
         self.residue_nf = residue_nf
         self.n_dims = n_dims
 
+    @contextlib.contextmanager
+    def run_schedule(self, timesteps: int):
+        """Within, for a sampling run of ``timesteps`` reverse steps: a
+        learned schedule's gamma on the run's grid k / timesteps, its
+        network evaluated once (no gradient) and looked up by the steps
+        (``GammaSchedule`` rounds t * timesteps: exact on the grid) instead
+        of at every call; the same values, the reductions batched over
+        other rows.  A predefined schedule stays as it is."""
+        learned = self.schedule
+        if not isinstance(learned, LearnedGamma):
+            yield
+            return
+        with torch.no_grad():
+            grid = learned(torch.arange(timesteps + 1) / timesteps)
+        self.schedule = GammaSchedule(grid, timesteps, grid.device)
+        try:
+            yield
+        finally:
+            self.schedule = learned
+
     # -- normalisation ------------------------------------------------------
     def normalize_xh(self, xh: torch.Tensor, mask: torch.Tensor):
         nx, nh = self.cfg.norm_values
@@ -75,6 +100,19 @@ class DiffusionSettings:
 class CondDiffusion(DiffusionSettings):
     """The conditional model's diffusion math."""
 
+    def __init__(self, schedule, cfg: DiffusionConfig, atom_nf: int,
+                 residue_nf: int, n_dims: int = 3, simple: bool = False):
+        super().__init__(schedule, cfg, atom_nf, residue_nf, n_dims)
+        self.simple = simple
+
+    def _project(self, out_x, pocket_x, lig_mask, pocket_mask):
+        """Re-centre both parts on the ligand's centre of mass; in the
+        simple variant only mask them."""
+        if self.simple:
+            return (out_x * lig_mask[..., None],
+                    pocket_x * pocket_mask[..., None])
+        return remove_mean_ligand(out_x, pocket_x, lig_mask, pocket_mask)
+
     # -- schedule shortcut -----------------------------------------------------
     def gamma_int(self, step) -> torch.Tensor:
         """gamma at integer step indices (0..T), any shape."""
@@ -91,8 +129,8 @@ class CondDiffusion(DiffusionSettings):
         eps = draw_noise(xh_lig, noise, generator) * lig_mask[..., None]
         z_t = a * xh_lig + s * eps
         nd = self.n_dims
-        zx, px = remove_mean_ligand(z_t[..., :nd], xh_pocket[..., :nd],
-                                    lig_mask, pocket_mask)
+        zx, px = self._project(z_t[..., :nd], xh_pocket[..., :nd],
+                               lig_mask, pocket_mask)
         z_t = torch.cat([zx, z_t[..., nd:]], -1)
         xh_pocket = torch.cat([px, xh_pocket[..., nd:]], -1)
         return z_t, xh_pocket, eps
@@ -105,8 +143,8 @@ class CondDiffusion(DiffusionSettings):
         eps = draw_noise(mu_lig, noise, generator) * lig_mask[..., None]
         out = mu_lig + _b11(sigma) * eps
         nd = self.n_dims
-        ox, px = remove_mean_ligand(out[..., :nd], xh_pocket[..., :nd],
-                                    lig_mask, pocket_mask)
+        ox, px = self._project(out[..., :nd], xh_pocket[..., :nd],
+                               lig_mask, pocket_mask)
         out = torch.cat([ox, out[..., nd:]], -1)
         xh_pocket = torch.cat([px, xh_pocket[..., nd:]], -1)
         return out, xh_pocket
@@ -181,7 +219,7 @@ class CondDiffusion(DiffusionSettings):
         x_pocket, h_pocket), unnormalised; ligand types are the one-hot
         argmax of the types decoded from z0."""
         b = z0_lig.shape[0]
-        gamma_0 = self.schedule.table[0].expand(b)
+        gamma_0 = self.gamma_int(torch.zeros(b, device=z0_lig.device))
         sigma_x = S.snr(-0.5 * gamma_0)
         t_zeros = torch.zeros(b, device=z0_lig.device)
         eps_lig, _ = eps_fn(z0_lig, xh_pocket, t_zeros, lig_mask,
@@ -206,7 +244,9 @@ class CondDiffusion(DiffusionSettings):
     # -- loss terms -------------------------------------------------------------
     def subspace_dimensionality(self, num_nodes):
         """Degrees of freedom of the ligand coordinates: (N - 1) * 3 in the
-        ligand-COM-free subspace."""
+        ligand-COM-free subspace, N * 3 in the simple variant."""
+        if self.simple:
+            return num_nodes * self.n_dims
         return (num_nodes - 1) * self.n_dims
 
     def kl_prior(self, xh_lig, lig_mask, num_nodes):
@@ -230,7 +270,7 @@ class CondDiffusion(DiffusionSettings):
 
     def log_constants_p_x_given_z0(self, num_nodes):
         """The normalising constants of p(x | z0), [B]."""
-        gamma_0 = self.schedule.table[0]
+        gamma_0 = self.gamma_int(0)
         dof = self.subspace_dimensionality(num_nodes)
         return dof * (-0.5 * gamma_0 - 0.5 * math.log(2 * math.pi))
 

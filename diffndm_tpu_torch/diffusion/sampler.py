@@ -123,8 +123,15 @@ class ConditionalSampler:
         ``noise`` fixes it.  adjust: the AdjustNet (any z -> adjustment
         callable), applied at every step when given; collect_rl: keep the
         stacks ``rl_update`` needs."""
+        timesteps = (timesteps or self.cfg.timesteps
+                     or self.core.schedule.timesteps)
+        with self.core.run_schedule(timesteps):
+            return self._sample(pocket, num_nodes_lig, timesteps, generator,
+                                noise, adjust, collect_rl)
+
+    def _sample(self, pocket: NodeBatch, num_nodes_lig, timesteps: int,
+                generator, noise, adjust, collect_rl) -> SampleResult:
         core = self.core
-        timesteps = timesteps or self.cfg.timesteps or core.schedule.timesteps
         device = pocket.x.device
         b = pocket.x.shape[0]
         lig_mask = self.ligand_mask(num_nodes_lig, device)
@@ -144,6 +151,10 @@ class ConditionalSampler:
         bh = core.cfg.norm_biases[1]
         p_x = pocket.x / nx * pocket_mask[..., None]
         p_h = (pocket.h - bh) / nh * pocket_mask[..., None]
+        if core.simple:
+            # the simple variant starts from the pocket's centre of mass
+            com = masked_mean(p_x, pocket_mask, dim=1, keepdim=True)
+            p_x = (p_x - com) * pocket_mask[..., None]
         z_lig, xh_pocket = init_ligand_from_pocket(
             core, p_x, p_h, lig_mask, pocket_mask,
             noise=fixed("init"), generator=generator)

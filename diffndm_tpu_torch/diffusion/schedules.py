@@ -1,8 +1,10 @@
 """Noise schedules and the alpha/sigma algebra of the variational DDPM.
 
-gamma = log(sigma^2 / alpha^2) is a float64 numpy table of length T+1,
-stored as float32; gamma(t) indexes it by round(t * T), so a trajectory
-with fewer steps than T reads the T-step table.
+gamma = log(sigma^2 / alpha^2).  A predefined schedule is a float64 numpy
+table of length T+1, stored as float32; gamma(t) indexes it by
+round(t * T), so a trajectory with fewer steps than T reads the T-step
+table.  The learned schedule (``learned``) is a network
+(``learned_gamma.LearnedGamma``) with the same interface.
 """
 
 from __future__ import annotations
@@ -10,6 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from diffndm_tpu_torch.diffusion.learned_gamma import (GammaNetwork,
+                                                       LearnedGamma)
 
 
 def clip_noise_schedule(alphas2: np.ndarray, clip_value: float = 0.001
@@ -54,9 +59,8 @@ def gamma_table(name: str, timesteps: int, precision: float = 1e-4
         power = float(name.split("_")[1])
         alphas2 = polynomial_alphas2(timesteps, s=precision, power=power)
     elif name == "learned":
-        raise NotImplementedError("the learned noise schedule (the JAX "
-                                  "package's diffusion/learned_gamma.py) "
-                                  "is not ported")
+        raise ValueError("the learned schedule has no fixed table: "
+                         "make_schedule builds its network")
     else:
         raise ValueError(f"unknown noise schedule {name!r}")
     sigmas2 = 1.0 - alphas2
@@ -84,7 +88,11 @@ class GammaSchedule:
 
 
 def make_schedule(name: str, timesteps: int, precision: float = 1e-4,
-                  device="cpu") -> GammaSchedule:
+                  device="cpu"):
+    """The named schedule on ``device``: a ``GammaSchedule``, or for
+    ``learned`` a ``LearnedGamma`` over a freshly initialised network."""
+    if name == "learned":
+        return LearnedGamma(GammaNetwork().to(device), timesteps)
     return GammaSchedule(gamma_table(name, timesteps, precision), timesteps,
                          device)
 

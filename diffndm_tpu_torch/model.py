@@ -11,7 +11,12 @@ guided), diversifies ligands by partial noising and denoising, and turns
 the result into filtered molecules.  A joint-mode config (``mode:
 'joint'``) also gets ``joint_sampler``, which generates or inpaints ligand
 and pocket together; its conditional entry points run the conditional
-sampler on the joint-mode denoiser, as the JAX package does.
+sampler on the joint-mode denoiser, as the JAX package does.  The
+JAX package's model variants build from their configs too: the sinusoid
+distance embedding, ``mean`` aggregation, the edge-type embedding, the
+GNN denoiser (``EGNNConfig.mode``), ``pocket_conditioning_simple`` and
+the learned noise schedule (VLB only), whose gamma network weights travel
+beside the denoiser's.
 
 The JAX package picks a sorted-band column window per PDB pocket
 (``DIFFNDM_AUTO_BAND``).  The window provably drops only pairs beyond the
@@ -34,8 +39,10 @@ from diffndm_tpu_torch.chem.sanitize import process_molecule
 from diffndm_tpu_torch.config import (ModelConfig, SampleConfig, load_yaml,
                                       model_config_from_yaml)
 from diffndm_tpu_torch.constants import dataset_params
-from diffndm_tpu_torch.convert import (load_reference_checkpoint,
-                                       params_from_jax, params_to_jax)
+from diffndm_tpu_torch.convert import (gamma_params_from_jax,
+                                       load_reference_checkpoint,
+                                       params_from_jax, params_to_jax,
+                                       split_trees)
 from diffndm_tpu_torch.data.dataset import LigandPocketPair
 from diffndm_tpu_torch.data.pdb import parse_pdb
 from diffndm_tpu_torch.data.pocket import (get_pocket_from_ligand,
@@ -68,10 +75,9 @@ class DiffNDM:
         ``sample_cfg`` enables guidance or RL training: "native" (the C++
         scorer, built at first use; raises if it cannot be built) or
         "python"."""
-        if model_cfg.mode not in ("pocket_conditioning", "joint"):
-            raise NotImplementedError(
-                f"mode {model_cfg.mode!r}: the port runs the "
-                "pocket-conditional and the joint model only")
+        if model_cfg.mode not in ("pocket_conditioning",
+                                  "pocket_conditioning_simple", "joint"):
+            raise ValueError(f"unknown model mode {model_cfg.mode!r}")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.sample_cfg = sample_cfg or SampleConfig()
@@ -80,11 +86,18 @@ class DiffNDM:
                                      model_cfg.residue_nf).to(self.device)
         self.dynamics.eval()
         d = model_cfg.diffusion
+        if d.noise_schedule == "learned" and d.loss_type != "vlb":
+            raise ValueError("a learned noise schedule requires the vlb "
+                             "objective")
         schedule = S.make_schedule(d.noise_schedule, d.timesteps,
                                    d.noise_precision, device=self.device)
-        S.check_norm_values(schedule, d.norm_values[1])
-        self.core = CondDiffusion(schedule, d, model_cfg.atom_nf,
-                                  model_cfg.residue_nf)
+        # the gamma network of a learned schedule, else None
+        self.gamma = getattr(schedule, "network", None)
+        if self.gamma is None:
+            S.check_norm_values(schedule, d.norm_values[1])
+        self.core = CondDiffusion(
+            schedule, d, model_cfg.atom_nf, model_cfg.residue_nf,
+            simple=model_cfg.mode == "pocket_conditioning_simple")
         self.size_distribution = DistributionNodes(
             size_histogram if size_histogram is not None
             else default_histogram())
@@ -112,20 +125,37 @@ class DiffNDM:
 
     def load_params_npz(self, path: str) -> None:
         """Load a JAX parameter tree saved as a flat npz ('/'-joined keys,
-        e.g. ``assets/virtual_cond_v3b_ema.npz``)."""
+        e.g. ``assets/virtual_cond_v3b_ema.npz``).  With a learned
+        schedule the file holds the trees ``dynamics/...`` and
+        ``gamma/...`` (as ``save_params_npz`` writes them)."""
         with np.load(path) as f:
             tree = {k: f[k] for k in f.files}
-        self.dynamics.load_state_dict(params_from_jax(tree), strict=True)
+        dyn, gamma = split_trees(tree)
+        if (gamma is None) != (self.gamma is None):
+            raise ValueError(f"{path}: a gamma tree goes with a learned "
+                             f"noise schedule, and only with one")
+        self.set_params(params_from_jax(dyn), None if gamma is None
+                        else gamma_params_from_jax(gamma))
 
-    def set_params(self, state: Dict[str, torch.Tensor]) -> None:
+    def set_params(self, state: Dict[str, torch.Tensor],
+                   gamma_state: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> None:
         """Copy a state_dict of the denoiser (the trainer's EMA weights,
-        say) into the model's own parameters."""
+        say) into the model's own parameters; ``gamma_state``: that of a
+        learned schedule's gamma network, if given."""
         self.dynamics.load_state_dict(state, strict=True)
+        if gamma_state is not None:
+            self.gamma.load_state_dict(gamma_state, strict=True)
 
     def save_params_npz(self, path: str) -> None:
-        """The denoiser's weights as the flat JAX tree that
-        ``load_params_npz`` reads."""
-        np.savez(path, **params_to_jax(self.dynamics.state_dict()))
+        """The denoiser's weights (and a learned schedule's) as the flat
+        JAX tree that ``load_params_npz`` reads."""
+        out = params_to_jax(self.dynamics.state_dict())
+        if self.gamma is not None:
+            out = {f"dynamics/{k}": v for k, v in out.items()}
+            out.update({f"gamma/{k}": v for k, v in params_to_jax(
+                self.gamma.state_dict()).items()})
+        np.savez(path, **out)
 
     def load_reference_checkpoint(self, path: str) -> None:
         """Load the reference implementation's Lightning ``.ckpt`` (or a

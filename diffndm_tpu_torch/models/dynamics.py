@@ -1,7 +1,9 @@
 """Dynamics wrapper: encodes ligand atoms and pocket atoms into a joint
-feature space, builds the cutoff adjacency, runs the EGNN and decodes
-per-node noise predictions.  Conditional mode freezes the pocket: only the
-ligand rows' coordinate updates are computed.  Joint mode
+feature space, builds the cutoff adjacency (and, with
+``edge_embedding_dim``, a learned embedding of the three edge types), runs
+the EGNN (or, in ``gnn_dynamics`` mode, the plain GNN over [x, h]) and
+decodes per-node noise predictions.  Conditional mode freezes the pocket:
+only the ligand rows' coordinate updates are computed.  Joint mode
 (``update_pocket_coords``) moves every row and projects the velocity onto
 the zero centre-of-mass subspace of the whole ligand and pocket cloud."""
 
@@ -14,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffndm_tpu_torch.config import EGNNConfig
-from diffndm_tpu_torch.models.egnn import EGNN, pairwise_d2
+from diffndm_tpu_torch.models.egnn import EGNN, GNN, pairwise_d2
 from diffndm_tpu_torch.ops.segment import masked_mean
 
 
@@ -44,6 +46,15 @@ def build_adjacency(x_lig, x_pocket, lig_mask, pocket_mask,
            + pp * within(cfg.edge_cutoff_pocket)
            + cross * within(cfg.edge_cutoff_interaction))
     return (adj * pair).float()
+
+
+def edge_types(nl: int, npk: int, device) -> torch.Tensor:
+    """[N, N] edge type by row position: 0 ligand-pocket, 1 ligand-ligand,
+    2 pocket-pocket."""
+    is_lig = torch.cat([torch.ones(nl, dtype=torch.long, device=device),
+                        torch.zeros(npk, dtype=torch.long, device=device)])
+    return (is_lig[:, None] * is_lig[None, :]
+            + 2 * (1 - is_lig)[:, None] * (1 - is_lig)[None, :])
 
 
 def update_coords_mask(lig_mask: torch.Tensor, pocket_mask: torch.Tensor
@@ -76,7 +87,17 @@ class EGNNDynamics(nn.Module):
         self.residue_decoder_l0 = nn.Linear(jn, 2 * residue_nf)
         self.residue_decoder_l1 = nn.Linear(2 * residue_nf, residue_nf)
         nf = jn + (1 if cfg.condition_time else 0)
-        self.egnn = EGNN(cfg, in_node_nf=nf, out_node_nf=nf)
+        in_edge_nf = cfg.edge_embedding_dim or 0
+        if cfg.edge_embedding_dim is not None:
+            self.edge_embedding = nn.Embedding(3, cfg.edge_embedding_dim)
+        if cfg.mode == "egnn_dynamics":
+            self.egnn = EGNN(cfg, in_node_nf=nf, out_node_nf=nf,
+                             in_edge_nf=in_edge_nf)
+        elif cfg.mode == "gnn_dynamics":
+            self.gnn = GNN(cfg, in_node_nf=nf + n_dims,
+                           out_node_nf=nf + n_dims, in_edge_nf=in_edge_nf)
+        else:
+            raise ValueError(f"unknown dynamics mode {cfg.mode!r}")
 
     def _mlp(self, name: str, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(getattr(self, f"{name}_l0")(x))
@@ -99,14 +120,24 @@ class EGNNDynamics(nn.Module):
             h = torch.cat([h, h_time], dim=-1)
 
         adj = build_adjacency(x_lig, x_poc, lig_mask, pocket_mask, cfg)
+        edge_attr = None
+        if cfg.edge_embedding_dim is not None:
+            emb = self.edge_embedding(edge_types(nl, x_poc.shape[1],
+                                                 x.device))
+            edge_attr = emb[None].expand(h.shape[0], *emb.shape)
         # joint mode moves every row; conditional mode only the ligand's
         joint = cfg.update_pocket_coords
-        h_final, x_final = self.egnn(
-            h, x.contiguous(), adj, mask,
-            update_coords_mask=(None if joint else
-                                update_coords_mask(lig_mask, pocket_mask)),
-            coord_rows=None if joint else nl)
-        vel = (x_final - x) * mask[..., None]
+        if cfg.mode == "egnn_dynamics":
+            h_final, x_final = self.egnn(
+                h, x.contiguous(), adj, mask,
+                update_coords_mask=(None if joint else update_coords_mask(
+                    lig_mask, pocket_mask)),
+                coord_rows=None if joint else nl, edge_attr=edge_attr)
+            vel = (x_final - x) * mask[..., None]
+        else:
+            out = self.gnn(torch.cat([x, h], dim=-1), adj, mask, edge_attr)
+            vel = out[..., :nd] * mask[..., None]
+            h_final = out[..., nd:]
         if joint:
             vel = vel - masked_mean(vel, mask, dim=1, keepdim=True)
             vel = vel * mask[..., None]

@@ -1,9 +1,20 @@
-"""E(n)-equivariant graph network over padded dense batches.
+"""E(n)-equivariant graph network over padded dense batches, and the
+plain GNN denoiser.
 
-The counterpart of the JAX package's ``models/egnn.py`` on its fused
-kernel path: scalar edge features (current and initial squared distance),
-``sum`` aggregation, no sinusoid embedding.  The edge chain of every GCL
-and of every coordinate update runs in ``ops.egnn_kernels``.
+The counterpart of the JAX package's ``models/egnn.py``, with its two edge
+chains, chosen by the configuration under the JAX package's own
+condition:
+
+- the kernel path: the two scalar edge features (current and initial
+  squared distance), ``sum`` aggregation, no sinusoid embedding and no
+  extra edge features.  The edge chain of every GCL and of every
+  coordinate update runs in ``ops.egnn_kernels``, where the JAX package
+  runs its Pallas kernels;
+- the dense chain: every other configuration (the sinusoid distance
+  embedding, ``mean`` aggregation, extra edge features such as the
+  edge-type embedding, and the ``GNN``).  It is the JAX package's
+  row-tiled path taken over all rows at once: the edge MLP over [B, N, N]
+  edge features and a masked sum (or mean) over the columns.
 
 Layer weights are explicit parameters in the JAX layout (``x @ kernel``)
 with the JAX names, so a converted parameter tree loads one to one and the
@@ -12,7 +23,8 @@ kernels take the weights without a transpose.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -21,10 +33,72 @@ import torch.nn.functional as F
 from diffndm_tpu_torch.config import EGNNConfig
 from diffndm_tpu_torch.ops import egnn_kernels as K
 
+# the sinusoid distance embedding's resolution range and frequency ratio
+SIN_MAX_RES, SIN_MIN_RES, SIN_DIV = 15.0, 15.0 / 2000.0, 4.0
+
 
 def pairwise_d2(x: torch.Tensor) -> torch.Tensor:
     """[B, N, 3] -> [B, N, N] squared distances."""
     return ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+
+
+def sinusoid_dims() -> int:
+    """Features per distance of ``sinusoid_embed``: sin and cos of each
+    frequency."""
+    return 2 * (int(math.log(SIN_MAX_RES / SIN_MIN_RES, SIN_DIV)) + 1)
+
+
+def sinusoid_embed(d2: torch.Tensor) -> torch.Tensor:
+    """[...] squared distances -> [..., sinusoid_dims()] sin and cos of
+    the distance at geometric frequencies; no gradient flows through it."""
+    n_freq = sinusoid_dims() // 2
+    freqs = (2 * math.pi * SIN_DIV ** torch.arange(
+        n_freq, dtype=d2.dtype, device=d2.device) / SIN_MAX_RES)
+    emb = torch.sqrt(d2[..., None] + 1e-8) * freqs
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1).detach()
+
+
+def distance_features(d2: torch.Tensor, cfg: EGNNConfig) -> torch.Tensor:
+    """[B, N, N] squared distances -> [B, N, N, 1 or sinusoid_dims()]."""
+    return sinusoid_embed(d2) if cfg.sin_embedding else d2[..., None]
+
+
+def uses_kernels(cfg: EGNNConfig, in_edge_nf: int = 0) -> bool:
+    """Whether an EGNN of this configuration runs its edge chains in the
+    kernels (two scalar distance features, ``sum``) or densely."""
+    return (not cfg.sin_embedding and in_edge_nf == 0
+            and cfg.aggregation_method == "sum")
+
+
+class Edges(NamedTuple):
+    """The graph of one block.  The kernel path reads ``d2c`` / ``d2i``
+    (current and initial squared distances, [B, N, N]); the dense chain
+    reads ``feats`` [B, N, N, E] and, under ``mean``, ``deg`` [B, N, 1]
+    (the adjacency's row sums, at least 1)."""
+    adj: torch.Tensor
+    d2c: Optional[torch.Tensor] = None
+    d2i: Optional[torch.Tensor] = None
+    feats: Optional[torch.Tensor] = None
+    deg: Optional[torch.Tensor] = None
+
+
+def degree(adj: torch.Tensor, cfg: EGNNConfig) -> Optional[torch.Tensor]:
+    """max(row sum, 1) of the adjacency under ``mean`` aggregation."""
+    if cfg.aggregation_method == "sum":
+        return None
+    return adj.sum(-1, keepdim=True).clamp_min(1.0)
+
+
+def _aggregate(v: torch.Tensor, edges: Edges, cfg: EGNNConfig
+               ) -> torch.Tensor:
+    """v [B, R, N, F] over the first R rows -> [B, R, F]: the sum over the
+    edges, divided by normalization_factor (``sum``) or by the degree
+    (any other method, as in the JAX package)."""
+    rows = v.shape[1]
+    agg = (v * edges.adj[:, :rows, :, None]).sum(2)
+    if cfg.aggregation_method == "sum":
+        return agg / cfg.normalization_factor
+    return agg / edges.deg[:, :rows]
 
 
 class _ExplicitParams(nn.Module):
@@ -33,7 +107,7 @@ class _ExplicitParams(nn.Module):
     def _dense(self, name: str, din: int, dout: int, bias: bool = True,
                gain: float = 1.0) -> None:
         kernel = torch.empty(din, dout)
-        nn.init.normal_(kernel, std=gain / din ** 0.5)
+        nn.init.normal_(kernel, std=gain / max(din, 1) ** 0.5)
         self.register_parameter(f"{name}_kernel", nn.Parameter(kernel))
         if bias:
             self.register_parameter(f"{name}_bias",
@@ -44,9 +118,18 @@ class _ExplicitParams(nn.Module):
         bias = getattr(self, f"{name}_bias", None)
         return y if bias is None else y + bias
 
+    def _edge_hidden(self, name: str, h_rows: torch.Tensor, h: torch.Tensor,
+                     feats: torch.Tensor) -> torch.Tensor:
+        """The dense chain's first edge layer over rows h_rows [B, R, H]
+        and columns h [B, N, H]: silu(a_i + b_j + e_ij W_e), [B, R, N, H]."""
+        a = self._linear(f"{name}_src", h_rows)
+        b = self._linear(f"{name}_dst", h)
+        return F.silu(a[:, :, None, :] + b[:, None, :, :]
+                      + feats @ getattr(self, f"{name}_edge_kernel"))
+
 
 class GCL(_ExplicitParams):
-    """Edge MLP + optional sigmoid attention + masked-sum aggregation +
+    """Edge MLP + optional sigmoid attention + masked aggregation +
     residual node MLP."""
 
     def __init__(self, cfg: EGNNConfig, edge_nf: int = 2):
@@ -62,18 +145,25 @@ class GCL(_ExplicitParams):
         self._dense("node_l1", 2 * h, h)
         self._dense("node_l2", h, h)
 
-    def forward(self, h, d2c, d2i, adj, node_mask):
+    def forward(self, h, edges: Edges, node_mask):
         cfg = self.cfg
-        a = self._linear("edge_src", h)
-        b = self._linear("edge_dst", h)
-        if cfg.attention:
-            watt, batt = self.att_kernel, self.att_bias
+        if edges.feats is None:
+            if cfg.attention:
+                watt, batt = self.att_kernel, self.att_bias
+            else:
+                watt, batt = h.new_zeros(cfg.hidden_nf, 1), None
+            agg = K.gcl_messages(
+                self._linear("edge_src", h), self._linear("edge_dst", h),
+                edges.d2c, edges.d2i, edges.adj, self.edge_edge_kernel,
+                self.edge_l2_kernel, self.edge_l2_bias, watt, batt,
+                attention=cfg.attention,
+                norm_factor=cfg.normalization_factor)
         else:
-            watt, batt = h.new_zeros(cfg.hidden_nf, 1), None
-        agg = K.gcl_messages(a, b, d2c, d2i, adj, self.edge_edge_kernel,
-                             self.edge_l2_kernel, self.edge_l2_bias, watt,
-                             batt, attention=cfg.attention,
-                             norm_factor=cfg.normalization_factor)
+            m = F.silu(self._linear(
+                "edge_l2", self._edge_hidden("edge", h, h, edges.feats)))
+            if cfg.attention:
+                m = m * torch.sigmoid(self._linear("att", m))
+            agg = _aggregate(m, edges, cfg)
         out = F.silu(self._linear("node_l1", torch.cat([h, agg], dim=-1)))
         h = h + self._linear("node_l2", out)
         return h * node_mask[..., None]
@@ -99,13 +189,23 @@ class EquivariantUpdate(_ExplicitParams):
             self._dense(f"{name}_out", h, 1, bias=False, gain=1e-3)
         self.names = names
 
-    def forward(self, h, x, d2c, d2i, adj, node_mask,
+    def forward(self, h, x, edges: Edges, node_mask,
                 update_coords_mask: Optional[torch.Tensor] = None,
                 coord_rows: Optional[int] = None):
-        cfg = self.cfg
         mask_f = node_mask[..., None]
         center = ((x * mask_f).sum(1, keepdim=True)
                   / mask_f.sum(1, keepdim=True).clamp_min(1e-12))
+        if edges.feats is None:
+            agg = self._kernel_update(h, x, edges, center, coord_rows)
+        else:
+            agg = self._dense_update(h, x, edges, center, coord_rows)
+        if update_coords_mask is not None:
+            agg = agg * update_coords_mask
+        x = x + agg
+        return x * node_mask[..., None]
+
+    def _kernel_update(self, h, x, edges: Edges, center, coord_rows):
+        cfg = self.cfg
         kw = dict(tanh=cfg.tanh, coords_range=self.coords_range,
                   norm_constant=cfg.norm_constant,
                   norm_factor=cfg.normalization_factor, n_rows=coord_rows)
@@ -118,67 +218,156 @@ class EquivariantUpdate(_ExplicitParams):
         if len(names) == 2:
             # difference and cross direction over the same rows and graph:
             # one launch
-            agg = K.edge_vector_reduce_pair(a, b, d2c, d2i, adj, x, center,
-                                            we, w2, b2, wout, **kw)
-        else:
-            agg = K.edge_vector_reduce(a[0], b[0], d2c, d2i, adj, x, center,
-                                       we[0], w2[0], b2[0], wout[0],
-                                       cross=False, **kw)
-        if update_coords_mask is not None:
-            agg = agg * update_coords_mask
-        x = x + agg
-        return x * node_mask[..., None]
+            return K.edge_vector_reduce_pair(
+                a, b, edges.d2c, edges.d2i, edges.adj, x, center, we, w2, b2,
+                wout, **kw)
+        return K.edge_vector_reduce(a[0], b[0], edges.d2c, edges.d2i,
+                                    edges.adj, x, center, we[0], w2[0], b2[0],
+                                    wout[0], cross=False, **kw)
+
+    def _dense_update(self, h, x, edges: Edges, center, coord_rows):
+        """The dense chain.  Under ``sum`` only the leading ``coord_rows``
+        rows are computed (the rest are frozen and their update is zero),
+        as in the JAX package; under ``mean`` every row is."""
+        cfg = self.cfg
+        n = x.shape[1]
+        rows = n
+        if coord_rows is not None and cfg.aggregation_method == "sum":
+            rows = min(coord_rows, n)
+        xr, feats = x[:, :rows], edges.feats[:, :rows]
+
+        def phi(name):
+            z = self._edge_hidden(name, h[:, :rows], h, feats)
+            return self._linear(f"{name}_out",
+                                F.silu(self._linear(f"{name}_l2", z)))
+
+        d = xr[:, :, None, :] - x[:, None, :, :]
+        radial = (d * d).sum(-1, keepdim=True)
+        diff = d / (torch.sqrt(radial + 1e-8) + cfg.norm_constant)
+        p = phi("coord")
+        trans = (diff * torch.tanh(p) * self.coords_range if cfg.tanh
+                 else diff * p)
+        if "cross" in self.names:
+            pc = phi("cross")
+            if cfg.tanh:
+                pc = torch.tanh(pc) * self.coords_range
+            ctr = center[:, :, None, :]
+            cr = torch.linalg.cross(xr[:, :, None, :] - ctr,
+                                    x[:, None, :, :] - ctr)
+            # padded pairs sit at the origin and self-edges give a zero
+            # cross product: no gradient through the norm there (the
+            # double where), the value unchanged
+            n2 = (cr * cr).sum(-1, keepdim=True)
+            pos = n2 > 0
+            norm = torch.where(pos, torch.sqrt(torch.where(
+                pos, n2, torch.ones_like(n2))), torch.zeros_like(n2))
+            trans = trans + cr / (norm + cfg.norm_constant) * pc
+        agg = _aggregate(trans, edges, cfg)
+        if rows < n:
+            agg = F.pad(agg, (0, 0, 0, n - rows))
+        return agg
 
 
 class EquivariantBlock(nn.Module):
     """inv_sublayers x GCL + one coordinate update."""
 
-    def __init__(self, cfg: EGNNConfig, coords_range: float):
+    def __init__(self, cfg: EGNNConfig, coords_range: float, edge_nf: int,
+                 kernels: bool):
         super().__init__()
+        self.cfg = cfg
+        self.kernels = kernels
         self.n_gcl = cfg.inv_sublayers
         for i in range(cfg.inv_sublayers):
-            self.add_module(f"gcl_{i}", GCL(cfg))
-        self.gcl_equiv = EquivariantUpdate(cfg, coords_range)
+            self.add_module(f"gcl_{i}", GCL(cfg, edge_nf))
+        self.gcl_equiv = EquivariantUpdate(cfg, coords_range, edge_nf)
 
-    def forward(self, h, x, adj, node_mask, d2i, update_coords_mask=None,
-                coord_rows=None):
+    def forward(self, h, x, adj, node_mask, e0, deg=None,
+                update_coords_mask=None, coord_rows=None):
+        """e0: the persistent edge features, the initial squared
+        distances [B, N, N] on the kernel path, else [B, N, N, E0] (the
+        initial distance features and the extra ones)."""
         d2c = pairwise_d2(x)
+        if self.kernels:
+            edges = Edges(adj, d2c=d2c, d2i=e0)
+        else:
+            feats = torch.cat([distance_features(d2c, self.cfg), e0], dim=-1)
+            edges = Edges(adj, feats=feats, deg=deg)
         for i in range(self.n_gcl):
-            h = getattr(self, f"gcl_{i}")(h, d2c, d2i, adj, node_mask)
-        x = self.gcl_equiv(h, x, d2c, d2i, adj, node_mask,
-                           update_coords_mask, coord_rows)
+            h = getattr(self, f"gcl_{i}")(h, edges, node_mask)
+        x = self.gcl_equiv(h, x, edges, node_mask, update_coords_mask,
+                           coord_rows)
         return h, x
 
 
 class EGNN(nn.Module):
     """embed -> n_layers equivariant blocks -> out-embed."""
 
-    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int):
+    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int,
+                 in_edge_nf: int = 0):
         super().__init__()
-        if cfg.sin_embedding or cfg.aggregation_method != "sum" \
-                or cfg.edge_embedding_dim is not None:
-            raise NotImplementedError(
-                "the port runs the dense kernel path only: no sin "
-                "embedding, 'sum' aggregation, no edge-type embedding")
         self.cfg = cfg
+        self.kernels = uses_kernels(cfg, in_edge_nf)
+        dist_nf = sinusoid_dims() if cfg.sin_embedding else 1
+        edge_nf = 2 * dist_nf + in_edge_nf
         self.embedding = nn.Linear(in_node_nf, cfg.hidden_nf)
         # the reference's per-layer coords_range division is dead code:
         # every block uses the full range
         for i in range(cfg.n_layers):
-            self.add_module(f"e_block_{i}",
-                            EquivariantBlock(cfg, float(cfg.coords_range)))
+            self.add_module(f"e_block_{i}", EquivariantBlock(
+                cfg, float(cfg.coords_range), edge_nf, self.kernels))
         self.embedding_out = nn.Linear(cfg.hidden_nf, out_node_nf)
 
     def forward(self, h, x, adj, node_mask, update_coords_mask=None,
-                coord_rows: Optional[int] = None):
-        """h: [B, N, in_node_nf]; x: [B, N, 3]; adj: [B, N, N].
+                coord_rows: Optional[int] = None,
+                edge_attr: Optional[torch.Tensor] = None):
+        """h: [B, N, in_node_nf]; x: [B, N, 3]; adj: [B, N, N];
+        edge_attr: [B, N, N, in_edge_nf] extra edge features, or None.
         ``coord_rows``: only the leading rows' coordinates can move
-        (conditional mode: the ligand block); the other rows' updates are
-        not computed.  Returns (h_out, x_out)."""
+        (conditional mode: the ligand block).  Returns (h_out, x_out)."""
+        cfg = self.cfg
         d2i = pairwise_d2(x)       # initial distances, a persistent feature
+        deg = None
+        if self.kernels:
+            e0 = d2i
+        else:
+            e0 = distance_features(d2i, cfg)
+            if edge_attr is not None:
+                e0 = torch.cat([e0, edge_attr], dim=-1)
+            deg = degree(adj, cfg)
         h = self.embedding(h)
-        for i in range(self.cfg.n_layers):
+        for i in range(cfg.n_layers):
             h, x = getattr(self, f"e_block_{i}")(
-                h, x, adj, node_mask, d2i, update_coords_mask, coord_rows)
+                h, x, adj, node_mask, e0, deg, update_coords_mask,
+                coord_rows)
         h = self.embedding_out(h)
         return h * node_mask[..., None], x
+
+
+class GNN(nn.Module):
+    """The non-equivariant denoiser over the concatenated [x, h]: embed ->
+    n_layers GCLs on the dense chain, whose edge features are the extra
+    ones only (none, when in_edge_nf is 0) -> out-embed."""
+
+    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int,
+                 in_edge_nf: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = nn.Linear(in_node_nf, cfg.hidden_nf)
+        for i in range(cfg.n_layers):
+            self.add_module(f"gcl_{i}", GCL(cfg, in_edge_nf))
+        self.embedding_out = nn.Linear(cfg.hidden_nf, out_node_nf)
+
+    def forward(self, xh, adj, node_mask,
+                edge_attr: Optional[torch.Tensor] = None):
+        """xh: [B, N, in_node_nf]; adj: [B, N, N]; edge_attr: [B, N, N,
+        in_edge_nf] or None.  Returns [B, N, out_node_nf]."""
+        cfg = self.cfg
+        if edge_attr is None:
+            b, n = xh.shape[:2]
+            edge_attr = xh.new_zeros(b, n, n, 0)
+        edges = Edges(adj, feats=edge_attr, deg=degree(adj, cfg))
+        h = self.embedding(xh)
+        for i in range(cfg.n_layers):
+            h = getattr(self, f"gcl_{i}")(h, edges, node_mask)
+        h = self.embedding_out(h)
+        return h * node_mask[..., None]

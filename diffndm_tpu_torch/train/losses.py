@@ -22,7 +22,7 @@ from diffndm_tpu_torch.config import TrainConfig
 from diffndm_tpu_torch.diffusion import schedules as S
 from diffndm_tpu_torch.diffusion.core import CondDiffusion, EpsFn, _b11
 from diffndm_tpu_torch.diffusion.joint import JointDiffusion, JointDraw
-from diffndm_tpu_torch.ops.segment import (remove_mean_joint,
+from diffndm_tpu_torch.ops.segment import (masked_mean, remove_mean_joint,
                                            remove_mean_ligand,
                                            sum_except_batch)
 from diffndm_tpu_torch.structs import NodeBatch
@@ -64,8 +64,14 @@ def conditional_loss_terms(core: CondDiffusion, eps_fn: EpsFn,
     gamma_s = core.schedule((t_int - 1) / T)
     gamma_t = core.schedule(t_int / T)
 
-    lx, px = remove_mean_ligand(xh0_lig[..., :nd], xh0_pocket[..., :nd],
-                                lm, pm)
+    if core.simple:
+        # the simple variant: both parts less the pocket's centre of mass
+        com = masked_mean(xh0_pocket[..., :nd], pm, dim=1, keepdim=True)
+        lx = (xh0_lig[..., :nd] - com) * lm[..., None]
+        px = (xh0_pocket[..., :nd] - com) * pm[..., None]
+    else:
+        lx, px = remove_mean_ligand(xh0_lig[..., :nd],
+                                    xh0_pocket[..., :nd], lm, pm)
     xh0_lig = torch.cat([lx, xh0_lig[..., nd:]], -1)
     xh0_pocket = torch.cat([px, xh0_pocket[..., nd:]], -1)
 

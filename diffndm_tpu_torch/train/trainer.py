@@ -15,10 +15,16 @@ The JAX package's ``train/trainer.py`` on one device, step for step:
   count 1, written at ``step % 50`` (``step`` counts micro-steps);
 - the EMA moves on every micro-step, also those that apply no update.
 
+With a learned noise schedule the trainer also trains its gamma network
+(``gamma``), as the JAX trainer trains the tree ``{"dynamics", "gamma"}``:
+one optimizer, one clip over the global norm of both, one EMA over both.
+
 Checkpoints are ``.npz`` files with the JAX tree's flat key names
-(``params/...``, ``ema_params/...``, ``step``), so ``convert.
-params_from_jax`` reads their weights; as in JAX they hold no optimizer
-state, and a resume starts with a fresh optimizer.
+(``params/...``, ``ema_params/...``, ``step``; with a gamma network
+``params/dynamics/...`` and ``params/gamma/...``), so ``convert.
+params_from_jax`` and ``convert.gamma_params_from_jax`` read their
+weights; as in JAX they hold no optimizer state, and a resume starts with
+a fresh optimizer.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ import numpy as np
 import torch
 
 from diffndm_tpu_torch.config import TrainConfig
-from diffndm_tpu_torch.convert import params_from_jax, params_to_jax
+from diffndm_tpu_torch.convert import (gamma_params_from_jax,
+                                       params_from_jax, params_to_jax,
+                                       split_trees)
 from diffndm_tpu_torch.diffusion.core import CondDiffusion
 from diffndm_tpu_torch.structs import NodeBatch
 from diffndm_tpu_torch.train.losses import (assemble_loss,
@@ -87,27 +95,41 @@ class AmsgradState:
 
 class Trainer:
     """Trains ``dynamics`` (an ``EGNNDynamics``) in place on the device
-    its parameters lie on."""
+    its parameters lie on, and with it ``gamma``, the ``GammaNetwork`` of
+    a learned schedule (the one ``core.schedule`` evaluates), when given.
+    ``names`` / ``params`` are the dynamics', ``gamma_names`` /
+    ``gamma_params`` the gamma network's (empty without one)."""
 
     def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
                  cfg: TrainConfig, lj_rm: Optional[np.ndarray] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 gamma: Optional[torch.nn.Module] = None):
         self.core = core
         self.module = dynamics
+        self.gamma = gamma
         self.cfg = cfg
         self.names = [n for n, _ in dynamics.named_parameters()]
         self.params = [p for _, p in dynamics.named_parameters()]
+        gamma_named = list(gamma.named_parameters()) if gamma else []
+        self.gamma_names = [n for n, _ in gamma_named]
+        self.gamma_params = [p for _, p in gamma_named]
         self.device = self.params[0].device
         self.lj_rm = (None if lj_rm is None else
                       torch.as_tensor(lj_rm, dtype=torch.float32,
                                       device=self.device))
         self.generator = generator
-        self.opt = AmsgradState(self.params, cfg)
+        self.opt = AmsgradState(self.trained, cfg)
         self.step = 0
         self.gradnorm_buf = torch.full((QUEUE_LEN,), QUEUE_FLUSH,
                                        device=self.device)
         self.gradnorm_count = 1
-        self.ema = [p.detach().clone() for p in self.params]
+        self.ema = [p.detach().clone() for p in self.trained]
+
+    @property
+    def trained(self):
+        """Every trained parameter: the dynamics', then the gamma
+        network's."""
+        return self.params + self.gamma_params
 
     # -----------------------------------------------------------------
     def _loss(self, ligand: NodeBatch, pocket: NodeBatch, training: bool,
@@ -147,8 +169,8 @@ class Trainer:
             # parameters the loss does not reach (the pocket's decoder in
             # the conditional model) get a zero gradient, as in JAX
             grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(self.params, torch.autograd.grad(
-                         loss, self.params, allow_unused=True))]
+                     for p, g in zip(self.trained, torch.autograd.grad(
+                         loss, self.trained, allow_unused=True))]
         with torch.no_grad():
             gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
             info["grad_norm"] = gnorm
@@ -162,9 +184,9 @@ class Trainer:
     def apply_gradients(self, grads) -> None:
         """The rest of a micro-step after the clip: the optimizer (an
         update on every k-th call), the EMA, the step count."""
-        self.opt.update(self.params, grads)
+        self.opt.update(self.trained, grads)
         d = self.cfg.ema_decay
-        for e, p in zip(self.ema, self.params):
+        for e, p in zip(self.ema, self.trained):
             if d > 0.0:
                 e.mul_(d).add_((1.0 - d) * p)
             else:
@@ -181,22 +203,31 @@ class Trainer:
         return float(loss), {k: float(v) for k, v in info.items()}
 
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The EMA weights under the module's parameter names."""
+        """The dynamics' EMA weights under the module's parameter names."""
         return dict(zip(self.names, self.ema))
+
+    def gamma_ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The gamma network's EMA weights (empty without one)."""
+        return dict(zip(self.gamma_names, self.ema[len(self.params):]))
 
     # -- checkpoints ----------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """``path`` (``.npz`` appended if missing): params, step and, with
         an EMA, ema_params, under the JAX tree's flat names."""
         out = {"step": np.asarray(self.step, dtype=np.int32)}
-        trees = [("params", self.params)]
+        trees = [("params", self.trained)]
         if self.cfg.ema_decay > 0.0:
             trees.append(("ema_params", self.ema))
+        n_dyn = len(self.params)
         for prefix, tensors in trees:
-            state = {n: t.detach().cpu() for n, t in zip(self.names,
-                                                         tensors)}
-            for key, value in params_to_jax(state).items():
-                out[f"{prefix}/{key}"] = value
+            parts = [("", self.names, tensors[:n_dyn])]
+            if self.gamma is not None:
+                parts = [("dynamics/", self.names, tensors[:n_dyn]),
+                         ("gamma/", self.gamma_names, tensors[n_dyn:])]
+            for sub, names, values in parts:
+                state = {n: t.detach().cpu() for n, t in zip(names, values)}
+                for key, value in params_to_jax(state).items():
+                    out[f"{prefix}/{sub}{key}"] = value
         path = path if path.endswith(".npz") else path + ".npz"
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path[:-4] + f".{os.getpid()}.tmp.npz"
@@ -207,16 +238,24 @@ class Trainer:
         """params, step and ema_params (the params where a file has
         none); the optimizer state is not restored."""
         params, ema, step = load_train_state(path)
-        self._assign(self.params, params)
+        self._assign(self.trained, params)
         self._assign(self.ema, ema if ema is not None else params)
         self.step = step
 
     def _assign(self, targets, tree) -> None:
-        state = params_from_jax(tree)
-        if sorted(state) != sorted(self.names):
+        dyn, gamma = split_trees(tree)
+        if (gamma is None) != (self.gamma is None):
+            raise ValueError("the checkpoint's gamma tree does not match the "
+                             "schedule")
+        state = params_from_jax(dyn)
+        if gamma is not None:
+            state.update({"gamma." + k: v for k, v in
+                          gamma_params_from_jax(gamma).items()})
+        names = self.names + ["gamma." + n for n in self.gamma_names]
+        if sorted(state) != sorted(names):
             raise ValueError("checkpoint parameters do not match the model")
         with torch.no_grad():
-            for name, t in zip(self.names, targets):
+            for name, t in zip(names, targets):
                 t.copy_(state[name])
 
 

@@ -64,7 +64,7 @@ def test_sources_found():
                    "data/virtual.py", "cli/train.py", "chem/scoring.py",
                    "chem/rmsd.py", "chem/dock.py", "chem/docking.py",
                    "diffusion/joint.py", "diffusion/node_distribution.py",
-                   "utils/geometry.py"):
+                   "utils/geometry.py", "diffusion/learned_gamma.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
@@ -141,25 +141,55 @@ def test_new_clis_raise_without_a_gpu(monkeypatch, tmp_path):
         optimize.main(opt + ["--objective", "vina", "--device", "cpu"])
 
 
+def variant_config(change):
+    """configs/virtual_cond_v3b.yml with ``change`` applied (``egnn`` and
+    ``diffusion`` entries replace fields of those configs)."""
+    import dataclasses
+
+    from diffndm_tpu_torch.config import load_yaml, model_config_from_yaml
+
+    change = dict(change)
+    cfg = model_config_from_yaml(load_yaml("configs/virtual_cond_v3b.yml"))
+    egnn = dataclasses.replace(cfg.egnn, **change.pop("egnn", {}))
+    diffusion = dataclasses.replace(cfg.diffusion,
+                                    **change.pop("diffusion", {}))
+    return dataclasses.replace(cfg, egnn=egnn, diffusion=diffusion,
+                               **change)
+
+
 @pytest.mark.parametrize("change", [
     dict(mode="pocket_conditioning_simple"),
     dict(egnn=dict(sin_embedding=True)),
     dict(egnn=dict(aggregation_method="mean")),
     dict(egnn=dict(edge_embedding_dim=4)),
-    dict(diffusion=dict(noise_schedule="learned"))])
+    dict(diffusion=dict(noise_schedule="learned", loss_type="vlb")),
+    dict(egnn=dict(mode="gnn_dynamics"))])
 def test_unported_variants_raise_instead_of_running(change):
-    """Configurations the port does not run are refused, never run with
-    other semantics (joint mode, ``update_pocket_coords``, runs: see
-    tests/test_torch_joint.py)."""
-    import dataclasses
-
-    from diffndm_tpu_torch.config import load_yaml, model_config_from_yaml
+    """The JAX package's model variants, once refused by the port, build
+    on the CPU at v3b's width and run one forward (their agreement with
+    JAX: tests/test_torch_variants.py and test_torch_learned_gamma.py);
+    a learned schedule without the VLB objective is refused, as JAX
+    refuses it."""
     from diffndm_tpu_torch.model import DiffNDM
 
-    cfg = model_config_from_yaml(load_yaml("configs/virtual_cond_v3b.yml"))
-    egnn = dataclasses.replace(cfg.egnn, **change.pop("egnn", {}))
-    diffusion = dataclasses.replace(cfg.diffusion,
-                                    **change.pop("diffusion", {}))
-    cfg = dataclasses.replace(cfg, egnn=egnn, diffusion=diffusion, **change)
-    with pytest.raises(NotImplementedError):
-        DiffNDM(cfg, device="cpu")
+    cfg = variant_config(change)
+    model = DiffNDM(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    b, nl, npk = 2, 7, 12
+    xh_lig = torch.randn(b, nl, 3 + cfg.atom_nf, generator=g)
+    xh_poc = torch.randn(b, npk, 3 + cfg.residue_nf, generator=g) * 2
+    lm, pm = torch.ones(b, nl), torch.ones(b, npk)
+    lm[1, 5:] = 0
+    with torch.no_grad():
+        eps_lig, eps_poc = model.dynamics(xh_lig * lm[..., None],
+                                          xh_poc, torch.tensor([0.1, 0.9]),
+                                          lm, pm)
+    assert eps_lig.shape == xh_lig.shape and eps_poc.shape == xh_poc.shape
+    assert bool(torch.isfinite(eps_lig).all())
+    assert model.core.simple == (cfg.mode == "pocket_conditioning_simple")
+    assert (model.gamma is not None) == (
+        cfg.diffusion.noise_schedule == "learned")
+    if cfg.diffusion.noise_schedule == "learned":
+        with pytest.raises(ValueError, match="vlb"):
+            DiffNDM(variant_config(dict(diffusion=dict(
+                noise_schedule="learned"))), device="cpu")
