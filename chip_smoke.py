@@ -143,11 +143,26 @@ Phases, each of which fails the run on any fault or mismatch:
    per forward, launch counts); for (f) also the train CLI for 8
    micro-steps (launch counts forward and backward, ms per micro-step,
    peak memory, the gamma network moved) and the first micro-step's
-   gradients of both trees, card against CPU.
+   gradients of both trees, card against CPU;
+22. etl: every virtual_v3 pair (5,657 train, 314 val, 314 test) written
+   as a CrossDocked tree (crossdocked_pocket10/<dir>/<rec>.pdb +
+   <lig>.sdf, split_by_name.json), processed by the port's
+   process_crossdock CLI, its test export flattened by
+   prepare_crossdocked for the sweep CLI: seconds, no pair dropped,
+   ligands and pockets (the 8 A rule recomputed here) equal to the source
+   within the files' rounding; the train CLI on the
+   processed split at v3b's width from v3b's raw state for 8 micro-steps
+   with its eval and the dashboard's renders on (launch counts per
+   micro-step, val batch and dashboard sampling; the dashboard's SDF and
+   its render line), the micro-steps under utils.profiling.trace (the
+   forward / backward / optimizer spans and the kernels in the trace);
+   egnn_flops_analytic of the micro-step's forward and its rate on the
+   card against the card's peaks; one unguided batch (16, T=500) from the
+   trained weights on a processed test pocket.
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
-phases 1 and 21, and ``--only
+phases 1 and 21, ``--only etl`` phases 1 and 22, and ``--only
 phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes in
 the forward kernels and in the vector backward, with the device time of
@@ -156,7 +171,7 @@ each kernel a backward call launches (both for work on the kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the seven prints a result line.
+None of the eight prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -346,6 +361,18 @@ L3_BIAS = "l3.bias"           # the gamma network's cancelling bias
 # (f)'s gradient check: the gamma network alone in float64, card against
 # CPU
 GAMMA_F64_RTOL = 1e-7
+# etl phase: every virtual_v3 pair written as a CrossDocked tree and
+# processed; the train CLI on the processed split (v3b's config and raw
+# state) for ETL_TRAIN_STEPS micro-steps with the eval and the
+# dashboard's renders on; the forward timed for its FLOP rate; one
+# unguided batch from the trained weights on processed test pocket
+# ETL_POCKET
+ETL_TRAIN_STEPS, ETL_VISUALIZE, ETL_POCKET = 8, 2, 220
+ETL_CUTOFF = 8.0              # the pocket rule, Angstrom, strict
+# coordinates through the files: SDF 4 decimals, PDB 3, then float32
+SDF_ATOL, PDB_ATOL = 5e-5 + 1e-5, 5e-4 + 1e-5
+ETL_SPANS = ("forward", "backward", "optimizer")
+ETL_FORWARD_REPS = 20
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -2995,14 +3022,15 @@ def variant_train_phase(torch, K, train_ds, tmp, yaml_path):
     from diffndm_tpu_torch.cli import train as train_cli
     from diffndm_tpu_torch.config import (load_yaml, model_config_from_yaml,
                                           train_config_from_yaml)
+    from diffndm_tpu_torch.data.dataset import save_npz_split
     from diffndm_tpu_torch.model import DiffNDM
     from diffndm_tpu_torch.structs import NodeBatch
     from diffndm_tpu_torch.train.trainer import Trainer, load_train_state
 
     datadir = os.path.join(tmp, "variant_data")
     os.makedirs(datadir)
-    write_split(os.path.join(datadir, "train.npz"),
-                train_ds.pairs[:VARIANT_TRAIN_STEPS * N_SAMPLES])
+    save_npz_split(os.path.join(datadir, "train.npz"),
+                   train_ds.pairs[:VARIANT_TRAIN_STEPS * N_SAMPLES])
     shutil.copy(os.path.join(DATA, "size_distribution.npy"), datadir)
     argv = ["--config", yaml_path, "--max_steps", str(VARIANT_TRAIN_STEPS),
             "--set", f"logdir={tmp}", "--set", f"datadir={datadir}",
@@ -3151,6 +3179,354 @@ def variant_train_phase(torch, K, train_ds, tmp, yaml_path):
                 gamma_moved=moved, grad_gate_share=share,
                 loss_rel=loss_rel, gamma_layers_from_f64=layers,
                 gamma_f64_rel=net_rel)
+
+
+# ---------------------------------------------------------------------------
+# etl: structures -> processed split -> training -> sampling
+# ---------------------------------------------------------------------------
+
+def write_crossdock_tree(basedir, splits, decoder):
+    """Every pair of ``splits`` ({split: pairs}) as
+    crossdocked_pocket10/<split><i>/<split><i>_rec.pdb + ..._lig.sdf
+    (write_pocket_files), and split_by_name.json naming them.  Returns the
+    json's path."""
+    root = os.path.join(basedir, "crossdocked_pocket10")
+    names = {}
+    for split, pairs in splits.items():
+        names[split] = []
+        for i, pair in enumerate(pairs):
+            stem = f"{split}{i:05d}"
+            os.makedirs(os.path.join(root, stem))
+            write_pocket_files(pair, decoder, os.path.join(root, stem),
+                               names=(f"{stem}_rec.pdb", f"{stem}_lig.sdf"))
+            names[split].append([f"{stem}/{stem}_rec.pdb",
+                                 f"{stem}/{stem}_lig.sdf"])
+    path = os.path.join(basedir, "split_by_name.json")
+    with open(path, "w") as f:
+        json.dump(names, f)
+    return path
+
+
+def expected_pocket(pair):
+    """The source pocket atoms that the 8 A rule keeps, recomputed from the
+    coordinates as the files hold them (PDB 3 decimals; SDF 4, then
+    float32), distances in float64."""
+    lig = np.array([[float(f"{v:10.4f}") for v in c]
+                    for c in pair.lig_coords]).astype(np.float32)
+    poc = np.array([[float(f"{v:8.3f}") for v in c]
+                    for c in pair.pocket_coords])
+    near = np.linalg.norm(poc[:, None] - lig[None], axis=-1).min(1) \
+        < ETL_CUTOFF
+    return pair.pocket_coords[near], pair.pocket_one_hot[near]
+
+
+def etl_check(source, processed):
+    """(ligand max abs, pocket max abs, mismatched pairs) of processed
+    pairs against their source pairs, in order."""
+    lig_err, poc_err, bad = 0.0, 0.0, []
+    for i, (src, out) in enumerate(zip(source, processed)):
+        coords, one_hot = expected_pocket(src)
+        same = (np.array_equal(src.lig_one_hot.argmax(1),
+                               out.lig_one_hot.argmax(1))
+                and src.lig_coords.shape == out.lig_coords.shape
+                and coords.shape == out.pocket_coords.shape
+                and np.array_equal(one_hot.argmax(1),
+                                   out.pocket_one_hot.argmax(1)))
+        if not same:
+            bad.append(i)
+            continue
+        lig_err = max(lig_err, float(np.abs(out.lig_coords
+                                            - src.lig_coords).max()))
+        if len(coords):
+            poc_err = max(poc_err, float(np.abs(out.pocket_coords
+                                                - coords).max()))
+    return lig_err, poc_err, bad
+
+
+class Tee:
+    """stdout that is also kept."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def etl_phase(torch, K, tmp):
+    """[etl]: (a) every virtual_v3 pair (train, val, test) written as a
+    CrossDocked tree with split_by_name.json; (b) the port's
+    process_crossdock CLI on it, then prepare_crossdocked on its test
+    export (the sweep CLI's flat layout): no pair dropped, ligands and
+    pockets (the 8 A rule recomputed here) equal to the source within the
+    files' rounding; (c) the train CLI on the
+    processed split at v3b's width from v3b's raw state for
+    ETL_TRAIN_STEPS micro-steps, the eval and the dashboard (renders on)
+    after them: launch counts per micro-step, val batch and dashboard
+    sampling, the dashboard's SDF; (d) the micro-steps under
+    utils.profiling.trace with their forward / backward / optimizer spans;
+    (e) the analytic FLOPs of the micro-step's forward and its rate on the
+    card; (f) one unguided batch of N_SAMPLES at T_MAIN from the trained
+    weights on a processed test pocket.  Returns a dict of the results."""
+    import contextlib
+    import shutil
+
+    from diffndm_tpu_torch.chem.sanitize import is_valid
+    from diffndm_tpu_torch.cli import train as train_cli
+    from diffndm_tpu_torch.config import SampleConfig
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.convert import params_from_jax
+    from diffndm_tpu_torch.data import prepare_crossdocked, process_crossdock
+    from diffndm_tpu_torch.data.dataset import ProcessedLigandPocketDataset
+    from diffndm_tpu_torch.diffusion.sampler import count_forwards
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.train.eval_dashboard import ChemistryDashboard
+    from diffndm_tpu_torch.train.trainer import Trainer, load_train_state
+    from diffndm_tpu_torch.utils import flops, profiling
+
+    decoder = dataset_params["crossdock_full"]["atom_decoder"]
+    source = {s: ProcessedLigandPocketDataset(os.path.join(DATA, f"{s}.npz"),
+                                              center=False).pairs
+              for s in ("train", "val", "test")}
+    n_pairs = sum(len(v) for v in source.values())
+    basedir, outdir = os.path.join(tmp, "crossdock"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    split_file = write_crossdock_tree(basedir, source, decoder)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    process_crossdock.main([basedir, "--outdir", outdir, "--split_file",
+                            split_file])
+    t_process = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_flat = prepare_crossdocked.main([os.path.join(outdir, "test"),
+                                       "--outdir", os.path.join(tmp, "flat")])
+    t_prepare = time.perf_counter() - t0
+    processed = {s: ProcessedLigandPocketDataset(
+        os.path.join(outdir, f"{s}.npz"), center=False).pairs
+        for s in source}
+    dropped = {s: len(source[s]) - len(processed[s]) for s in source}
+    checks = {s: etl_check(source[s], processed[s]) for s in source}
+    lig_err = max(c[0] for c in checks.values())
+    poc_err = max(c[1] for c in checks.values())
+    bad = {s: c[2][:3] for s, c in checks.items() if c[2]}
+    exported = len(os.listdir(os.path.join(outdir, "test")))
+    flat_files = len(os.listdir(os.path.join(tmp, "flat", "test")))
+    keys = np.load(os.path.join(outdir, "train_smiles.npy"))
+    log(f"[etl] (a) {n_pairs} pairs "
+        f"({', '.join(f'{s} {len(v)}' for s, v in source.items())}) "
+        f"written as a CrossDocked tree in {t_write:.2f} s; (b) "
+        f"process_crossdock in {t_process:.2f} s "
+        f"({1e3 * t_process / n_pairs:.3f} ms per pair), dropped {dropped}; "
+        f"prepare_crossdocked flattened the test export's {n_flat} "
+        f"complexes in {t_prepare:.2f} s; against the source: ligand types "
+        f"equal, "
+        f"coordinates max abs {lig_err:.2e} A (atol {SDF_ATOL:.1e}), "
+        f"pockets = the source atoms within {ETL_CUTOFF} A, coordinates max "
+        f"abs {poc_err:.2e} A (atol {PDB_ATOL:.1e}), mismatched pairs "
+        f"{bad}; {len(keys)} train identity keys; test export "
+        f"{exported} files")
+    if any(dropped.values()) or bad or lig_err > SDF_ATOL or \
+            poc_err > PDB_ATOL or n_flat != len(source["test"]) or \
+            flat_files != 2 * n_flat or \
+            exported != 3 * len(source["test"]) or \
+            len(keys) != len(source["train"]):
+        raise AssertionError("[etl] the processed split disagrees with its "
+                             "source")
+
+    # (c) + (d): the train CLI on the processed split, its micro-steps
+    # profiled
+    argv = ["--config", VARIANT_CONFIG, "--resume", TRAIN_STATE,
+            "--max_steps", str(ETL_TRAIN_STEPS), "--set", f"logdir={tmp}",
+            "--set", f"datadir={outdir}", "--set", "eval_epochs=1",
+            "--set", f"eval_params.n_visualize_samples={ETL_VISUALIZE}",
+            "--set", "run_name=etl"]
+    log(f"[etl] (c) python -m diffndm_tpu_torch.cli.train {' '.join(argv)}")
+    trace_dir = os.path.join(tmp, "trace")
+    records = {"train": [], "eval": [], "dashboard": []}
+    originals = (Trainer.train_step, Trainer.eval_step,
+                 ChemistryDashboard.sample_and_analyze)
+    profiled = contextlib.ExitStack()
+    batches = []
+
+    def counted(kind, fn):
+        def wrapper(*args, **kw):
+            if kind == "train":
+                batches.append([nb.to("cuda") for nb in args[1:3]])
+            if kind == "train" and not records["train"]:
+                profiled.enter_context(profiling.trace(trace_dir))
+            before = dict(K.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            records[kind].append(dict(
+                launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES},
+                ms=1e3 * (time.perf_counter() - t0), out=out))
+            if kind == "train" and len(records["train"]) == ETL_TRAIN_STEPS:
+                profiled.close()
+            return out
+        return wrapper
+
+    Trainer.train_step = counted("train", originals[0])
+    Trainer.eval_step = counted("eval", originals[1])
+    ChemistryDashboard.sample_and_analyze = counted("dashboard",
+                                                    originals[2])
+    K.reset_launches()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            summary = train_cli.main(argv)
+    finally:
+        profiled.close()
+        (Trainer.train_step, Trainer.eval_step,
+         ChemistryDashboard.sample_and_analyze) = originals
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
+                "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
+    per_eval = {"gcl_messages": 10, "edge_vector_reduce": 10,
+                "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
+    sample_forwards = count_forwards(SampleConfig(), T_MAIN)
+    per_dash = {"gcl_messages": 5 * sample_forwards,
+                "edge_vector_reduce": 5 * sample_forwards,
+                "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
+    mismatch = ([r["launches"] for r in records["train"]
+                 if r["launches"] != per_step]
+                + [r["launches"] for r in records["eval"]
+                   if r["launches"] != per_eval]
+                + [r["launches"] for r in records["dashboard"]
+                   if r["launches"] != per_dash])
+    losses = [r["out"][0] for r in records["train"]]
+    ms = [r["ms"] for r in records["train"]]
+    run_dir = summary["outdir"]
+    sdf = os.path.join(run_dir, "eval", "eval_ep0.sdf")
+    n_sdf = open(sdf).read().count("$$$$") if os.path.exists(sdf) else 0
+    viz = os.path.join(run_dir, "eval", "viz_ep0")
+    pngs = len(os.listdir(viz)) if os.path.isdir(viz) else 0
+    failed = [s.strip() for s in "".join(tee.lines).splitlines()
+              if s.startswith("[dashboard] visualization failed")]
+    log(f"[etl] (c) {len(losses)} micro-steps at [{N_SAMPLES}, N, 192] on "
+        f"the processed split, {wall:.1f} s with the eval and the "
+        f"dashboard: loss per step {[round(v, 4) for v in losses]}; ms per "
+        f"micro-step (host clock, synchronised, under the profiler) median "
+        f"{float(np.median(ms)):.2f}; val loss {summary['val_losses']}; "
+        f"launches {launches} (per micro-step {per_step}, per val batch "
+        f"{per_eval}, per dashboard sampling {per_dash}; mismatches "
+        f"{mismatch[:3]}); dashboard SDF {os.path.relpath(sdf, tmp)} with "
+        f"{n_sdf} molecules; renders: {pngs} PNG files"
+        + (f", {failed[0]!r}" if failed else ""))
+    if mismatch or len(losses) != ETL_TRAIN_STEPS or \
+            len(records["eval"]) == 0 or len(records["dashboard"]) != 1:
+        raise AssertionError("[etl] launch counts or phases off")
+    if not (all(np.isfinite(losses)) and np.mean(losses) <= TRAIN_LOSS_MAX
+            and all(np.isfinite(summary["val_losses"]))):
+        raise AssertionError("[etl] the loss is not finite or too high")
+    if n_sdf == 0 or not (pngs or failed):
+        raise AssertionError("[etl] the dashboard wrote no SDF, or neither "
+                             "rendered nor said why not")
+
+    # (d) the trace
+    trace_file = os.path.join(trace_dir, profiling.TRACE_FILE)
+    events = []
+    if os.path.exists(trace_file):
+        with open(trace_file) as f:
+            events = json.load(f).get("traceEvents", [])
+    names = [str(e.get("name", "")) for e in events]
+    spans = {s: names.count(s) for s in ETL_SPANS}
+    kernel_events = {k: sum(k in n for n in names)
+                     for k in ("edge_chain_mma", "edge_chain_bwd_mma")}
+    log(f"[etl] (d) profiler trace of the {ETL_TRAIN_STEPS} micro-steps: "
+        f"{len(events)} events; spans {spans}; kernel events "
+        f"{kernel_events}")
+    if any(v < ETL_TRAIN_STEPS for v in spans.values()) or \
+            not all(kernel_events.values()):
+        raise AssertionError("[etl] the trace lacks the spans or the "
+                             "kernels")
+
+    # (e) the forward of each micro-step's batch: analytic FLOPs and the
+    # rate on the card (CUDA events around ETL_FORWARD_REPS forwards)
+    params, ema, step = load_train_state(os.path.join(run_dir, "last.npz"))
+    model = DiffNDM.from_yaml(VARIANT_CONFIG, device="cuda",
+                              size_histogram=np.load(os.path.join(
+                                  outdir, "size_distribution.npy")),
+                              sample_cfg=SampleConfig(pocket_pad_multiple=16))
+    model.dynamics.load_state_dict(params_from_jax(ema), strict=True)
+    nx, nh = model.core.cfg.norm_values
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    rows = []
+    for lig, poc in batches:
+        state = (torch.cat([lig.x / nx, lig.h / nh], -1)
+                 * lig.mask[..., None],
+                 torch.cat([poc.x / nx, poc.h / nh], -1)
+                 * poc.mask[..., None],
+                 torch.full((lig.x.shape[0],), 0.5, device="cuda"),
+                 lig.mask, poc.mask)
+        shape = (lig.x.shape[0], lig.x.shape[1], poc.x.shape[1])
+        for _ in range(3):
+            model.dynamics(*state)
+        start.record()
+        for _ in range(ETL_FORWARD_REPS):
+            model.dynamics(*state)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append((shape, flops.egnn_flops_analytic(
+            model.cfg.egnn, model.cfg.atom_nf, *shape),
+            start.elapsed_time(end) / ETL_FORWARD_REPS))
+    kind = torch.cuda.get_device_name(0)
+    rate = sum(r[1] for r in rows) / (sum(r[2] for r in rows) / 1e3) / 1e12
+    peaks = {d: flops.peak_tflops_for(kind, d) for d in ("bf16", "tf32")}
+    shares = {d: (rate / p if p else None) for d, p in peaks.items()}
+    per_forward = [(list(sh), round(f / 1e9, 3), round(t, 3),
+                    round(f / t / 1e9, 3)) for sh, f, t in rows]
+    log(f"[etl] (e) the {len(rows)} micro-steps' forwards, [B, NL, NP] "
+        f"(H = {model.cfg.egnn.hidden_nf}): GFLOP (egnn_flops_analytic), "
+        f"ms per forward (CUDA events, {ETL_FORWARD_REPS} forwards back to "
+        f"back, the host's launches included), TFLOP/s: "
+        f"{per_forward}; "
+        f"all together {rate:.3f} TFLOP/s, share of the card's dense peaks "
+        f"{ {d: round(v, 5) for d, v in shares.items() if v is not None} } "
+        f"(peaks {peaks} TFLOP/s) on {nvidia_smi()}")
+
+    # (f) one unguided batch from the trained weights
+    test = ProcessedLigandPocketDataset(os.path.join(outdir, "test.npz"))
+    pocket = model.pocket_from_dataset(test[ETL_POCKET], N_SAMPLES)
+    sizes = model.sample_ligand_sizes(pocket,
+                                      torch.Generator().manual_seed(SEED))
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.sample_given_pocket(
+        pocket, sizes, timesteps=T_MAIN,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sample_launches = forward_launches(K)
+    want = {k: 5 * count_forwards(SampleConfig(), T_MAIN) for k in KERNELS}
+    mols = model.result_to_molecules(res)
+    n_valid = sum(is_valid(m) for m in mols)
+    log(f"[etl] (f) {N_SAMPLES} ligands at T={T_MAIN} from the step-{step} "
+        f"EMA weights on processed test pocket {ETL_POCKET} "
+        f"({test[ETL_POCKET].name}): {seconds:.3f} s per batch, launches "
+        f"{sample_launches} (expected {want}); {n_valid} of {len(mols)} "
+        f"molecules valid")
+    if sample_launches != want or not bool(torch.isfinite(
+            res.ligand.x).all()) or step != 59988 + ETL_TRAIN_STEPS:
+        raise AssertionError("[etl] the sampling from the trained weights "
+                             "is off")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"[etl] a kernel was not launched: {launches}")
+    shutil.rmtree(basedir)
+    return dict(pairs=n_pairs, dropped=dropped, write_s=t_write,
+                process_s=t_process, prepare_s=t_prepare, launches=launches,
+                sample_launches=sample_launches, ms=ms, losses=losses,
+                forwards=[dict(shape=list(sh), gflop=f / 1e9, ms=t)
+                          for sh, f, t in rows], tflops=rate,
+                peak_share=shares, sample_s=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -3545,19 +3921,6 @@ def train_path_check(torch, batches):
                              "with the CPU's")
 
 
-def write_split(path, pairs):
-    """Complexes in the reference's flat npz format."""
-    np.savez(path, names=np.array([p.name for p in pairs]),
-             lig_coords=np.concatenate([p.lig_coords for p in pairs]),
-             lig_one_hot=np.concatenate([p.lig_one_hot for p in pairs]),
-             lig_mask=np.concatenate([np.full(len(p.lig_coords), i)
-                                      for i, p in enumerate(pairs)]),
-             pocket_coords=np.concatenate([p.pocket_coords for p in pairs]),
-             pocket_one_hot=np.concatenate([p.pocket_one_hot for p in pairs]),
-             pocket_mask=np.concatenate([np.full(len(p.pocket_coords), i)
-                                         for i, p in enumerate(pairs)]))
-
-
 def train_cli_phase(torch, K, ds, tmp):
     """The train CLI in this process, resuming v3b from its raw state on a
     training split cut to TRAIN_EPOCH_BATCHES batches, so that the epoch
@@ -3568,6 +3931,7 @@ def train_cli_phase(torch, K, ds, tmp):
 
     from diffndm_tpu_torch.cli import train as train_cli
     from diffndm_tpu_torch.convert import params_from_jax
+    from diffndm_tpu_torch.data.dataset import save_npz_split
     from diffndm_tpu_torch.diffusion.sampler import count_forwards
     from diffndm_tpu_torch.config import SampleConfig
     from diffndm_tpu_torch.train.eval_dashboard import ChemistryDashboard
@@ -3575,8 +3939,8 @@ def train_cli_phase(torch, K, ds, tmp):
 
     datadir = os.path.join(tmp, "data")
     os.makedirs(datadir)
-    write_split(os.path.join(datadir, "train.npz"),
-                ds.pairs[:TRAIN_EPOCH_BATCHES * N_SAMPLES])
+    save_npz_split(os.path.join(datadir, "train.npz"),
+                   ds.pairs[:TRAIN_EPOCH_BATCHES * N_SAMPLES])
     for name in ("val.npz", "size_distribution.npy"):
         shutil.copy(os.path.join(DATA, name), datadir)
     argv = ["--config", os.path.join(RUN, "hparams.yaml"), "--resume",
@@ -3755,7 +4119,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
                                            "train", "vina", "joint",
-                                           "variants"],
+                                           "variants", "etl"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
@@ -3763,8 +4127,8 @@ def main() -> int:
                         "alone, run the kernel checks and the vina, "
                         "optimize-vina and dock phases alone, run the "
                         "kernel checks and the joint, joint-train and "
-                        "configs phases alone, or run the variants phase "
-                        "alone")
+                        "configs phases alone, run the variants phase "
+                        "alone, or run the etl phase alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3859,6 +4223,11 @@ def main() -> int:
                 os.path.join(DATA, "train.npz")), tmp)
         log("[variants] done (--only variants: no result)")
         return 0
+    if opts.only == "etl":
+        with tempfile.TemporaryDirectory() as tmp:
+            etl_phase(torch, K, tmp)
+        log("[etl] done (--only etl: no result)")
+        return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
     train_ds, batches = train_batches(torch, model.device)
     bwd_results = backward_phase(torch, K, batches,
@@ -3933,6 +4302,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         variants, variant_train_launches = variants_phase(
             torch, K, ds, train_ds, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        etl = etl_phase(torch, K, tmp)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -3975,6 +4346,8 @@ def main() -> int:
                   variants={label: {k: v for k, v in res.items()
                                     if not k.endswith("launches")}
                             for label, res in variants.items()},
+                  etl_train_launches=etl["launches"][name],
+                  etl_sample_launches=etl["sample_launches"][name],
                   configs={cfg: {k: checks[name][k] for k in (
                       *CALL_KEYS, "joint_first") if k in checks[name]}
                            for cfg, checks in config_checks.items()})
@@ -3999,6 +4372,7 @@ def main() -> int:
             ptxas=bwd_ptxas[name],
             joint_train_launches=joint_train_launches[name],
             variants_train_launches=variant_train_launches[name],
+            etl_train_launches=etl["launches"][name],
             joint_train={c: joint_train[name][c] for c in (
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
                 "bound_ms", "bound_by", "blocks")}))

@@ -68,6 +68,23 @@ class ProcessedLigandPocketDataset:
                                   smooth_sigma)
 
 
+def save_npz_split(path: str, pairs: List[LigandPocketPair]) -> None:
+    """Write pairs in the flat npz layout that
+    ``ProcessedLigandPocketDataset`` reads."""
+    def index(arrays):
+        return np.concatenate([np.full(len(a), i)
+                               for i, a in enumerate(arrays)])
+
+    lig = [p.lig_coords for p in pairs]
+    poc = [p.pocket_coords for p in pairs]
+    np.savez(path, names=np.array([p.name for p in pairs]),
+             lig_coords=np.concatenate(lig),
+             lig_one_hot=np.concatenate([p.lig_one_hot for p in pairs]),
+             lig_mask=index(lig), pocket_coords=np.concatenate(poc),
+             pocket_one_hot=np.concatenate([p.pocket_one_hot for p in pairs]),
+             pocket_mask=index(poc))
+
+
 def collate_padded(pairs: List[LigandPocketPair], lig_pad: int = 8,
                    pocket_pad: int = 64, drop_feature_cols: int = 0
                    ) -> Tuple[NodeBatch, NodeBatch]:

@@ -54,7 +54,10 @@ def sinusoid_embed(d2: torch.Tensor) -> torch.Tensor:
     n_freq = sinusoid_dims() // 2
     freqs = (2 * math.pi * SIN_DIV ** torch.arange(
         n_freq, dtype=d2.dtype, device=d2.device) / SIN_MAX_RES)
-    emb = torch.sqrt(d2[..., None] + 1e-8) * freqs
+    # the root is taken in float64 and rounded once, as IEEE float32 sqrt
+    # does: torch's float32 CPU sqrt is off by an ulp on some hosts, and at
+    # 2*pi*1024/15 rad per A the last bit of a 7 A distance moves sin by 2e-4
+    emb = torch.sqrt((d2[..., None] + 1e-8).double()).to(d2.dtype) * freqs
     return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1).detach()
 
 

@@ -3,9 +3,10 @@ for validation pockets with the current (EMA) weights, scored for the
 atom-type KL against the training histogram, validity, connectivity,
 uniqueness, novelty, QED, SA, LogP, Lipinski and diversity, and with a
 receptor the mean Vina-style affinity of the valid molecules; the valid
-molecules optionally written as SDF.  The JAX package's dashboard also
-renders molecules when ``n_visualize_samples`` > 0; the renderers are not
-ported (ROADMAP Queue A), and asking for them raises."""
+molecules optionally written as SDF and, when ``n_visualize`` > 0,
+rendered to PNG beside it (``utils/visualization.py``).  Rendering is
+best effort, as in the JAX package's dashboard: without matplotlib it
+prints why and the SDF stays written."""
 
 from __future__ import annotations
 
@@ -26,12 +27,9 @@ class ChemistryDashboard:
     def __init__(self, dataset_info: dict, outdir: str,
                  train_smiles: Optional[Sequence[str]] = None,
                  n_visualize: int = 0, receptor_pdb: Optional[str] = None):
-        if n_visualize > 0:
-            raise NotImplementedError(
-                "the dashboard's molecule renders are not ported (ROADMAP "
-                "Queue A, training); set n_visualize_samples to 0")
         self.dataset_info = dataset_info
         self.outdir = outdir
+        self.n_visualize = n_visualize
         self.props = MoleculeProperties()
         self.metrics = BasicMolecularMetrics(dataset_info, train_smiles)
         hist = dataset_info.get("atom_hist")
@@ -69,8 +67,17 @@ class ChemistryDashboard:
             from diffndm_tpu_torch.chem.io import write_sdf
 
             os.makedirs(self.outdir, exist_ok=True)
-            write_sdf(os.path.join(self.outdir, f"eval_ep{epoch}.sdf"),
-                      valid)
+            sdf = os.path.join(self.outdir, f"eval_ep{epoch}.sdf")
+            write_sdf(sdf, valid)
+            if self.n_visualize > 0:
+                try:
+                    from diffndm_tpu_torch.utils.visualization import \
+                        visualize_molecules
+
+                    visualize_molecules(
+                        sdf, os.path.join(self.outdir, f"viz_ep{epoch}"))
+                except Exception as e:  # rendering is best-effort
+                    print(f"[dashboard] visualization failed: {e}")
         return out
 
     def sample_and_analyze(self, model, pocket: NodeBatch, epoch: int = 0,

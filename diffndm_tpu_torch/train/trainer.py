@@ -15,6 +15,10 @@ The JAX package's ``train/trainer.py`` on one device, step for step:
   count 1, written at ``step % 50`` (``step`` counts micro-steps);
 - the EMA moves on every micro-step, also those that apply no update.
 
+A micro-step's three parts are named spans on a profiler's timeline
+(``utils.profiling``): ``forward``, ``backward`` and ``optimizer`` (the
+clip, the update and the EMA).
+
 With a learned noise schedule the trainer also trains its gamma network
 (``gamma``), as the JAX trainer trains the tree ``{"dynamics", "gamma"}``:
 one optimizer, one clip over the global norm of both, one EMA over both.
@@ -43,6 +47,7 @@ from diffndm_tpu_torch.diffusion.core import CondDiffusion
 from diffndm_tpu_torch.structs import NodeBatch
 from diffndm_tpu_torch.train.losses import (assemble_loss,
                                             conditional_loss_terms)
+from diffndm_tpu_torch.utils.profiling import annotate
 
 QUEUE_LEN = 50          # accepted gradient norms the clip looks back on
 QUEUE_FLUSH = 3000.0    # the buffer's initial value
@@ -165,18 +170,20 @@ class Trainer:
         ligand, pocket = ligand.to(self.device), pocket.to(self.device)
         self.module.train()
         with torch.enable_grad():
-            loss, info = self._loss(ligand, pocket, True, t_int, noise)
+            with annotate("forward"):
+                loss, info = self._loss(ligand, pocket, True, t_int, noise)
             # parameters the loss does not reach (the pocket's decoder in
             # the conditional model) get a zero gradient, as in JAX
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(self.trained, torch.autograd.grad(
-                         loss, self.trained, allow_unused=True))]
-        with torch.no_grad():
+            with annotate("backward"):
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(self.trained, torch.autograd.grad(
+                             loss, self.trained, allow_unused=True))]
+        with torch.no_grad(), annotate("optimizer"):
             gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
             info["grad_norm"] = gnorm
             if self.cfg.clip_grad:
                 info["clip_threshold"] = self._clip(grads, gnorm)
-        self.apply_gradients(grads)
+            self.apply_gradients(grads)
         return float(loss.detach()), {k: float(v.detach())
                                       for k, v in info.items()}
 

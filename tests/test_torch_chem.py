@@ -9,6 +9,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem.bonds import build_molecules_batch as jax_build  # noqa: E402
 from diffndm_tpu.chem.io import write_sdf as jax_write_sdf  # noqa: E402
 from diffndm_tpu.constants import dataset_params as jax_params  # noqa: E402

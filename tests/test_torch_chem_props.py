@@ -13,6 +13,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem import descriptors as jD  # noqa: E402
 from diffndm_tpu.chem import morgan as jM  # noqa: E402
 from diffndm_tpu.chem import properties as jP  # noqa: E402

@@ -15,6 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu import config as jcfg  # noqa: E402
 from diffndm_tpu.cli import generate as jgenerate  # noqa: E402
 from diffndm_tpu.models.adjust_net import \

@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem import bonds as jbonds  # noqa: E402
 from diffndm_tpu.cli import fix_ligand as jfix  # noqa: E402
 from diffndm_tpu.cli import inpaint as jinpaint  # noqa: E402

@@ -64,7 +64,11 @@ def test_sources_found():
                    "data/virtual.py", "cli/train.py", "chem/scoring.py",
                    "chem/rmsd.py", "chem/dock.py", "chem/docking.py",
                    "diffusion/joint.py", "diffusion/node_distribution.py",
-                   "utils/geometry.py", "diffusion/learned_gamma.py"):
+                   "utils/geometry.py", "diffusion/learned_gamma.py",
+                   "chem/smiles.py", "data/process_crossdock.py",
+                   "data/prepare_crossdocked.py",
+                   "data/process_bindingmoad.py", "utils/flops.py",
+                   "utils/profiling.py", "utils/visualization.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 

@@ -21,6 +21,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem import fingerprints as jF  # noqa: E402
 from diffndm_tpu.chem import metrics as jMet  # noqa: E402
 from diffndm_tpu.chem.bonds import build_molecule as jax_build  # noqa: E402

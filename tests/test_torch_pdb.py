@@ -15,6 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem.io import read_sdf as jax_read_sdf  # noqa: E402
 from diffndm_tpu.constants import dataset_params as jax_params  # noqa: E402
 from diffndm_tpu.data import pdb as jpdb  # noqa: E402

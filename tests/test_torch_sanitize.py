@@ -13,6 +13,10 @@ import pytest
 
 pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem import sanitize as jS  # noqa: E402
 from diffndm_tpu.chem.bonds import build_molecule as jax_build  # noqa: E402
 from diffndm_tpu.constants import dataset_params as jax_params  # noqa: E402

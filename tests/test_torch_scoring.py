@@ -22,6 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem import rmsd as jrmsd  # noqa: E402
 from diffndm_tpu.chem import scoring as js  # noqa: E402
 from diffndm_tpu.chem.mol import Molecule as JMol  # noqa: E402

@@ -19,6 +19,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.cli import sweep as jsweep  # noqa: E402
 from diffndm_tpu_torch.chem.bonds import build_molecule  # noqa: E402
 from diffndm_tpu_torch.chem.io import read_sdf, write_sdf  # noqa: E402

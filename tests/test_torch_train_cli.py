@@ -15,6 +15,10 @@ import yaml
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.cli.train import merge_resume_hparams as jax_merge  # noqa: E402
 from diffndm_tpu_torch import config as tcfg  # noqa: E402
 from diffndm_tpu_torch.cli import train as train_cli  # noqa: E402

@@ -24,6 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_jax_native import pin_jax_native  # noqa: E402
+
+pin_jax_native()
+
 from diffndm_tpu.chem import docking as jdocking  # noqa: E402
 from diffndm_tpu.cli import evaluate as jevaluate  # noqa: E402
 from diffndm_tpu.constants import dataset_params as jax_params  # noqa: E402
