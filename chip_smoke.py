@@ -158,12 +158,33 @@ Phases, each of which fails the run on any fault or mismatch:
    forward / backward / optimizer spans and the kernels in the trace);
    egnn_flops_analytic of the micro-step's forward and its rate on the
    card against the card's peaks; one unguided batch (16, T=500) from the
-   trained weights on a processed test pocket.
+   trained weights on a processed test pocket;
+23. modes: the denoiser's precision and sparsity modes. (a) the bf16
+   variants of both kernels against their bf16 plain versions (gate
+   BF16_GATE of the largest plain element) on the calls of a bf16 v3b
+   forward [16, 80, 192], of the joint sampler's first forward [16, 584,
+   128] and at the flagship shapes, timed beside the fp32 kernels on the
+   same calls and the dense bf16 bound; a bf16 call in grad mode raises;
+   (b) v3b in bf16: one unguided batch (16, T=500) with its launch
+   counts, a 10-step fixed-noise run on the card against the CPU's plain
+   bf16 run, beside two runs with a fault that the gate must fail (the
+   fp32 kernels; no rounding outside the kernels), the quality protocol's unguided row for one seed beside the
+   fp32 row of phase 7 (recorded, not gated); (c) K-nearest-neighbour
+   edges (K = 16, 32) on the main path's first state, card against CPU,
+   the share of rows with more edges than K, ms per forward; (d) the
+   sorted band on configs/crossdock_fullatom_cond.yml at its published
+   width (seeded weights) on phase 18's crop of the synthetic receptor:
+   the exact window's forward equal to the dense one, the pocket order
+   the same on the card as on the CPU, the approximate window (128) card
+   against CPU, ms per forward of each; (e) generate_ligands on that crop
+   with its "[banding] window=" line and launch counts, beside the same
+   call under DIFFNDM_AUTO_BAND=0, whose result it must equal to the bit
+   (the exact window runs the denoiser dense).
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
-phases 1 and 21, ``--only etl`` phases 1 and 22, and ``--only
-phases`` prints, from
+phases 1 and 21, ``--only etl`` phases 1 and 22, ``--only modes``
+phases 1 and 23, and ``--only phases`` prints, from
 a build of the kernels with cycle counters, where a block's time goes in
 the forward kernels and in the vector backward, with the device time of
 each kernel a backward call launches (both for work on the kernels).
@@ -171,7 +192,7 @@ each kernel a backward call launches (both for work on the kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the eight prints a result line.
+None of the nine prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -373,6 +394,45 @@ ETL_CUTOFF = 8.0              # the pocket rule, Angstrom, strict
 SDF_ATOL, PDB_ATOL = 5e-5 + 1e-5, 5e-4 + 1e-5
 ETL_SPANS = ("forward", "backward", "optimizer")
 ETL_FORWARD_REPS = 20
+# modes phase: the denoiser's precision and sparsity modes.  The bf16
+# variants of the two forward kernels (csrc/egnn_edge.cu, template
+# argument BF) port the Pallas kernels' mxu_dtype = bfloat16 mode.  Their
+# gate against the bf16 plain version on the card, per output: max
+# |kernel - plain| <= BF16_GATE * max |plain| + BF16_ATOL.  Both round the
+# same operands to bf16, so what is left is an fp32 sum in another order
+# (the tensor cores, cuBLAS), which can move an m that sits at a bf16
+# rounding midpoint by one bf16 ulp (2^-8) in the gate or phi dot: on the
+# CPU, a product summed in float64 moved the pair's output at [16, 80,
+# 192] by 2e-4 of its largest element and gcl_messages' by 1e-5, where
+# the fp32 kernel lies 8e-3 and 2e-3 away.  The bound counts the product
+# once at the dense bf16 peak.
+BF16_KERNELS = {
+    "gcl_messages_bf16": "diffndm_tpu/ops/pallas_egnn.py:151",
+    "edge_vector_reduce_bf16": "diffndm_tpu/ops/pallas_egnn.py:269",
+}
+BF16_WRAPPERS = {"gcl_messages": "gcl_messages_bf16",
+                 "edge_vector_reduce_pair": "edge_vector_reduce_bf16"}
+PEAK_BF16_FLOPS = 989e12
+BF16_GATE, BF16_ATOL = 1e-3, 1e-6
+# the bf16 fixed-noise trajectory, card against CPU.  In bf16 a flipped
+# rounding (of h before the projections, of m in the gate and phi dots)
+# moves an operand by 2^-8 of itself, and ten steps amplify it: on the
+# CPU alone, summing the W2 product in float64 instead of float32 moved
+# this check's coordinates by 0.40 A in bf16 (1.8e-5 A in fp32).  On the
+# card (NVIDIA H100 80GB HBM3, 700 W) the bf16 kernels read 0.267 A with
+# the atom types equal; the controls, the same run with a fault, read
+# 0.592 A (the fp32 kernels) and 0.406 A (no rounding outside the
+# kernels), both with atom types changed.  The gate lies between; the
+# types separate the faults more clearly than the distance.
+BF16_PATH_ATOL = 0.34        # Angstrom
+# K-nearest-neighbour edges at v3b's width on the main path's first state
+KNN_K = (16, 32)
+# the band: crossdock_fullatom_cond at its published width on seeded
+# weights, on [joint] (b)'s crop of [dock]'s receptor; the approximate
+# window; rows of the card-vs-CPU forwards (the CPU's plain chain is dense
+# over N^2 pairs) and of the timed ones; forwards per timing
+BAND_CONFIG = os.path.join(REPO, "configs", "crossdock_fullatom_cond.yml")
+BAND_APPROX_W, BAND_CHECK_B, MODES_REPS = 128, 2, 10
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -419,6 +479,15 @@ def call_cost(name, args, kw):
         extra = bsz * n * 3 + bsz * 3
     return (n_sets * edges * per_edge,
             4 * (node + planes + weights + extra + out))
+
+
+def fp32_launches(K):
+    """The fp32 kernels' launch counts, forward and backward; a bf16
+    kernel launched in an fp32 phase fails the run."""
+    if any(K.LAUNCHES[k] for k in BF16_KERNELS):
+        raise AssertionError(f"a bf16 kernel launched in an fp32 phase: "
+                             f"{K.LAUNCHES}")
+    return {k: K.LAUNCHES[k] for k in (*KERNELS, *BWD_KERNELS)}
 
 
 def forward_launches(K):
@@ -1217,7 +1286,7 @@ def quality_rows(torch, ds, models, seed):
         torch.cuda.synchronize()
         rows[label] = dict(quality_summary(mols),
                            seconds=time.perf_counter() - t0)
-        ref = JAX_ROWS[label]
+        ref = JAX_ROWS[label.split()[0]]
         log(f"[quality] seed {seed} {label:8s} n={rows[label]['n']} in "
             f"{rows[label]['seconds']:.1f} s: "
             + ", ".join(f"{k} {rows[label][k]:.3f} (JAX {ref[k]:.3f})"
@@ -2704,7 +2773,7 @@ def joint_train_phase(torch, K, ds, pdb, sdf):
     finally:
         for n, f in originals.items():
             setattr(K, n, f)
-    launches = dict(K.LAUNCHES)
+    launches = fp32_launches(K)
     want = {"gcl_messages": n_layers, "edge_vector_reduce": n_layers,
             "gcl_messages_bwd": 2 * n_layers,
             "edge_vector_reduce_bwd": 2 * n_layers}
@@ -3048,14 +3117,15 @@ def variant_train_phase(torch, K, train_ds, tmp, yaml_path):
                           self.module.state_dict().items()},
                 gamma={k: v.detach().cpu().clone() for k, v in
                        self.gamma.state_dict().items()})
-        before = dict(K.LAUNCHES)
+        before = fp32_launches(K)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = original(self, ligand, pocket, *args, **kw)
         torch.cuda.synchronize()
         records.append(dict(
-            launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES},
+            launches={k: v - before[k] for k, v in
+                          fp32_launches(K).items()},
             ms=1e3 * (time.perf_counter() - t0),
             peak=torch.cuda.max_memory_allocated(), loss=out[0]))
         return out
@@ -3067,7 +3137,7 @@ def variant_train_phase(torch, K, train_ds, tmp, yaml_path):
         summary = train_cli.main(argv)
     finally:
         Trainer.train_step = original
-    launches = dict(K.LAUNCHES)
+    launches = fp32_launches(K)
     per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
                 "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
     bad = [r["launches"] for r in records if r["launches"] != per_step]
@@ -3358,13 +3428,14 @@ def etl_phase(torch, K, tmp):
                 batches.append([nb.to("cuda") for nb in args[1:3]])
             if kind == "train" and not records["train"]:
                 profiled.enter_context(profiling.trace(trace_dir))
-            before = dict(K.LAUNCHES)
+            before = fp32_launches(K)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             records[kind].append(dict(
-                launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES},
+                launches={k: v - before[k] for k, v in
+                          fp32_launches(K).items()},
                 ms=1e3 * (time.perf_counter() - t0), out=out))
             if kind == "train" and len(records["train"]) == ETL_TRAIN_STEPS:
                 profiled.close()
@@ -3386,7 +3457,7 @@ def etl_phase(torch, K, tmp):
         (Trainer.train_step, Trainer.eval_step,
          ChemistryDashboard.sample_and_analyze) = originals
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = fp32_launches(K)
     per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
                 "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
     per_eval = {"gcl_messages": 10, "edge_vector_reduce": 10,
@@ -3954,14 +4025,15 @@ def train_cli_phase(torch, K, ds, tmp):
 
     def counted(kind, fn):
         def wrapper(*args, **kw):
-            before = dict(K.LAUNCHES)
+            before = fp32_launches(K)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             records[kind].append(dict(
-                launches={k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES},
+                launches={k: v - before[k] for k, v in
+                          fp32_launches(K).items()},
                 ms=1e3 * (time.perf_counter() - t0),
                 peak=torch.cuda.max_memory_allocated(), out=out))
             return out
@@ -3979,7 +4051,7 @@ def train_cli_phase(torch, K, ds, tmp):
         (Trainer.train_step, Trainer.eval_step,
          ChemistryDashboard.sample_and_analyze) = originals
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = fp32_launches(K)
     per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
                 "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
     per_eval = {"gcl_messages": 10, "edge_vector_reduce": 10,
@@ -4112,6 +4184,365 @@ def train_step_profile(torch, K, batches):
         f"plain chain (a memory comparison only)")
     return dict(host_ms=host, busy_ms=busy, peaks=peaks)
 
+# ---------------------------------------------------------------------------
+# [modes]: bf16, K-nearest-neighbour edges, the sorted band
+# ---------------------------------------------------------------------------
+
+def with_egnn(model, **kw):
+    """The model switched to another mode of its EGNN config."""
+    import dataclasses
+
+    model.set_egnn_config(dataclasses.replace(model.cfg.egnn, **kw))
+    return model
+
+
+def forward_ms(torch, fn, reps=MODES_REPS):
+    """Host clock per call, synchronised: what a sampler's step sees of a
+    forward (one that is bound by its launches and host syncs)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def eps_error(torch, got, want):
+    return max(float((g.cpu() - w.cpu()).abs().max())
+               for g, w in zip(got, want))
+
+
+def check_bf16(torch, K, wrapper, args, kw, reps):
+    """A bf16 kernel call against its bf16 plain version, with the fp32
+    kernel on the same call beside it; the call in grad mode must raise."""
+    kernel = getattr(K, wrapper)
+    plain = getattr(K, wrapper + "_plain")
+    kw = dict(kw, compute_dtype="bfloat16")
+    kw32 = dict(kw, compute_dtype="float32")
+    out = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{wrapper} bf16: two launches differ")
+    ref = plain(*args, **kw)
+    tol = BF16_GATE * float(ref.abs().max()) + BF16_ATOL
+    err = float((out - ref).abs().max())
+    fp32_err = float((kernel(*args, **kw32) - ref).abs().max())
+    if not (bool(torch.isfinite(out).all()) and err <= tol):
+        raise AssertionError(
+            f"{wrapper} bf16: kernel disagrees with its plain version: max "
+            f"abs {err:.3e} > {tol:.3e} ({BF16_GATE} max |plain| + "
+            f"{BF16_ATOL})")
+    try:
+        with torch.enable_grad():
+            kernel(*args, **kw)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"{wrapper} bf16 in grad mode did not raise")
+    ops, nbytes = call_cost(wrapper, args, kw)
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    shape = list((args[0][0] if wrapper.endswith("_pair") else args[0]).shape)
+    blocks, per_block = K.launch_grid(wrapper, *shape, kw.get("n_rows"),
+                                      "bfloat16")
+    return dict(
+        shape=shape, max_abs_err=err, gate_share=err / tol,
+        fp32_gate_share=fp32_err / tol,
+        ms=time_ms(torch, lambda: kernel(*args, **kw), reps),
+        fp32_ms=time_ms(torch, lambda: kernel(*args, **kw32), reps),
+        plain_ms=time_ms(torch, lambda: plain(*args, **kw), max(3, reps // 10),
+                         warmup=1, rounds=3),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        blocks=blocks, rows_per_block=per_block)
+
+
+def describe_bf16(res):
+    return (f"max abs {res['max_abs_err']:.3e}, {res['gate_share']:.3f} of "
+            f"the gate (the fp32 kernel on this call: "
+            f"{res['fp32_gate_share']:.2f}); bf16 {res['ms']:.4f} ms, fp32 "
+            f"{res['fp32_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, bf16 "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s or "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s); grid {res['blocks']} blocks of "
+            f"{res['rows_per_block']} rows")
+
+
+def modes_kernels(torch, K, make_model, pocket, sizes):
+    """(a) both bf16 kernels on the calls of a bf16 v3b forward [16, 80,
+    192], at the flagship shapes [20, 344, 256] and on the first forward
+    of the joint sampler [16, 584, 128]."""
+    model = with_egnn(make_model("cuda"), compute_dtype="bfloat16")
+    calls = {"v3b": capture_kernel_calls(torch, K, model, pocket, sizes)}
+    joint = with_egnn(seeded_model(torch, JOINT_CONFIG, "cuda"),
+                      compute_dtype="bfloat16")
+    calls["joint"] = joint_first_calls(torch, K, joint, JOINT_B)
+    calls["flagship"] = [(name, *flagship_inputs(torch, name, "cuda"))
+                         for name in BF16_WRAPPERS]
+    results = {}
+    for label, recorded in calls.items():
+        for wrapper, kernel in BF16_WRAPPERS.items():
+            mine = [c for c in recorded if c[0] == wrapper]
+            if not mine:
+                raise AssertionError(f"[modes] no {wrapper} call ({label})")
+            for _, args, kw in mine[1:]:
+                check_bf16(torch, K, wrapper, args, kw, reps=2)
+            res = check_bf16(torch, K, wrapper, *mine[0][1:], reps=20)
+            results.setdefault(kernel, {})[label] = res
+            log(f"[modes] (a) {label} {wrapper} bf16 {res['shape']} "
+                f"({len(mine)} calls checked): {describe_bf16(res)}")
+    log(f"[modes] (a) a bf16 call on the card in grad mode raises")
+    return results
+
+
+def fp32_kernel(wrapper):
+    """The wrapper with its fp32 kernel, whatever compute dtype it is
+    given."""
+    return lambda *args, **kw: wrapper(*args,
+                                       **dict(kw, compute_dtype="float32"))
+
+
+def modes_bf16_path(torch, K, make_model, pocket, sizes, ds, fp32_rows):
+    """(b) v3b in bf16: one unguided batch at T=500 (s, launches), a
+    fixed-noise run on the card against the CPU's plain bf16 run, beside
+    the same run with a fault (the controls, which the gate must fail),
+    and the [quality] protocol's unguided row for one seed (recorded)."""
+    model = with_egnn(make_model("cuda"), compute_dtype="bfloat16")
+    n_layers = model.cfg.egnn.n_layers
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.sample_given_pocket(
+        pocket, sizes, timesteps=T_MAIN,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in BF16_KERNELS}
+    want = {k: (T_MAIN + 1) * n_layers for k in BF16_KERNELS}
+    fp32 = forward_launches(K)
+    finite = all(bool(torch.isfinite(v).all()) for v in
+                 (res.ligand.x, res.ligand.h))
+    log(f"[modes] (b) v3b bf16, pocket {POCKETS[0]}, B={N_SAMPLES}, "
+        f"T={T_MAIN}: {seconds:.3f} s per batch; launches {launches} "
+        f"(fp32 kernels {fp32}); finite {finite}")
+    if launches != want or any(fp32.values()) or not finite:
+        raise AssertionError(f"[modes] bf16 launches {launches} != {want}, "
+                             f"or an fp32 launch, or non-finite output")
+    sizes_c = np.array([12, 18, 9, 24])
+
+    def fixed_run(device):
+        m = with_egnn(make_model(device), compute_dtype="bfloat16")
+        r = m.sample_given_pocket(m.pocket_from_dataset(
+            ds[POCKETS[0]], len(sizes_c)), sizes_c, timesteps=T_CHECK,
+            noise=fixed_noise(torch, m, sizes_c, T_CHECK))
+        return [v.cpu() for v in (r.ligand.x, r.ligand.h, r.ligand.mask)]
+
+    xc, hc, mc = fixed_run("cpu")
+
+    def against_cpu(run):
+        x, h, _ = run
+        return (float((x - xc).abs().max()),
+                bool(torch.equal(h.argmax(-1)[mc > 0.5],
+                                 hc.argmax(-1)[mc > 0.5])))
+
+    err, same_types = against_cpu(fixed_run("cuda"))
+    # controls, each with a fault the gate must see: the fp32 kernels in
+    # place of the bf16 ones, and the rounding points outside the kernels
+    # left out
+    import diffndm_tpu_torch.models.egnn as egnn_mod
+    faults = {
+        "fp32 kernels": [(K, w, fp32_kernel(getattr(K, w)))
+                         for w in BF16_WRAPPERS],
+        "no rounding outside the kernels": [
+            (egnn_mod, "rounding", lambda cfg: (lambda t: t))]}
+    controls = {}
+    for label, patches in faults.items():
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        try:
+            controls[label] = against_cpu(fixed_run("cuda"))
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+    log(f"[modes] (b) bf16 T={T_CHECK} fixed noise, B={len(sizes_c)}: max "
+        f"|x_cuda - x_cpu| = {err:.3e} A (atol {BF16_PATH_ATOL}); atom "
+        f"types identical: {same_types}; controls: " + "; ".join(
+            f"{k} {e:.3e} A, types identical {t}"
+            for k, (e, t) in controls.items()))
+    if not (err <= BF16_PATH_ATOL and same_types):
+        raise AssertionError("[modes] the bf16 kernel path disagrees with "
+                             "the plain bf16 path")
+    if any(e <= BF16_PATH_ATOL and t for e, t in controls.values()):
+        raise AssertionError("[modes] a control with a fault passes the "
+                             "bf16 path gate")
+    rows = quality_rows(torch, ds, {"unguided bf16": model}, SEED + 1)
+    row = rows["unguided bf16"]
+    keys = ("valid", "connectivity", "connected", "qed", "sa", "logp")
+    beside = (fp32_rows or {}).get("unguided")
+    log("[modes] (b) quality, seed 1, unguided: bf16 "
+        + ", ".join(f"{k} {row[k]:.3f}" for k in keys)
+        + ("; fp32 " + ", ".join(f"{k} {beside[k]:.3f}" for k in keys)
+           if beside else "; fp32 row: [quality] (not run with --only)")
+        + " (recorded, not gated: JAX has no bf16 quality row)")
+    return dict(seconds=seconds, launches=launches, path_err=err,
+                controls={k: dict(max_abs_err=e, types_identical=t)
+                          for k, (e, t) in controls.items()},
+                quality={k: row[k] for k in keys})
+
+
+def modes_knn(torch, make_model, pocket, sizes):
+    """(c) K-nearest-neighbour edges at v3b's width on the main path's
+    first state: the forward on the card against the CPU, the share of
+    rows with more edges than K, ms per forward beside the dense one."""
+    from diffndm_tpu_torch.models.dynamics import build_adjacency
+
+    dense = make_model("cuda")
+    state = first_state(torch, dense, pocket, sizes)
+    z, xh_p, _, lm, pm = state
+    adj = build_adjacency(z[..., :3], xh_p[..., :3], lm, pm,
+                          dense.cfg.egnn)
+    deg = adj.sum(-1)[torch.cat([lm, pm], 1) > 0.5]
+    out = {"dense_ms": forward_ms(torch, lambda: dense.dynamics(*state))}
+    for k in KNN_K:
+        card = with_egnn(make_model("cuda"), neighbors=k)
+        cpu = with_egnn(make_model("cpu"), neighbors=k)
+        err = eps_error(torch, card.dynamics(*state),
+                        cpu.dynamics(*(s.cpu() for s in state)))
+        over = float((deg > k).float().mean())
+        ms = forward_ms(torch, lambda: card.dynamics(*state))
+        log(f"[modes] (c) K={k} at [{N_SAMPLES}, {adj.shape[-1]}, "
+            f"{dense.cfg.egnn.hidden_nf}]: max |eps_cuda - eps_cpu| "
+            f"{err:.3e} (atol {CONFIG_EPS_ATOL}); rows with more than K "
+            f"edges {over:.3f}; {ms:.3f} ms per forward (dense "
+            f"{out['dense_ms']:.3f})")
+        if not err <= CONFIG_EPS_ATOL:
+            raise AssertionError(f"[modes] K={k}: card and CPU disagree")
+        out[k] = dict(max_abs_err=err, rows_over_k=over, ms=ms)
+    return out
+
+
+def modes_band(torch, K, ds, tmp):
+    """(d) the sorted band on crossdock_fullatom_cond at its published
+    width (seeded weights) on [joint] (b)'s crop: the exact window's
+    forward equal to the dense one, the permutation the same on the card
+    as on the CPU, the approximate window's forward card against CPU, ms
+    per forward of each; (e) generate_ligands on that crop, its window
+    line and launch counts, its result equal to the band-off call's."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from diffndm_tpu_torch.config import SampleConfig
+    from diffndm_tpu_torch.models import banding
+
+    pdb, sdf, n_rec = joint_receptor(ds, tmp)
+    model = seeded_model(torch, BAND_CONFIG, "cuda")
+    pocket = model.pocket_from_pdb(pdb, sdf, N_SAMPLES)
+    n_real = int(pocket.mask[0].sum())
+    sizes = model.sample_ligand_sizes(pocket,
+                                      torch.Generator().manual_seed(SEED))
+    state = first_state(torch, model, pocket, sizes)
+    order = [banding.principal_axis_order(pocket.x.to(d), pocket.mask.to(d))
+             [0].cpu() for d in ("cuda", "cpu")]
+    same_order = bool(torch.equal(*order))
+    dense_eg = model.cfg.egnn
+    w_exact = model.enable_banding(pocket)
+    exact_eg = model.cfg.egnn
+    approx_eg = dataclasses.replace(exact_eg, band_window=BAND_APPROX_W)
+    out = {}
+    for label, eg in (("dense", dense_eg), ("exact", exact_eg),
+                      ("approx", approx_eg)):
+        model.set_egnn_config(eg)
+        out[label] = model.dynamics(*state)
+        out[f"{label}_ms"] = forward_ms(torch,
+                                        lambda: model.dynamics(*state))
+    exact_err = eps_error(torch, out["exact"], out["dense"])
+    approx_dist = eps_error(torch, out["approx"], out["dense"])
+    cpu = seeded_model(torch, BAND_CONFIG, "cpu")
+    cpu.set_egnn_config(approx_eg)
+    small = [s[:BAND_CHECK_B] for s in state]
+    model.set_egnn_config(approx_eg)
+    approx_err = eps_error(torch, model.dynamics(*small),
+                           cpu.dynamics(*(s.cpu() for s in small)))
+    n = state[0].shape[1] + state[1].shape[1]
+    log(f"[modes] (d) band, {os.path.basename(BAND_CONFIG)} (hidden "
+        f"{dense_eg.hidden_nf}, {dense_eg.n_layers} layers, seeded), pocket "
+        f"{n_real} atoms of the {n_rec}-atom receptor, [B, N] = "
+        f"[{N_SAMPLES}, {n}]: exact window {w_exact} (row tile "
+        f"{exact_eg.row_tile}), approximate {BAND_APPROX_W}; order the same "
+        f"on the card as on the CPU: {same_order}; max |exact - dense| "
+        f"{exact_err:.3e} (atol {CONFIG_EPS_ATOL}); approximate window "
+        f"card vs CPU (B={BAND_CHECK_B}) {approx_err:.3e} (atol "
+        f"{CONFIG_EPS_ATOL}), its distance from dense {approx_dist:.3e}; ms "
+        f"per forward: dense {out['dense_ms']:.3f}, exact "
+        f"{out['exact_ms']:.3f}, approximate {out['approx_ms']:.3f}")
+    if not (same_order and 0 < w_exact < pocket.x.shape[1]
+            and exact_err <= CONFIG_EPS_ATOL
+            and approx_err <= CONFIG_EPS_ATOL):
+        raise AssertionError("[modes] the band disagrees (see above)")
+    gen = seeded_model(torch, BAND_CONFIG, "cuda",
+                       sample_cfg=SampleConfig(n_samples=N_SAMPLES,
+                                               timesteps=T_MAIN))
+    saved = {k: os.environ.pop(k, None)
+             for k in ("DIFFNDM_AUTO_BAND", "DIFFNDM_BAND_APPROX")}
+    runs = {}
+    try:
+        # the band off first, then the facade's default (its exact window)
+        for label, auto in (("off", "0"), ("auto", "1")):
+            os.environ["DIFFNDM_AUTO_BAND"] = auto
+            text = io.StringIO()
+            K.reset_launches()
+            with contextlib.redirect_stdout(text):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mols, res = gen.generate_ligands(pdb, sdf, seed=SEED)
+                torch.cuda.synchronize()
+                runs[label] = (time.perf_counter() - t0, res,
+                               forward_launches(K), text.getvalue())
+    finally:
+        os.environ.pop("DIFFNDM_AUTO_BAND")
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    seconds, res, launches, text = runs["auto"]
+    want = {k: gen.cfg.egnn.n_layers * (T_MAIN + 1) for k in KERNELS}
+    line = [ln for ln in text.splitlines()
+            if ln.startswith("[banding] window=")]
+    same = bool(torch.equal(res.ligand.x, runs["off"][1].ligand.x))
+    log(f"[modes] (e) generate_ligands on the crop, {N_SAMPLES} rows, "
+        f"T={T_MAIN}: {seconds:.3f} s ({runs['off'][0]:.3f} s with "
+        f"DIFFNDM_AUTO_BAND=0); {line}; band_window "
+        f"{gen.cfg.egnn.band_window}, the denoiser's "
+        f"{gen.dynamics.cfg.band_window} (an exact window runs dense); "
+        f"result equal to the band-off run's: {same}; launches {launches}; "
+        f"{sum(m is not None for m in mols)} molecules")
+    if not (line and gen.cfg.egnn.band_window and launches == want
+            and runs["off"][2] == want and same
+            and bool(torch.isfinite(res.ligand.x).all())):
+        raise AssertionError(f"[modes] generate_ligands: no window line, "
+                             f"launches {launches} != {want}, or a result "
+                             f"unlike the band-off run's")
+    return dict(window=w_exact, exact_err=exact_err, approx_err=approx_err,
+                approx_dist=approx_dist, same_order=same_order,
+                ms={k: out[f"{k}_ms"] for k in ("dense", "exact", "approx")},
+                generate_seconds=seconds, generate_launches=launches,
+                generate_off_seconds=runs["off"][0])
+
+
+def modes_phase(torch, K, make_model, pocket, sizes, ds, fp32_rows=None):
+    """[modes]: (a)-(e); returns the bf16 kernels' rows of the table."""
+    t0 = time.perf_counter()
+    kernels = modes_kernels(torch, K, make_model, pocket, sizes)
+    path = modes_bf16_path(torch, K, make_model, pocket, sizes, ds,
+                           fp32_rows)
+    knn = modes_knn(torch, make_model, pocket, sizes)
+    with tempfile.TemporaryDirectory() as tmp:
+        band = modes_band(torch, K, ds, tmp)
+    log("[modes] " + json.dumps(dict(path=path, knn=knn, band=band)))
+    log(f"[modes] done in {time.perf_counter() - t0:.1f} s")
+    return dict(kernels=kernels, path=path, knn=knn, band=band)
+
+
 
 def main() -> int:
     import torch
@@ -4119,7 +4550,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
                                            "train", "vina", "joint",
-                                           "variants", "etl"],
+                                           "variants", "etl", "modes"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
@@ -4128,7 +4559,8 @@ def main() -> int:
                         "optimize-vina and dock phases alone, run the "
                         "kernel checks and the joint, joint-train and "
                         "configs phases alone, run the variants phase "
-                        "alone, or run the etl phase alone")
+                        "alone, run the etl phase alone, or run the modes "
+                        "phase alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4163,10 +4595,10 @@ def main() -> int:
     kernel = None
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function .*edge_chain_mmaILi(\d+)"
-                      r"ELb([01])E", line)
+                      r"ELb([01])ELb([01])E", line)
         if m:
             name = "edge_vector_reduce" if m[2] == "1" else "gcl_messages"
-            kernel = f"{name} H={int(m[1])}"
+            kernel = f"{name}{'_bf16' if m[3] == '1' else ''} H={int(m[1])}"
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
     # and per instantiation edge_chain_bwd_mma<H, VEC> of the backward
@@ -4228,6 +4660,10 @@ def main() -> int:
             etl_phase(torch, K, tmp)
         log("[etl] done (--only etl: no result)")
         return 0
+    if opts.only == "modes":
+        modes_phase(torch, K, make_model, pockets[0], sizes[0], ds)
+        log("[modes] done (--only modes: no result)")
+        return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
     train_ds, batches = train_batches(torch, model.device)
     bwd_results = backward_phase(torch, K, batches,
@@ -4268,7 +4704,7 @@ def main() -> int:
     n_workers = oracle_phase(guided, population)
     guided_workers_phase(torch, make_model, guided_cfg, pockets[0], sizes[0],
                          n_workers)
-    quality_phase(torch, ds, {"unguided": model, "guided": guided})
+    quality = quality_phase(torch, ds, {"unguided": model, "guided": guided})
     step_phase(torch, K, model, pockets[0], sizes[0])
     del guided
     with tempfile.TemporaryDirectory() as tmp:
@@ -4304,6 +4740,8 @@ def main() -> int:
             torch, K, ds, train_ds, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         etl = etl_phase(torch, K, tmp)
+    modes = modes_phase(torch, K, make_model, pockets[0], sizes[0], ds,
+                        quality)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -4376,6 +4814,23 @@ def main() -> int:
             joint_train={c: joint_train[name][c] for c in (
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
                 "bound_ms", "bound_by", "blocks")}))
+    for name, src in BF16_KERNELS.items():
+        at = modes["kernels"][name]
+        main_res = at["v3b"]
+        table.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=src,
+            launches=modes["path"]["launches"][name],
+            note="the bf16 variant (mxu_dtype = bfloat16) of the TPU "
+            "kernel; EGNNConfig.compute_dtype = 'bfloat16'",
+            max_abs_err=max(r["max_abs_err"] for r in at.values()),
+            ms=main_res["ms"], plain_ms=main_res["plain_ms"],
+            bound_ms=main_res["bound_ms"], bound_by=main_res["bound_by"],
+            library_ms=None, bound_peak="bf16 989 TFLOP/s, 3.35 TB/s",
+            shape=main_res["shape"], fp32_ms=main_res["fp32_ms"],
+            shapes={label: {k: r[k] for k in (
+                "shape", "max_abs_err", "gate_share", "fp32_gate_share",
+                "ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
+                "blocks")} for label, r in at.items()}))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,28 @@ class EGNNConfig:
     # keeping them: the edge-chain kernels' backward already saves only
     # their inputs, so this is read and has nothing left to save
     remat: bool = False
+    # the rows of one band tile: under ``band_window`` each tile of this
+    # many pocket rows sees one window, centred on the tile; otherwise it
+    # changes nothing
+    row_tile: int = 64
+    # 'float32' | 'bfloat16': the precision of the edge chains (the
+    # kernels' products take bf16 operands with fp32 sums; forward only)
+    compute_dtype: str = "float32"
+    # fixed-K neighbour lists: each row keeps its K best-ranked columns
+    # (real edges, the ligand clique, then the nearest); exact while no
+    # row has more than K edges.  None = every edge of the cutoff graph
+    neighbors: Optional[int] = None
+    # sorted-band sparsity (models/banding.py): the pocket sorted along
+    # its principal axis; a tile of pocket rows keeps the ligand columns
+    # and this many contiguous sorted pocket columns.  Exact when
+    # (band_window - row_tile) / 2 >= band_halfwidth_atoms(pocket,
+    # cutoff).  None = off; ignored with ``neighbors``
+    band_window: Optional[int] = None
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or "
+                             f"'bfloat16', got {self.compute_dtype!r}")
 
 
 @dataclass(frozen=True)

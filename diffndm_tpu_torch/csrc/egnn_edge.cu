@@ -1,5 +1,6 @@
 // EGNN edge-chain kernels for NVIDIA Hopper (sm_90a): fp32 in and out, the
-// product by W2 on the tensor cores as a three-term TF32 split.
+// product by W2 on the tensor cores as a three-term TF32 split, or, in the
+// bf16 variants, as one bf16 product with fp32 accumulation.
 //
 // Replaces the two Pallas TPU kernels of the JAX package,
 // diffndm_tpu/ops/pallas_egnn.py:
@@ -92,12 +93,38 @@
 // Where the time of a pass goes at H=192 (cycle counters, build with
 // -DEGNN_PROFILE): about 70 % in the mma loop, 25 % in the epilogue, the
 // rest in waiting for chunks and asking for them.
+// The bf16 variants (template argument BF; the entries *_bf16) port the
+// Pallas kernels' mxu_dtype = bfloat16 mode, which the JAX package runs
+// under EGNNConfig.compute_dtype = "bfloat16": z, W2, m and watt / wout
+// are rounded to bf16 (nearest even) as the operands of their products,
+// whose sums stay fp32; everything else is fp32 as above.
+//   * z @ W2 is one mma.sync.aligned.m16n8k16 bf16 per chunk and column
+//     tile, where TF32x3 takes three m16n8k8 per k-step of 8.  Thread
+//     (g, t) computes z for k = 4t..4t+3 of its rows g and g+8, as in the
+//     fp32 kernel, and packs them with cvt.rn.bf16x2.f32 into A slots 2t,
+//     2t+1 (k = 4t, 4t+1) and 2t+8, 2t+9 (k = 4t+2, 4t+3); the B
+//     fragments follow the same k order.
+//   * W2 is staged in bf16 by the wrapper ([H/16, 4, H+4, 4]: per chunk,
+//     the four k of thread t for each column, rows padded by 4 entries),
+//     a quarter of a TF32x3 stage's bytes; one 8-byte load gives a B
+//     fragment's two registers, free of bank conflicts.
+//   * z's pre-activation is summed in the plain version's order without
+//     contraction, and both silu use expf and an IEEE division, so that
+//     z rounds to the same bf16 values as the plain version's on the card.
+//   * The gate or phi dot multiplies m rounded to bf16 by watt / wout
+//     rounded to bf16 (staged so in shared memory), summed in fp32; the
+//     gate multiplies the unrounded m, as the Pallas kernel does.
+//   * The per-chunk zeroed accumulators are kept: each chunk's mma
+//     starts from zero and is added to the running sum once.
+// The rounding of the aggregate to bf16 on the way out, and of h, the
+// coordinates, d2i, adj and W_e on the way in, is the caller's.
 // Left for later work: the last pass of a block often has tiles for a few
 // warps only (split such a tile's columns over the idle warps); the list
-// is built from two reads of adj; single-pass TF32 or bf16 once a
-// chemistry metric can judge it; d2 and adjacency computed inside the
-// kernel; the sorted-band column window for large pockets.
+// is built from two reads of adj; single-pass TF32 once a chemistry
+// metric can judge it; d2 and adjacency computed inside the kernel; wgmma
+// for the bf16 variants.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -141,7 +168,8 @@ struct WeightSet {
     const float* a;       // [B, N, H]
     const float* b;       // [B, N, H]
     const float* we;      // [2, H]
-    const float* w2;      // [H/16, 16, H+4, 2]: split and laid out for the ring
+    const float* w2;      // [H/16, 16, H+4, 2] fp32 split, or [H/16, 4, H+4,
+                          // 4] bf16 (BF): laid out for the ring
     const float* b2;      // [H]
     const float* wvec;    // [H]: attention weight or phi weight
     float* out;           // [B, N, H] (gcl) or [B, N, 3] (vec)
@@ -173,35 +201,63 @@ __device__ __forceinline__ float sigmoid_f(float v) {
     return 1.0f / (1.0f + expf(-v));
 }
 
+// torch's silu on the card: expf and an IEEE division
+__device__ __forceinline__ float silu_exact(float v) {
+    return v / (1.0f + expf(-v));
+}
+
+// v rounded to bf16, nearest even, as a float
+__device__ __forceinline__ float bf16_round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// ((a + b) + dc * w0) + di * w1, each operation rounded: the plain
+// version's order, no fused multiply-add
+__device__ __forceinline__ float pre_exact(float a, float b, float dc,
+                                           float w0, float di, float w1) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(a, b), __fmul_rn(dc, w0)),
+                     __fmul_rn(di, w1));
+}
+
+// the ring stage of one chunk of W2, in floats: KC rows of (big,
+// remainder) pairs, or (BF) four groups of four bf16 per column
+template <int H, bool BF>
+__host__ __device__ constexpr int stage_floats() {
+    return BF ? 8 * (H + 4) : KC * (H + 4) * 2;
+}
+
 // floats of shared memory besides the edge list (4 bytes per list entry,
 // 16 with the per-edge vector contributions)
-template <int H, bool VEC>
+template <int H, bool VEC, bool BF>
 constexpr int fixed_floats() {
     return 2 * STAGES                 // the ring's barriers (8 bytes each)
-           + STAGES * KC * (H + 4) * 2  // W2 ring (row stride H + 4 pairs)
+           + STAGES * stage_floats<H, BF>()  // W2 ring (padded rows)
            + R_MAX * H                // a rows
            + 4 * H                    // we0, we1, b2, wvec
            + (VEC ? 0 : (R_MAX + NW) * H)   // row sums, per-warp heads
            + R_MAX + 1 + NW + 3;      // row starts, head rows (ints), pad
 }
 
-template <int H, bool VEC>
+template <int H, bool VEC, bool BF>
 constexpr size_t smem_bytes(int list_len) {
-    return (size_t)fixed_floats<H, VEC>() * 4
+    return (size_t)fixed_floats<H, VEC, BF>() * 4
            + (size_t)list_len * (VEC ? 16 : 4);
 }
 
-// VEC = false: gcl_messages; VEC = true: edge_vector_reduce
-template <int H, bool VEC>
+// VEC = false: gcl_messages; VEC = true: edge_vector_reduce; BF: the
+// bf16 variant
+template <int H, bool VEC, bool BF>
 __global__ void __launch_bounds__(THREADS, 1)
 edge_chain_mma(const EdgeArgs p) {
-    constexpr int LD = H + 4;         // pairs; = 4 mod 16: B loads hit all banks
+    constexpr int LD = H + 4;         // 8-byte entries per padded row; = 4
+                                      // mod 16: B loads hit all banks
     constexpr int NT = H / 8;         // mma N tiles of a warp
     constexpr int NC = H / KC;        // ring chunks per pass over W2
+    constexpr int SF = stage_floats<H, BF>();
     extern __shared__ __align__(16) float smem[];
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
     float* ring = smem + 2 * STAGES;
-    float* as = ring + STAGES * KC * LD * 2;
+    float* as = ring + STAGES * SF;
     float* we0 = as + R_MAX * H;
     float* we1 = we0 + H;
     float* b2s = we1 + H;
@@ -235,13 +291,15 @@ edge_chain_mma(const EdgeArgs p) {
     // here (row stride H + 4 pairs; row 4*i + j of a chunk at 4*j + i, so
     // that thread t finds the rows of its four k values 4t..4t+3 at t,
     // t+4, t+8, t+12, the positions the B fragments of two k-steps read).
-    // One thread asks for the whole chunk as one bulk copy.
+    // BF: for each t, a padded row of H + 4 columns of the four bf16
+    // W2[4t..4t+3][n].  One thread asks for the whole chunk as one bulk
+    // copy.
     PROF_T(p_start);
-    constexpr uint32_t CHUNK_BYTES = KC * LD * 2 * 4;
+    constexpr uint32_t CHUNK_BYTES = SF * 4;
     auto request_chunk = [&](int q) {
         if (tid == 0)
-            bulk_load(ring + (q % STAGES) * KC * LD * 2,
-                      ws.w2 + (size_t)(q % NC) * KC * LD * 2, CHUNK_BYTES,
+            bulk_load(ring + (q % STAGES) * SF,
+                      ws.w2 + (size_t)(q % NC) * SF, CHUNK_BYTES,
                       full + q % STAGES);
     };
     if (tid == 0) {
@@ -259,7 +317,7 @@ edge_chain_mma(const EdgeArgs p) {
         we0[i] = ws.we[i];
         we1[i] = ws.we[H + i];
         b2s[i] = ws.b2[i];
-        wvs[i] = ws.wvec[i];
+        wvs[i] = BF ? bf16_round(ws.wvec[i]) : ws.wvec[i];
     }
     if (!VEC)
         for (int i = tid; i < R_MAX * H; i += THREADS) rowsum[i] = 0.f;
@@ -359,8 +417,6 @@ edge_chain_mma(const EdgeArgs p) {
         PROF_ADD(2, p_b, p_c);
 
         if (active) {
-            const float2* wst = reinterpret_cast<const float2*>(
-                ring + (q % STAGES) * KC * LD * 2);
             const int kq = c * KC + 4 * t;
             const float4 al = *reinterpret_cast<const float4*>(
                 as + lr_lo * H + kq);
@@ -375,64 +431,111 @@ edge_chain_mma(const EdgeArgs p) {
             }
             const float4 w0 = *reinterpret_cast<const float4*>(we0 + kq);
             const float4 w1 = *reinterpret_cast<const float4*>(we1 + kq);
-            float zl[4], zh[4];
-            zl[0] = silu_fast(fmaf(di_lo, w1.x, fmaf(dc_lo, w0.x, al.x + bl.x)));
-            zl[1] = silu_fast(fmaf(di_lo, w1.y, fmaf(dc_lo, w0.y, al.y + bl.y)));
-            zl[2] = silu_fast(fmaf(di_lo, w1.z, fmaf(dc_lo, w0.z, al.z + bl.z)));
-            zl[3] = silu_fast(fmaf(di_lo, w1.w, fmaf(dc_lo, w0.w, al.w + bl.w)));
-            zh[0] = silu_fast(fmaf(di_hi, w1.x, fmaf(dc_hi, w0.x, ah.x + bh.x)));
-            zh[1] = silu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y)));
-            zh[2] = silu_fast(fmaf(di_hi, w1.z, fmaf(dc_hi, w0.z, ah.z + bh.z)));
-            zh[3] = silu_fast(fmaf(di_hi, w1.w, fmaf(dc_hi, w0.w, ah.w + bh.w)));
-            // the chunk's two k-steps of 8: slots t and t + 4 hold
-            // k = 4t + 2*half, +1
-            uint32_t ab[2][4], asml[2][4];
+            if constexpr (BF) {
+                // z of k = 4t..4t+3, rows g and g+8, into A slots 2t, 2t+1
+                // (k 4t, 4t+1) and 2t+8, 2t+9 (k 4t+2, 4t+3)
+                auto zlo = [&](float av, float bv, float w0v, float w1v) {
+                    return silu_exact(
+                        pre_exact(av, bv, dc_lo, w0v, di_lo, w1v));
+                };
+                auto zhi = [&](float av, float bv, float w0v, float w1v) {
+                    return silu_exact(
+                        pre_exact(av, bv, dc_hi, w0v, di_hi, w1v));
+                };
+                const uint32_t af[4] = {
+                    pack_bf16x2(zlo(al.x, bl.x, w0.x, w1.x),
+                                zlo(al.y, bl.y, w0.y, w1.y)),
+                    pack_bf16x2(zhi(ah.x, bh.x, w0.x, w1.x),
+                                zhi(ah.y, bh.y, w0.y, w1.y)),
+                    pack_bf16x2(zlo(al.z, bl.z, w0.z, w1.z),
+                                zlo(al.w, bl.w, w0.w, w1.w)),
+                    pack_bf16x2(zhi(ah.z, bh.z, w0.z, w1.z),
+                                zhi(ah.w, bh.w, w0.w, w1.w))};
+                const uint2* wk = reinterpret_cast<const uint2*>(
+                    ring + (q % STAGES) * SF) + t * LD + g;
+                // NG column tiles at a time, each chunk's product into
+                // zeroed accumulators, then one rounded add
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                split_tf32(zl[2 * half], ab[half][0], asml[half][0]);
-                split_tf32(zh[2 * half], ab[half][1], asml[half][1]);
-                split_tf32(zl[2 * half + 1], ab[half][2], asml[half][2]);
-                split_tf32(zh[2 * half + 1], ab[half][3], asml[half][3]);
-            }
-            // NG column tiles at a time, one product term after the other,
-            // so that one mma does not wait on the accumulator of the mma
-            // just before it; the chunk's six products into zeroed
-            // accumulators, then one rounded add each
-#pragma unroll
-            for (int n0 = 0; n0 < NT; n0 += NG) {
-                float part[NG][4];
-#pragma unroll
-                for (int j = 0; j < NG; ++j)
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
-#pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const float2* wk = wst + (half * 8 + t) * LD + g;
-                    uint32_t bb0[NG], bs0[NG], bb1[NG], bs1[NG];
+                for (int n0 = 0; n0 < NT; n0 += NG) {
+                    float part[NG][4];
+                    uint2 bw[NG];
 #pragma unroll
                     for (int j = 0; j < NG; ++j) {
-                        const float2 f0 = wk[(n0 + j) * 8];
-                        const float2 f1 = wk[4 * LD + (n0 + j) * 8];
-                        bb0[j] = __float_as_uint(f0.x);
-                        bs0[j] = __float_as_uint(f0.y);
-                        bb1[j] = __float_as_uint(f1.x);
-                        bs1[j] = __float_as_uint(f1.y);
+                        bw[j] = wk[(n0 + j) * 8];
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
                     }
 #pragma unroll
                     for (int j = 0; j < NG; ++j)
-                        mma_tf32(part[j], ab[half], bs0[j], bs1[j]);
+                        mma_bf16(part[j], af, bw[j].x, bw[j].y);
 #pragma unroll
                     for (int j = 0; j < NG; ++j)
-                        mma_tf32(part[j], asml[half], bb0[j], bb1[j]);
 #pragma unroll
-                    for (int j = 0; j < NG; ++j)
-                        mma_tf32(part[j], ab[half], bb0[j], bb1[j]);
+                        for (int i = 0; i < 4; ++i)
+                            acc[n0 + j][i] += part[j][i];
                 }
+            } else {
+                const float2* wst = reinterpret_cast<const float2*>(
+                    ring + (q % STAGES) * SF);
+                float zl[4], zh[4];
+                zl[0] = silu_fast(fmaf(di_lo, w1.x, fmaf(dc_lo, w0.x, al.x + bl.x)));
+                zl[1] = silu_fast(fmaf(di_lo, w1.y, fmaf(dc_lo, w0.y, al.y + bl.y)));
+                zl[2] = silu_fast(fmaf(di_lo, w1.z, fmaf(dc_lo, w0.z, al.z + bl.z)));
+                zl[3] = silu_fast(fmaf(di_lo, w1.w, fmaf(dc_lo, w0.w, al.w + bl.w)));
+                zh[0] = silu_fast(fmaf(di_hi, w1.x, fmaf(dc_hi, w0.x, ah.x + bh.x)));
+                zh[1] = silu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y)));
+                zh[2] = silu_fast(fmaf(di_hi, w1.z, fmaf(dc_hi, w0.z, ah.z + bh.z)));
+                zh[3] = silu_fast(fmaf(di_hi, w1.w, fmaf(dc_hi, w0.w, ah.w + bh.w)));
+                // the chunk's two k-steps of 8: slots t and t + 4 hold
+                // k = 4t + 2*half, +1
+                uint32_t ab[2][4], asml[2][4];
 #pragma unroll
-                for (int j = 0; j < NG; ++j)
+                for (int half = 0; half < 2; ++half) {
+                    split_tf32(zl[2 * half], ab[half][0], asml[half][0]);
+                    split_tf32(zh[2 * half], ab[half][1], asml[half][1]);
+                    split_tf32(zl[2 * half + 1], ab[half][2], asml[half][2]);
+                    split_tf32(zh[2 * half + 1], ab[half][3], asml[half][3]);
+                }
+                // NG column tiles at a time, one product term after the other,
+                // so that one mma does not wait on the accumulator of the mma
+                // just before it; the chunk's six products into zeroed
+                // accumulators, then one rounded add each
 #pragma unroll
-                    for (int i = 0; i < 4; ++i)
-                        acc[n0 + j][i] += part[j][i];
+                for (int n0 = 0; n0 < NT; n0 += NG) {
+                    float part[NG][4];
+#pragma unroll
+                    for (int j = 0; j < NG; ++j)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const float2* wk = wst + (half * 8 + t) * LD + g;
+                        uint32_t bb0[NG], bs0[NG], bb1[NG], bs1[NG];
+#pragma unroll
+                        for (int j = 0; j < NG; ++j) {
+                            const float2 f0 = wk[(n0 + j) * 8];
+                            const float2 f1 = wk[4 * LD + (n0 + j) * 8];
+                            bb0[j] = __float_as_uint(f0.x);
+                            bs0[j] = __float_as_uint(f0.y);
+                            bb1[j] = __float_as_uint(f1.x);
+                            bs1[j] = __float_as_uint(f1.y);
+                        }
+#pragma unroll
+                        for (int j = 0; j < NG; ++j)
+                            mma_tf32(part[j], ab[half], bs0[j], bs1[j]);
+#pragma unroll
+                        for (int j = 0; j < NG; ++j)
+                            mma_tf32(part[j], asml[half], bb0[j], bb1[j]);
+#pragma unroll
+                        for (int j = 0; j < NG; ++j)
+                            mma_tf32(part[j], ab[half], bb0[j], bb1[j]);
+                    }
+#pragma unroll
+                    for (int j = 0; j < NG; ++j)
+#pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            acc[n0 + j][i] += part[j][i];
+                }
             }
         }
 
@@ -449,12 +552,25 @@ edge_chain_mma(const EdgeArgs p) {
                 const int c0 = nt * 8 + 2 * t;
                 const float2 bias = *reinterpret_cast<const float2*>(b2s + c0);
                 const float2 wv = *reinterpret_cast<const float2*>(wvs + c0);
-                acc[nt][0] = silu_fast(acc[nt][0] + bias.x);
-                acc[nt][1] = silu_fast(acc[nt][1] + bias.y);
-                acc[nt][2] = silu_fast(acc[nt][2] + bias.x);
-                acc[nt][3] = silu_fast(acc[nt][3] + bias.y);
-                dot_lo = fmaf(acc[nt][0], wv.x, fmaf(acc[nt][1], wv.y, dot_lo));
-                dot_hi = fmaf(acc[nt][2], wv.x, fmaf(acc[nt][3], wv.y, dot_hi));
+                if constexpr (BF) {
+                    acc[nt][0] = silu_exact(acc[nt][0] + bias.x);
+                    acc[nt][1] = silu_exact(acc[nt][1] + bias.y);
+                    acc[nt][2] = silu_exact(acc[nt][2] + bias.x);
+                    acc[nt][3] = silu_exact(acc[nt][3] + bias.y);
+                    // the dot's operands in bf16 (wvs is rounded), exact
+                    // products, fp32 sums
+                    dot_lo = fmaf(bf16_round(acc[nt][0]), wv.x,
+                                  fmaf(bf16_round(acc[nt][1]), wv.y, dot_lo));
+                    dot_hi = fmaf(bf16_round(acc[nt][2]), wv.x,
+                                  fmaf(bf16_round(acc[nt][3]), wv.y, dot_hi));
+                } else {
+                    acc[nt][0] = silu_fast(acc[nt][0] + bias.x);
+                    acc[nt][1] = silu_fast(acc[nt][1] + bias.y);
+                    acc[nt][2] = silu_fast(acc[nt][2] + bias.x);
+                    acc[nt][3] = silu_fast(acc[nt][3] + bias.y);
+                    dot_lo = fmaf(acc[nt][0], wv.x, fmaf(acc[nt][1], wv.y, dot_lo));
+                    dot_hi = fmaf(acc[nt][2], wv.x, fmaf(acc[nt][3], wv.y, dot_hi));
+                }
             }
             if (VEC || p.flag_a) {
                 dot_lo += __shfl_xor_sync(FULL, dot_lo, 1);
@@ -615,7 +731,7 @@ int sm_count() {
 
 // rows per block: about two blocks per SM, fewer rows where the list of
 // R * N candidate edges would not fit shared memory
-template <int H, bool VEC>
+template <int H, bool VEC, bool BF>
 int pick_rows(int B, int rows, int N, int n_sets) {
     const long total = (long)B * rows * n_sets;
     const long target = sm_count();
@@ -623,39 +739,66 @@ int pick_rows(int B, int rows, int N, int n_sets) {
     if (R > R_MAX) R = R_MAX;
     if (R > rows) R = rows;
     if (R < 1) R = 1;
-    while (R > 1 && smem_bytes<H, VEC>((int)R * N) > (size_t)SMEM_LIMIT) --R;
+    while (R > 1 && smem_bytes<H, VEC, BF>((int)R * N) > (size_t)SMEM_LIMIT)
+        --R;
     return (int)R;
 }
 
-template <int H, bool VEC>
+template <int H, bool VEC, bool BF>
 int launch_t(EdgeArgs& args, int B, int n_sets, cudaStream_t stream) {
     static bool configured = false;
     if (!configured) {
         cudaError_t e = cudaFuncSetAttribute(
-            edge_chain_mma<H, VEC>,
+            edge_chain_mma<H, VEC, BF>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
         if (e != cudaSuccess) return (int)e;
         configured = true;
     }
     const int rows = args.n_rows < args.N ? args.n_rows : args.N;
-    args.R = pick_rows<H, VEC>(B, rows, args.N, n_sets);
-    const size_t smem = smem_bytes<H, VEC>(args.R * args.N);
+    args.R = pick_rows<H, VEC, BF>(B, rows, args.N, n_sets);
+    const size_t smem = smem_bytes<H, VEC, BF>(args.R * args.N);
     if (smem > (size_t)SMEM_LIMIT || args.N > 0xffff)
         return (int)cudaErrorInvalidValue;
     dim3 grid((rows + args.R - 1) / args.R, B, n_sets);
-    edge_chain_mma<H, VEC><<<grid, THREADS, smem, stream>>>(args);
+    edge_chain_mma<H, VEC, BF><<<grid, THREADS, smem, stream>>>(args);
     return (int)cudaGetLastError();
 }
 
-template <bool VEC>
+template <bool VEC, bool BF = false>
 int launch(EdgeArgs& args, int B, int H, int n_sets, cudaStream_t stream) {
     if (B <= 0 || args.N <= 0 || args.n_rows <= 0) return 0;
     switch (H) {
-        case 128: return launch_t<128, VEC>(args, B, n_sets, stream);
-        case 192: return launch_t<192, VEC>(args, B, n_sets, stream);
-        case 256: return launch_t<256, VEC>(args, B, n_sets, stream);
+        case 128: return launch_t<128, VEC, BF>(args, B, n_sets, stream);
+        case 192: return launch_t<192, VEC, BF>(args, B, n_sets, stream);
+        case 256: return launch_t<256, VEC, BF>(args, B, n_sets, stream);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+EdgeArgs gcl_args(const float* a, const float* b, const float* d2c,
+                  const float* d2i, const float* adj, const float* we,
+                  const float* w2, const float* b2, const float* watt,
+                  const float* batt, float* out, int N, int attention,
+                  float norm_factor) {
+    EdgeArgs p{};
+    p.s[0] = WeightSet{a, b, we, w2, b2, watt, out, 0};
+    p.d2c = d2c; p.d2i = d2i; p.adj = adj; p.batt = batt;
+    p.N = N; p.n_rows = N; p.flag_a = attention;
+    p.norm_factor = norm_factor;
+    return p;
+}
+
+// the vector kernel's shared arguments; the caller fills the weight sets
+EdgeArgs vec_args(const float* d2c, const float* d2i, const float* adj,
+                  const float* x, const float* center, int N, int n_rows,
+                  int tanh_, float coords_range, float norm_constant,
+                  float norm_factor) {
+    EdgeArgs p{};
+    p.d2c = d2c; p.d2i = d2i; p.adj = adj; p.x = x; p.center = center;
+    p.N = N; p.n_rows = n_rows; p.flag_a = tanh_;
+    p.coords_range = coords_range; p.norm_constant = norm_constant;
+    p.norm_factor = norm_factor;
+    return p;
 }
 
 }  // namespace
@@ -669,30 +812,55 @@ int egnn_rows_per_block(int B, int N, int H, int n_rows, int n_sets,
                         int vec) {
     const int rows = n_rows < N ? n_rows : N;
     switch (vec ? -H : H) {
-        case 128: return pick_rows<128, false>(B, rows, N, n_sets);
-        case 192: return pick_rows<192, false>(B, rows, N, n_sets);
-        case 256: return pick_rows<256, false>(B, rows, N, n_sets);
-        case -128: return pick_rows<128, true>(B, rows, N, n_sets);
-        case -192: return pick_rows<192, true>(B, rows, N, n_sets);
-        case -256: return pick_rows<256, true>(B, rows, N, n_sets);
+        case 128: return pick_rows<128, false, false>(B, rows, N, n_sets);
+        case 192: return pick_rows<192, false, false>(B, rows, N, n_sets);
+        case 256: return pick_rows<256, false, false>(B, rows, N, n_sets);
+        case -128: return pick_rows<128, true, false>(B, rows, N, n_sets);
+        case -192: return pick_rows<192, true, false>(B, rows, N, n_sets);
+        case -256: return pick_rows<256, true, false>(B, rows, N, n_sets);
+        default: return 0;
+    }
+}
+
+// The same for the bf16 variants.
+int egnn_rows_per_block_bf16(int B, int N, int H, int n_rows, int n_sets,
+                             int vec) {
+    const int rows = n_rows < N ? n_rows : N;
+    switch (vec ? -H : H) {
+        case 128: return pick_rows<128, false, true>(B, rows, N, n_sets);
+        case 192: return pick_rows<192, false, true>(B, rows, N, n_sets);
+        case 256: return pick_rows<256, false, true>(B, rows, N, n_sets);
+        case -128: return pick_rows<128, true, true>(B, rows, N, n_sets);
+        case -192: return pick_rows<192, true, true>(B, rows, N, n_sets);
+        case -256: return pick_rows<256, true, true>(B, rows, N, n_sets);
         default: return 0;
     }
 }
 
 // Each entry below returns the CUDA error code of its launch (0 on
 // success).  None of them allocates, synchronises or writes rows >= n_rows.
+// An entry *_bf16 launches the bf16 variant: the same arguments, W2 packed
+// in bf16 ([H/16, 4, H+4, 4]).
 
 int egnn_gcl_messages(const float* a, const float* b, const float* d2c,
                       const float* d2i, const float* adj, const float* we,
                       const float* w2, const float* b2, const float* watt,
                       const float* batt, float* out, int B, int N, int H,
                       int attention, float norm_factor, void* stream) {
-    EdgeArgs p{};
-    p.s[0] = WeightSet{a, b, we, w2, b2, watt, out, 0};
-    p.d2c = d2c; p.d2i = d2i; p.adj = adj; p.batt = batt;
-    p.N = N; p.n_rows = N; p.flag_a = attention;
-    p.norm_factor = norm_factor;
+    EdgeArgs p = gcl_args(a, b, d2c, d2i, adj, we, w2, b2, watt, batt, out,
+                          N, attention, norm_factor);
     return launch<false>(p, B, H, 1, (cudaStream_t)stream);
+}
+
+int egnn_gcl_messages_bf16(const float* a, const float* b, const float* d2c,
+                           const float* d2i, const float* adj,
+                           const float* we, const float* w2, const float* b2,
+                           const float* watt, const float* batt, float* out,
+                           int B, int N, int H, int attention,
+                           float norm_factor, void* stream) {
+    EdgeArgs p = gcl_args(a, b, d2c, d2i, adj, we, w2, b2, watt, batt, out,
+                          N, attention, norm_factor);
+    return launch<false, true>(p, B, H, 1, (cudaStream_t)stream);
 }
 
 int egnn_edge_vector_reduce(const float* a, const float* b, const float* d2c,
@@ -703,13 +871,23 @@ int egnn_edge_vector_reduce(const float* a, const float* b, const float* d2c,
                             int H, int n_rows, int tanh_, float coords_range,
                             float norm_constant, int cross, float norm_factor,
                             void* stream) {
-    EdgeArgs p{};
+    EdgeArgs p = vec_args(d2c, d2i, adj, x, center, N, n_rows, tanh_,
+                          coords_range, norm_constant, norm_factor);
     p.s[0] = WeightSet{a, b, we, w2, b2, wout, out, cross};
-    p.d2c = d2c; p.d2i = d2i; p.adj = adj; p.x = x; p.center = center;
-    p.N = N; p.n_rows = n_rows; p.flag_a = tanh_;
-    p.coords_range = coords_range; p.norm_constant = norm_constant;
-    p.norm_factor = norm_factor;
     return launch<true>(p, B, H, 1, (cudaStream_t)stream);
+}
+
+int egnn_edge_vector_reduce_bf16(
+        const float* a, const float* b, const float* d2c, const float* d2i,
+        const float* adj, const float* x, const float* center,
+        const float* we, const float* w2, const float* b2, const float* wout,
+        float* out, int B, int N, int H, int n_rows, int tanh_,
+        float coords_range, float norm_constant, int cross, float norm_factor,
+        void* stream) {
+    EdgeArgs p = vec_args(d2c, d2i, adj, x, center, N, n_rows, tanh_,
+                          coords_range, norm_constant, norm_factor);
+    p.s[0] = WeightSet{a, b, we, w2, b2, wout, out, cross};
+    return launch<true, true>(p, B, H, 1, (cudaStream_t)stream);
 }
 
 // Set 0 weights the difference direction, set 1 the cross direction; out is
@@ -723,15 +901,29 @@ int egnn_edge_vector_reduce_pair(
         const float* center, float* out, int B, int N, int H, int n_rows,
         int tanh_, float coords_range, float norm_constant, float norm_factor,
         void* stream) {
-    EdgeArgs p{};
+    EdgeArgs p = vec_args(d2c, d2i, adj, x, center, N, n_rows, tanh_,
+                          coords_range, norm_constant, norm_factor);
     p.s[0] = WeightSet{a0, b0, we0, w20, b20, wout0, out, 0};
     p.s[1] = WeightSet{a1, b1, we1, w21, b21, wout1,
                        out + (size_t)B * N * 3, 1};
-    p.d2c = d2c; p.d2i = d2i; p.adj = adj; p.x = x; p.center = center;
-    p.N = N; p.n_rows = n_rows; p.flag_a = tanh_;
-    p.coords_range = coords_range; p.norm_constant = norm_constant;
-    p.norm_factor = norm_factor;
     return launch<true>(p, B, H, 2, (cudaStream_t)stream);
+}
+
+int egnn_edge_vector_reduce_pair_bf16(
+        const float* a0, const float* b0, const float* we0, const float* w20,
+        const float* b20, const float* wout0,
+        const float* a1, const float* b1, const float* we1, const float* w21,
+        const float* b21, const float* wout1,
+        const float* d2c, const float* d2i, const float* adj, const float* x,
+        const float* center, float* out, int B, int N, int H, int n_rows,
+        int tanh_, float coords_range, float norm_constant, float norm_factor,
+        void* stream) {
+    EdgeArgs p = vec_args(d2c, d2i, adj, x, center, N, n_rows, tanh_,
+                          coords_range, norm_constant, norm_factor);
+    p.s[0] = WeightSet{a0, b0, we0, w20, b20, wout0, out, 0};
+    p.s[1] = WeightSet{a1, b1, we1, w21, b21, wout1,
+                       out + (size_t)B * N * 3, 1};
+    return launch<true, true>(p, B, H, 2, (cudaStream_t)stream);
 }
 
 }  // extern "C"

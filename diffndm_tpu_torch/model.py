@@ -18,10 +18,22 @@ GNN denoiser (``EGNNConfig.mode``), ``pocket_conditioning_simple`` and
 the learned noise schedule (VLB only), whose gamma network weights travel
 beside the denoiser's.
 
-The JAX package picks a sorted-band column window per PDB pocket
-(``DIFFNDM_AUTO_BAND``).  The window provably drops only pairs beyond the
-edge cutoffs, and the port's kernels compute only the real edges of the
-cutoff graph anyway, so it is not ported.
+The denoiser's precision and sparsity modes are ``EGNNConfig`` fields:
+``compute_dtype`` ("float32", or "bfloat16": the kernels' bf16 variants,
+forward only), ``neighbors`` (K-nearest-neighbour edges) and
+``band_window`` / ``row_tile`` (the sorted band).  Set them with
+``dataclasses.replace`` on the config before building the model; the
+weights are the same in every mode.  ``enable_banding`` picks the band's
+window for a pocket: exact by default, the pocket's halfwidth bound
+(``models/banding.band_halfwidth_atoms``) covered on both sides of a row
+tile.  ``generate_ligands`` and ``generate_ligands_multi`` do so for each
+PDB pocket and print ``[banding] window=...`` unless
+``DIFFNDM_AUTO_BAND=0``; ``DIFFNDM_BAND_APPROX=W`` caps the window at W
+(rounded up to 16), below the exact bound, which drops real edges and
+changes the result.  An exact window drops no edge of the cutoff graph,
+whose other pairs the kernels skip anyway, so the facade runs the
+denoiser without the band there (no host sort of the pocket per forward)
+and keeps the window in its config; a capped window runs the band.
 """
 
 from __future__ import annotations
@@ -36,8 +48,8 @@ import torch
 from diffndm_tpu_torch.chem.bonds import build_molecule
 from diffndm_tpu_torch.chem.mol import Molecule
 from diffndm_tpu_torch.chem.sanitize import process_molecule
-from diffndm_tpu_torch.config import (ModelConfig, SampleConfig, load_yaml,
-                                      model_config_from_yaml)
+from diffndm_tpu_torch.config import (EGNNConfig, ModelConfig, SampleConfig,
+                                      load_yaml, model_config_from_yaml)
 from diffndm_tpu_torch.constants import dataset_params
 from diffndm_tpu_torch.convert import (gamma_params_from_jax,
                                        load_reference_checkpoint,
@@ -60,6 +72,7 @@ from diffndm_tpu_torch.diffusion.sampler import (ConditionalSampler,
                                                  SampleResult, SamplerNoise)
 from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.models.adjust_net import AdjustNetState
+from diffndm_tpu_torch.models.banding import band_halfwidth_atoms
 from diffndm_tpu_torch.models.dynamics import EGNNDynamics
 from diffndm_tpu_torch.structs import (NodeBatch, concat_batches, pad_to,
                                        to_lists)
@@ -182,6 +195,87 @@ class DiffNDM:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def set_egnn_config(self, egnn: EGNNConfig,
+                        band_exact: bool = False) -> None:
+        """Switch the denoiser to another EGNN config of the same widths
+        (a mode or a band window): the parameters are the same in every
+        mode, so the modules keep their weights and the samplers, which
+        share the denoiser, follow.
+
+        band_exact: the window drops no pair of the cutoff graph, whose
+        other pairs the kernels skip already.  The model's config keeps
+        the window and the modules run without the band, which would cost
+        a host sort of the pocket per forward and change nothing."""
+        self.cfg = dataclasses.replace(self.cfg, egnn=egnn)
+        run = (dataclasses.replace(egnn, band_window=None) if band_exact
+               else egnn)
+        for module in self.dynamics.modules():
+            if isinstance(getattr(module, "cfg", None), EGNNConfig):
+                module.cfg = run
+
+    def _band_cutoff(self) -> float:
+        eg = self.cfg.egnn
+        return max(eg.edge_cutoff_pocket or 0.0,
+                   eg.edge_cutoff_interaction or 0.0)
+
+    def enable_banding(self, pocket: NodeBatch, margin: int = 16,
+                       row_tile: int = 8) -> int:
+        """Turn the sorted band on with a window chosen for this pocket
+        (the JAX package's rule): 2 * halfwidth + tile + margin, rounded
+        up to 16, so that (window - tile) / 2 covers
+        ``band_halfwidth_atoms`` and the band drops only pairs beyond the
+        cutoffs; ``DIFFNDM_BAND_APPROX=W`` caps it at W rounded up to 16.
+        Returns the window, or 0 (band off) where the window would span
+        the whole pocket, with neighbour lists, or without a cutoff.  The
+        denoiser runs the band only where the cap takes the window below
+        the bound (``set_egnn_config``'s ``band_exact``)."""
+        eg = self.cfg.egnn
+        cutoff = self._band_cutoff()
+        if cutoff <= 0 or eg.neighbors is not None:
+            return 0
+        hw = band_halfwidth_atoms(pocket.x.cpu().numpy(),
+                                  pocket.mask.cpu().numpy(), cutoff)
+        tile = min(row_tile or eg.row_tile, eg.row_tile)
+        w = -(-(2 * hw + tile + margin) // 16) * 16
+        approx = int(os.environ.get("DIFFNDM_BAND_APPROX") or 0)
+        if approx > 0:
+            w = min(w, -(-approx // 16) * 16)
+        if w >= pocket.x.shape[1]:
+            if eg.band_window is not None:
+                # a window chosen for another pocket must not stay on
+                self.set_egnn_config(dataclasses.replace(eg,
+                                                         band_window=None))
+            return 0
+        self.set_egnn_config(dataclasses.replace(eg, band_window=w,
+                                                 row_tile=tile),
+                             band_exact=w >= 2 * hw + tile)
+        return w
+
+    def ensure_band_for(self, pocket: NodeBatch) -> int:
+        """Keep the current window where it covers this pocket's bound,
+        widen it where it does not, pick one where the band is off.
+        Returns the window in force (0: dense)."""
+        eg = self.cfg.egnn
+        if eg.band_window is None:
+            return self.enable_banding(pocket)
+        hw = band_halfwidth_atoms(pocket.x.cpu().numpy(),
+                                  pocket.mask.cpu().numpy(),
+                                  self._band_cutoff())
+        needed = 2 * hw + eg.row_tile
+        if eg.band_window >= needed:
+            self.set_egnn_config(eg, band_exact=True)
+            return eg.band_window
+        if needed >= pocket.x.shape[1]:
+            self.set_egnn_config(dataclasses.replace(eg, band_window=None))
+            return 0
+        return self.enable_banding(pocket, row_tile=eg.row_tile)
+
+    def _auto_band(self, pocket: NodeBatch) -> int:
+        """The band for a PDB pocket unless ``DIFFNDM_AUTO_BAND=0``."""
+        if os.environ.get("DIFFNDM_AUTO_BAND", "1") == "0":
+            return 0
+        return self.ensure_band_for(pocket)
 
     def ensure_adjust(self) -> AdjustNetState:
         """The AdjustNet, made at first use (input width 3 + atom_nf, the
@@ -312,6 +406,10 @@ class DiffNDM:
         filtered molecules (None where a filter failed) and the result."""
         sc = self.sample_cfg
         pocket = self.pocket_from_pdb(pdb_file, ref_ligand, sc.n_samples)
+        w = self._auto_band(pocket)
+        if w:
+            print(f"[banding] window={w} pocket atoms="
+                  f"{int(pocket.mask.sum(1).max())}")
         if sc.rl.train:
             self.ensure_adjust()
         result = self._generate(pocket, seed, num_nodes_lig, sc.rl.enabled,
@@ -336,8 +434,11 @@ class DiffNDM:
                              f"ATPConfig(group_size={n_samples})")
         pockets = [self.pocket_from_pdb(pdb_file, ref, n_samples)
                    for pdb_file, ref in pdb_refs]
-        result = self._generate(concat_batches(pockets), seed, None, False,
-                                False)
+        pocket = concat_batches(pockets)
+        # each row is sorted on its own; the window covers the widest
+        # pocket's bound
+        self._auto_band(pocket)
+        result = self._generate(pocket, seed, None, False, False)
         mols = self.result_to_molecules(result)
         return {os.path.basename(pdb_file): mols[i * n_samples:
                                                  (i + 1) * n_samples]

@@ -5,7 +5,13 @@ the EGNN (or, in ``gnn_dynamics`` mode, the plain GNN over [x, h]) and
 decodes per-node noise predictions.  Conditional mode freezes the pocket:
 only the ligand rows' coordinate updates are computed.  Joint mode
 (``update_pocket_coords``) moves every row and projects the velocity onto
-the zero centre-of-mass subspace of the whole ligand and pocket cloud."""
+the zero centre-of-mass subspace of the whole ligand and pocket cloud.
+
+Two sparsity options of ``EGNNConfig`` mask the adjacency: ``neighbors``
+keeps each row's K best-ranked columns (``egnn.neighbor_mask``), and
+``band_window`` sorts the pocket along its principal axis and keeps a band
+of columns per tile of pocket rows (``models/banding.py``); the outputs
+come back in the caller's row order."""
 
 from __future__ import annotations
 
@@ -16,7 +22,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffndm_tpu_torch.config import EGNNConfig
-from diffndm_tpu_torch.models.egnn import EGNN, GNN, pairwise_d2
+from diffndm_tpu_torch.models import banding
+from diffndm_tpu_torch.models.egnn import (EGNN, GNN, neighbor_mask,
+                                           pairwise_d2)
 from diffndm_tpu_torch.ops.segment import masked_mean
 
 
@@ -64,6 +72,11 @@ def update_coords_mask(lig_mask: torch.Tensor, pocket_mask: torch.Tensor
                       torch.zeros_like(pocket_mask)], dim=1)[..., None]
 
 
+def _take_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr [B, N, F] rows in the order idx [B, N]."""
+    return torch.gather(arr, 1, idx[..., None].expand(-1, -1, arr.shape[-1]))
+
+
 class EGNNDynamics(nn.Module):
     """eps-prediction network.
 
@@ -109,6 +122,21 @@ class EGNNDynamics(nn.Module):
         nl = xh_lig.shape[1]
         x_lig, h_lig = xh_lig[..., :nd], xh_lig[..., nd:]
         x_poc, h_poc = xh_pocket[..., :nd], xh_pocket[..., nd:]
+        pocket_mask_in = pocket_mask
+        # the sorted band: the pocket rows along the pocket's principal
+        # axis, un-permuted below (edge types and the frozen-pocket mask
+        # are by block, which the permutation keeps).  It restricts columns
+        # only under sum aggregation and a window narrower than the pocket
+        # block (the JAX package's condition); elsewhere it would cost a
+        # host sort and change nothing
+        perm = None
+        if (cfg.band_window is not None and cfg.neighbors is None
+                and cfg.mode == "egnn_dynamics"
+                and cfg.aggregation_method == "sum"
+                and cfg.band_window < x_poc.shape[1]):
+            perm, _ = banding.principal_axis_order(x_poc, pocket_mask)
+            x_poc, h_poc = _take_rows(x_poc, perm), _take_rows(h_poc, perm)
+            pocket_mask = torch.gather(pocket_mask, 1, perm)
 
         h = torch.cat([self._mlp("atom_encoder", h_lig),
                        self._mlp("residue_encoder", h_poc)], dim=1)
@@ -120,6 +148,12 @@ class EGNNDynamics(nn.Module):
             h = torch.cat([h, h_time], dim=-1)
 
         adj = build_adjacency(x_lig, x_poc, lig_mask, pocket_mask, cfg)
+        n = adj.shape[-1]
+        if perm is not None:
+            adj = adj * banding.band_mask(n, nl, cfg.row_tile,
+                                          cfg.band_window, adj.device)
+        if cfg.neighbors is not None and cfg.neighbors < n:
+            adj = adj * neighbor_mask(x, adj, nl, cfg.neighbors)
         edge_attr = None
         if cfg.edge_embedding_dim is not None:
             emb = self.edge_embedding(edge_types(nl, x_poc.shape[1],
@@ -138,15 +172,23 @@ class EGNNDynamics(nn.Module):
             out = self.gnn(torch.cat([x, h], dim=-1), adj, mask, edge_attr)
             vel = out[..., :nd] * mask[..., None]
             h_final = out[..., nd:]
-        if joint:
-            vel = vel - masked_mean(vel, mask, dim=1, keepdim=True)
-            vel = vel * mask[..., None]
         if cfg.condition_time:
             h_final = h_final[..., :-1]
+        if perm is not None:
+            inv = torch.argsort(perm, dim=1)
+            h_final = torch.cat([h_final[:, :nl],
+                                 _take_rows(h_final[:, nl:], inv)], dim=1)
+            vel = torch.cat([vel[:, :nl], _take_rows(vel[:, nl:], inv)],
+                            dim=1)
+            mask = torch.cat([lig_mask, pocket_mask_in], dim=1)
+        if joint:
+            # in the caller's row order
+            vel = vel - masked_mean(vel, mask, dim=1, keepdim=True)
+            vel = vel * mask[..., None]
 
         eps_h_lig = self._mlp("atom_decoder", h_final[:, :nl])
         eps_h_poc = self._mlp("residue_decoder", h_final[:, nl:])
         eps_lig = torch.cat([vel[:, :nl], eps_h_lig], dim=-1)
         eps_poc = torch.cat([vel[:, nl:], eps_h_poc], dim=-1)
         return (eps_lig * lig_mask[..., None],
-                eps_poc * pocket_mask[..., None])
+                eps_poc * pocket_mask_in[..., None])

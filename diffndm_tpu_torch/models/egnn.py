@@ -16,6 +16,19 @@ condition:
   row-tiled path taken over all rows at once: the edge MLP over [B, N, N]
   edge features and a masked sum (or mean) over the columns.
 
+Under ``compute_dtype = "bfloat16"`` each path rounds where its JAX
+counterpart does: the kernel path as the JAX package's Pallas path (h
+before the node projections, the coordinates before d2c, which is then
+computed in bf16, d2i, adj, W_e, the kernels' product operands, and the
+aggregate on the way out), the dense chain as its row-tiled XLA path (h,
+the edge features and adj; the direction maths in bf16; sums and the
+aggregate in fp32).  Weights stay fp32 in every mode.
+
+The sparsity options leave the chains as they are: K-nearest-neighbour
+lists (``neighbor_mask``) and the sorted band (``models/banding.py``) are
+masks on the dense [B, N, N] adjacency, which both chains read, so the
+same edges are summed as the JAX package's gathered and banded columns.
+
 Layer weights are explicit parameters in the JAX layout (``x @ kernel``)
 with the JAX names, so a converted parameter tree loads one to one and the
 kernels take the weights without a transpose.
@@ -40,6 +53,42 @@ SIN_MAX_RES, SIN_MIN_RES, SIN_DIV = 15.0, 15.0 / 2000.0, 4.0
 def pairwise_d2(x: torch.Tensor) -> torch.Tensor:
     """[B, N, 3] -> [B, N, N] squared distances."""
     return ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+
+
+def neighbor_mask(x: torch.Tensor, adj: torch.Tensor, n_lig: int,
+                  k: int) -> torch.Tensor:
+    """[B, N, N] 0/1: the K columns each row keeps, the JAX package's
+    ``build_neighbor_lists``.  Columns rank by -d2 + 1e7 * adj + 1e7 *
+    ligand-ligand, in float32 and in JAX's order of operations (real
+    edges, then the ligand clique, then the nearest first); equal scores go
+    to the lower column, as ``jax.lax.top_k`` breaks ties (a stable sort:
+    at 1e7 the float32 spacing is 1, so real edges whose d2 differ by
+    less than about 1 A^2 tie)."""
+    n = x.shape[1]
+    is_lig = (torch.arange(n, device=x.device) < n_lig).to(x.dtype)
+    ll = is_lig[:, None] * is_lig[None, :]
+    score = -pairwise_d2(x) + 1e7 * adj + 1e7 * ll
+    k = min(k, n)
+    idx = torch.sort(score, dim=-1, descending=True, stable=True
+                     ).indices[..., :k]
+    return torch.zeros_like(adj).scatter_(-1, idx, 1.0)
+
+
+def current_d2(x: torch.Tensor, cfg: EGNNConfig) -> torch.Tensor:
+    """The kernels' d2c [B, N, N].  In bf16, as the JAX package's compiled
+    Pallas path computes it from the rounded coordinates: each difference
+    rounded to bf16, its square and the sum in fp32, the sum rounded once
+    (XLA fuses the bf16 square and sum)."""
+    if cfg.compute_dtype == "float32":
+        return pairwise_d2(x)
+    xq = K.bf16_round(x)
+    d = K.bf16_round(xq[:, :, None, :] - xq[:, None, :, :])
+    return K.bf16_round((d * d).sum(-1))
+
+
+def rounding(cfg: EGNNConfig):
+    """The rounding to the config's compute dtype: bf16 or none."""
+    return K.rounding(cfg.compute_dtype)
 
 
 def sinusoid_dims() -> int:
@@ -96,12 +145,17 @@ def _aggregate(v: torch.Tensor, edges: Edges, cfg: EGNNConfig
                ) -> torch.Tensor:
     """v [B, R, N, F] over the first R rows -> [B, R, F]: the sum over the
     edges, divided by normalization_factor (``sum``) or by the degree
-    (any other method, as in the JAX package)."""
+    (any other method, as in the JAX package); both divisors in the
+    compute dtype, as the JAX package's dense path takes them."""
+    rnd = rounding(cfg)
     rows = v.shape[1]
     agg = (v * edges.adj[:, :rows, :, None]).sum(2)
     if cfg.aggregation_method == "sum":
-        return agg / cfg.normalization_factor
-    return agg / edges.deg[:, :rows]
+        nf = cfg.normalization_factor
+        if cfg.compute_dtype == "bfloat16":
+            nf = rnd(torch.tensor(nf)).item()
+        return agg / nf
+    return agg / rnd(edges.deg[:, :rows])
 
 
 class _ExplicitParams(nn.Module):
@@ -150,24 +204,26 @@ class GCL(_ExplicitParams):
 
     def forward(self, h, edges: Edges, node_mask):
         cfg = self.cfg
+        rnd = rounding(cfg)
+        hq = rnd(h)
         if edges.feats is None:
             if cfg.attention:
                 watt, batt = self.att_kernel, self.att_bias
             else:
                 watt, batt = h.new_zeros(cfg.hidden_nf, 1), None
-            agg = K.gcl_messages(
-                self._linear("edge_src", h), self._linear("edge_dst", h),
-                edges.d2c, edges.d2i, edges.adj, self.edge_edge_kernel,
+            agg = rnd(K.gcl_messages(
+                self._linear("edge_src", hq), self._linear("edge_dst", hq),
+                edges.d2c, edges.d2i, edges.adj, rnd(self.edge_edge_kernel),
                 self.edge_l2_kernel, self.edge_l2_bias, watt, batt,
-                attention=cfg.attention,
-                norm_factor=cfg.normalization_factor)
+                attention=cfg.attention, norm_factor=cfg.normalization_factor,
+                compute_dtype=cfg.compute_dtype))
         else:
             m = F.silu(self._linear(
-                "edge_l2", self._edge_hidden("edge", h, h, edges.feats)))
+                "edge_l2", self._edge_hidden("edge", hq, hq, edges.feats)))
             if cfg.attention:
                 m = m * torch.sigmoid(self._linear("att", m))
             agg = _aggregate(m, edges, cfg)
-        out = F.silu(self._linear("node_l1", torch.cat([h, agg], dim=-1)))
+        out = F.silu(self._linear("node_l1", torch.cat([hq, agg], dim=-1)))
         h = h + self._linear("node_l2", out)
         return h * node_mask[..., None]
 
@@ -198,46 +254,58 @@ class EquivariantUpdate(_ExplicitParams):
         mask_f = node_mask[..., None]
         center = ((x * mask_f).sum(1, keepdim=True)
                   / mask_f.sum(1, keepdim=True).clamp_min(1e-12))
+        hq = rounding(self.cfg)(h)
         if edges.feats is None:
-            agg = self._kernel_update(h, x, edges, center, coord_rows)
+            agg = self._kernel_update(hq, x, edges, center, coord_rows)
         else:
-            agg = self._dense_update(h, x, edges, center, coord_rows)
+            agg = self._dense_update(hq, x, edges, center, coord_rows)
         if update_coords_mask is not None:
             agg = agg * update_coords_mask
         x = x + agg
         return x * node_mask[..., None]
 
     def _kernel_update(self, h, x, edges: Edges, center, coord_rows):
+        """The kernels; the coordinates and the centre stay fp32 in every
+        mode (the direction maths), the aggregate is rounded to the
+        compute dtype."""
         cfg = self.cfg
+        rnd = rounding(cfg)
         kw = dict(tanh=cfg.tanh, coords_range=self.coords_range,
                   norm_constant=cfg.norm_constant,
-                  norm_factor=cfg.normalization_factor, n_rows=coord_rows)
+                  norm_factor=cfg.normalization_factor, n_rows=coord_rows,
+                  compute_dtype=cfg.compute_dtype)
         names = self.names
         a = [self._linear(f"{name}_src", h) for name in names]
         b = [self._linear(f"{name}_dst", h) for name in names]
         we, w2, b2, wout = (
             [getattr(self, f"{name}_{part}") for name in names]
             for part in ("edge_kernel", "l2_kernel", "l2_bias", "out_kernel"))
+        we = [rnd(w) for w in we]
         if len(names) == 2:
             # difference and cross direction over the same rows and graph:
             # one launch
-            return K.edge_vector_reduce_pair(
+            return rnd(K.edge_vector_reduce_pair(
                 a, b, edges.d2c, edges.d2i, edges.adj, x, center, we, w2, b2,
-                wout, **kw)
-        return K.edge_vector_reduce(a[0], b[0], edges.d2c, edges.d2i,
-                                    edges.adj, x, center, we[0], w2[0], b2[0],
-                                    wout[0], cross=False, **kw)
+                wout, **kw))
+        return rnd(K.edge_vector_reduce(
+            a[0], b[0], edges.d2c, edges.d2i, edges.adj, x, center, we[0],
+            w2[0], b2[0], wout[0], cross=False, **kw))
 
     def _dense_update(self, h, x, edges: Edges, center, coord_rows):
         """The dense chain.  Under ``sum`` only the leading ``coord_rows``
         rows are computed (the rest are frozen and their update is zero),
-        as in the JAX package; under ``mean`` every row is."""
+        as in the JAX package; under ``mean`` every row is.  In bf16 the
+        directions are computed in bf16 from rounded coordinates and
+        centre, as the JAX package's dense path does."""
         cfg = self.cfg
         n = x.shape[1]
         rows = n
         if coord_rows is not None and cfg.aggregation_method == "sum":
             rows = min(coord_rows, n)
-        xr, feats = x[:, :rows], edges.feats[:, :rows]
+        feats = edges.feats[:, :rows]
+        if cfg.compute_dtype == "bfloat16":
+            x, center = x.to(torch.bfloat16), center.to(torch.bfloat16)
+        xr = x[:, :rows]
 
         def phi(name):
             z = self._edge_hidden(name, h[:, :rows], h, feats)
@@ -246,7 +314,7 @@ class EquivariantUpdate(_ExplicitParams):
 
         d = xr[:, :, None, :] - x[:, None, :, :]
         radial = (d * d).sum(-1, keepdim=True)
-        diff = d / (torch.sqrt(radial + 1e-8) + cfg.norm_constant)
+        diff = (d / (torch.sqrt(radial + 1e-8) + cfg.norm_constant)).float()
         p = phi("coord")
         trans = (diff * torch.tanh(p) * self.coords_range if cfg.tanh
                  else diff * p)
@@ -264,7 +332,7 @@ class EquivariantUpdate(_ExplicitParams):
             pos = n2 > 0
             norm = torch.where(pos, torch.sqrt(torch.where(
                 pos, n2, torch.ones_like(n2))), torch.zeros_like(n2))
-            trans = trans + cr / (norm + cfg.norm_constant) * pc
+            trans = trans + (cr / (norm + cfg.norm_constant)).float() * pc
         agg = _aggregate(trans, edges, cfg)
         if rows < n:
             agg = F.pad(agg, (0, 0, 0, n - rows))
@@ -288,13 +356,15 @@ class EquivariantBlock(nn.Module):
                 update_coords_mask=None, coord_rows=None):
         """e0: the persistent edge features, the initial squared
         distances [B, N, N] on the kernel path, else [B, N, N, E0] (the
-        initial distance features and the extra ones)."""
-        d2c = pairwise_d2(x)
+        initial distance features and the extra ones), rounded to the
+        compute dtype as the chain reads them."""
+        rnd = rounding(self.cfg)
         if self.kernels:
-            edges = Edges(adj, d2c=d2c, d2i=e0)
+            edges = Edges(adj, d2c=current_d2(x, self.cfg), d2i=e0)
         else:
-            feats = torch.cat([distance_features(d2c, self.cfg), e0], dim=-1)
-            edges = Edges(adj, feats=feats, deg=deg)
+            feats = torch.cat([distance_features(pairwise_d2(x), self.cfg),
+                               e0], dim=-1)
+            edges = Edges(adj, feats=rnd(feats), deg=deg)
         for i in range(self.n_gcl):
             h = getattr(self, f"gcl_{i}")(h, edges, node_mask)
         x = self.gcl_equiv(h, x, edges, node_mask, update_coords_mask,
@@ -330,8 +400,9 @@ class EGNN(nn.Module):
         cfg = self.cfg
         d2i = pairwise_d2(x)       # initial distances, a persistent feature
         deg = None
+        adj = rounding(cfg)(adj)
         if self.kernels:
-            e0 = d2i
+            e0 = rounding(cfg)(d2i)
         else:
             e0 = distance_features(d2i, cfg)
             if edge_attr is not None:
@@ -368,7 +439,9 @@ class GNN(nn.Module):
         if edge_attr is None:
             b, n = xh.shape[:2]
             edge_attr = xh.new_zeros(b, n, n, 0)
-        edges = Edges(adj, feats=edge_attr, deg=degree(adj, cfg))
+        rnd = rounding(cfg)
+        adj = rnd(adj)
+        edges = Edges(adj, feats=rnd(edge_attr), deg=degree(adj, cfg))
         h = self.embedding(xh)
         for i in range(cfg.n_layers):
             h = getattr(self, f"gcl_{i}")(h, edges, node_mask)

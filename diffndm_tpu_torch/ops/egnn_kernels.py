@@ -22,6 +22,17 @@ wrapper given CPU tensors computes its plain PyTorch version
 on the tensor cores as a three-term TF32 split, which keeps fp32-level
 accuracy; the plain versions are plain fp32.
 
+``compute_dtype="bfloat16"`` runs the Pallas kernels' ``mxu_dtype =
+bfloat16`` mode (the JAX package's ``EGNNConfig.compute_dtype``): z, W2, m
+and watt / wout are rounded to bf16 (nearest even) as the operands of their
+products, whose sums stay fp32.  The inputs and the output stay fp32; the
+caller rounds what the JAX package rounds outside its kernels (h, the
+coordinates, d2i, adj, W_e, and the aggregate).  On the card this is the
+bf16 variant of each kernel (one ``mma.sync`` m16n8k16 bf16 product per
+chunk), counted under ``gcl_messages_bf16`` / ``edge_vector_reduce_bf16``.  It has no backward, so a bf16 call on the
+card in grad mode raises; on the CPU the plain bf16 version differentiates
+through autograd.
+
 In grad mode each wrapper goes through a ``torch.autograd.Function``
 (``_GclMessages``, ``_EdgeVectorReduce``) that saves only its inputs and
 whose backward recomputes the chain: on the card the hand-written kernel
@@ -64,9 +75,12 @@ SUPPORTED_HIDDEN = (128, 192, 256)
 # list in shared memory
 MAX_NODES = 4096
 
-# kernel launches per wrapper; reset with reset_launches()
+# kernel launches per kernel (the pair launches the vector kernel, in
+# either compute dtype); reset with reset_launches()
 LAUNCHES = {"gcl_messages": 0, "edge_vector_reduce": 0,
-            "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
+            "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0,
+            "gcl_messages_bf16": 0, "edge_vector_reduce_bf16": 0}
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 # memory budget of one row chunk of the plain [B, T, N, H] chain
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -75,6 +89,10 @@ _PLAIN_CHUNK_ELEMS = 1 << 24
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(name: str, bf16: bool) -> None:
+    LAUNCHES[name + ("_bf16" if bf16 else "")] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -136,16 +154,15 @@ PROFILE_BWD_FIELDS = ("block", "pass", "loops", "dw2", "passes", "blocks")
 def _load(profile: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(profile)))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.egnn_gcl_messages.argtypes = [p] * 11 + [i, i, i, i, f, p]
-    lib.egnn_gcl_messages.restype = i
-    lib.egnn_edge_vector_reduce.argtypes = (
-        [p] * 12 + [i, i, i, i, i, f, f, i, f, p])
-    lib.egnn_edge_vector_reduce.restype = i
-    lib.egnn_edge_vector_reduce_pair.argtypes = (
-        [p] * 18 + [i, i, i, i, i, f, f, f, p])
-    lib.egnn_edge_vector_reduce_pair.restype = i
-    lib.egnn_rows_per_block.argtypes = [i] * 6
-    lib.egnn_rows_per_block.restype = i
+    for suffix in ("", "_bf16"):
+        fn = getattr(lib, "egnn_gcl_messages" + suffix)
+        fn.argtypes, fn.restype = [p] * 11 + [i, i, i, i, f, p], i
+        fn = getattr(lib, "egnn_edge_vector_reduce" + suffix)
+        fn.argtypes, fn.restype = [p] * 12 + [i, i, i, i, i, f, f, i, f, p], i
+        fn = getattr(lib, "egnn_edge_vector_reduce_pair" + suffix)
+        fn.argtypes, fn.restype = [p] * 18 + [i, i, i, i, i, f, f, f, p], i
+        fn = getattr(lib, "egnn_rows_per_block" + suffix)
+        fn.argtypes, fn.restype = [i] * 6, i
     return lib
 
 
@@ -171,12 +188,15 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def launch_grid(name: str, bsz: int, n: int, h: int,
-                n_rows: Optional[int] = None) -> tuple:
+                n_rows: Optional[int] = None,
+                compute_dtype: str = "float32") -> tuple:
     """(blocks, rows per block) of the launch that wrapper ``name`` makes
     at these sizes, as the library picks them for this card."""
     rows = _clamp_rows(n, n_rows)
     n_sets = 2 if name == "edge_vector_reduce_pair" else 1
-    per_block = _library().egnn_rows_per_block(
+    entry = "egnn_rows_per_block" + (
+        "_bf16" if _is_bf16(compute_dtype) else "")
+    per_block = getattr(_library(), entry)(
         bsz, n, h, rows, n_sets, int(name != "gcl_messages"))
     if per_block <= 0 or rows == 0:
         return 0, per_block
@@ -256,6 +276,18 @@ def _hidden_ok(name: str, h: int, n: int = 0) -> None:
                          f"{MAX_NODES} nodes, got {n}")
 
 
+def _is_bf16(compute_dtype: str) -> bool:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+    return compute_dtype == "bfloat16"
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even), in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def _clamp_rows(n: int, n_rows: Optional[int]) -> int:
     return n if n_rows is None else max(0, min(n, int(n_rows)))
 
@@ -297,26 +329,39 @@ def pack_w2(w2: torch.Tensor) -> torch.Tensor:
     return F.pad(packed, (0, 0, 0, 4)).contiguous()
 
 
-# (data_ptr, transposed) -> (weak reference to the weight, its version,
-# its packed split).  The weights are constant over a sampling run, so each
+def pack_w2_bf16(w2: torch.Tensor) -> torch.Tensor:
+    """W2 [H, H] as the bf16 kernels read it: [H/16, 4, H+4, 4] bf16.  For
+    each chunk of 16 rows (the k index) and each t in 0..3, a row of H
+    columns (padded by 4 for the shared-memory banks) holding the four
+    values W2[16c + 4t .. 16c + 4t + 3, n], the k slots that thread t's
+    two B registers carry in ``mma.sync`` m16n8k16."""
+    h = w2.shape[0]
+    w = w2.to(torch.bfloat16).reshape(h // 16, 4, 4, h)      # [c, t, j, n]
+    return F.pad(w.permute(0, 1, 3, 2), (0, 0, 0, 4)).contiguous()
+
+
+# (data_ptr, layout) -> (weak reference to the weight, its version, its
+# packed form).  The weights are constant over a sampling run, so each
 # is packed once; a training step packs each anew after the update.
 _SPLIT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _SPLIT_CACHE_SIZE = 64
 
 
-def _packed(w2: torch.Tensor, transposed: bool) -> torch.Tensor:
-    """``pack_w2`` of ``w2`` or of its transpose, cached per weight tensor.
+def _packed(w2: torch.Tensor, layout: str) -> torch.Tensor:
+    """``pack_w2`` of ``w2`` (layout "w2") or of its transpose ("w2t"), or
+    ``pack_w2_bf16`` of it ("bf16"), cached per weight tensor.
     An entry holds only for the very tensor object it was made from and for
     its version counter, so a weight updated in place, or another tensor
     that came to lie at the same address, is split anew.  The key is W2
     itself, also for the transpose: a transposed copy has no stable
     address."""
-    key = (w2.data_ptr(), transposed)
+    key = (w2.data_ptr(), layout)
     hit = _SPLIT_CACHE.get(key)
     if hit is not None and hit[0]() is w2 and hit[1] == w2._version:
         return hit[2]
     w = w2.detach()
-    split = pack_w2(w.t() if transposed else w)
+    split = {"w2": pack_w2, "w2t": lambda v: pack_w2(v.t()),
+             "bf16": pack_w2_bf16}[layout](w)
     _SPLIT_CACHE[key] = (weakref.ref(w2), w2._version, split)
     _SPLIT_CACHE.move_to_end(key)
     while len(_SPLIT_CACHE) > _SPLIT_CACHE_SIZE:
@@ -326,13 +371,18 @@ def _packed(w2: torch.Tensor, transposed: bool) -> torch.Tensor:
 
 def split_w2(w2: torch.Tensor) -> torch.Tensor:
     """``pack_w2(w2)``, cached per weight tensor (see ``_packed``)."""
-    return _packed(w2, False)
+    return _packed(w2, "w2")
 
 
 def split_w2t(w2: torch.Tensor) -> torch.Tensor:
     """``pack_w2(w2.t())``, the B operand of du @ W2^T in the backward,
     cached per weight tensor W2 (see ``_packed``)."""
-    return _packed(w2, True)
+    return _packed(w2, "w2t")
+
+
+def pack_w2_bf16_cached(w2: torch.Tensor) -> torch.Tensor:
+    """``pack_w2_bf16(w2)``, cached per weight tensor (see ``_packed``)."""
+    return _packed(w2, "bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -351,9 +401,20 @@ def _edge_pre(a, b, d2c, d2i, we):
             + d2c[..., None] * we[0] + d2i[..., None] * we[1])
 
 
-def _edge_messages(a, b, d2c, d2i, we, w2, b2):
-    """m = silu(silu(u1) @ W2 + b2) for a row chunk -> [B, T, N, H]."""
-    return F.silu(F.silu(_edge_pre(a, b, d2c, d2i, we)) @ w2 + b2)
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def rounding(compute_dtype: str):
+    """The rounding to the compute dtype: bf16 (nearest even, the dtype
+    kept) or none."""
+    return bf16_round if _is_bf16(compute_dtype) else _identity
+
+
+def _edge_messages(a, b, d2c, d2i, we, w2, b2, rnd=_identity):
+    """m = silu(rnd(silu(u1)) @ rnd(W2) + b2) for a row chunk ->
+    [B, T, N, H]."""
+    return F.silu(rnd(F.silu(_edge_pre(a, b, d2c, d2i, we))) @ rnd(w2) + b2)
 
 
 def _direction(xr, xc, center, cross: bool, norm_constant: float):
@@ -393,16 +454,18 @@ def _direction(xr, xc, center, cross: bool, norm_constant: float):
 
 
 def gcl_messages_plain(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
-                       attention: bool = True, norm_factor: float = 100.0):
+                       attention: bool = True, norm_factor: float = 100.0,
+                       compute_dtype: str = "float32"):
+    rnd = rounding(compute_dtype)
     bsz, n, h = a.shape
     out = torch.empty((bsz, n, h), dtype=a.dtype, device=a.device)
     step = _row_chunk(bsz, n, h)
     for i0 in range(0, n, step):
         i1 = min(n, i0 + step)
         m = _edge_messages(a[:, i0:i1], b, d2c[:, i0:i1], d2i[:, i0:i1],
-                           we, w2, b2)
+                           we, w2, b2, rnd)
         if attention:
-            att = m @ watt
+            att = rnd(m) @ rnd(watt)
             if batt is not None:
                 att = att + batt
             m = m * torch.sigmoid(att)
@@ -416,7 +479,9 @@ def edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                              coords_range: float = 15.0,
                              norm_constant: float = 1.0, cross: bool = False,
                              norm_factor: float = 100.0,
-                             n_rows: Optional[int] = None):
+                             n_rows: Optional[int] = None,
+                             compute_dtype: str = "float32"):
+    rnd = rounding(compute_dtype)
     bsz, n, h = a.shape
     rows = _clamp_rows(n, n_rows)
     out = torch.zeros((bsz, n, 3), dtype=a.dtype, device=a.device)
@@ -424,8 +489,8 @@ def edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
     for i0 in range(0, rows, step):
         i1 = min(rows, i0 + step)
         m = _edge_messages(a[:, i0:i1], b, d2c[:, i0:i1], d2i[:, i0:i1],
-                           we, w2, b2)
-        phi = (m @ wout)[..., 0]                       # [B, T, N]
+                           we, w2, b2, rnd)
+        phi = (rnd(m) @ rnd(wout))[..., 0]             # [B, T, N]
         if tanh:
             phi = torch.tanh(phi) * coords_range
         w = phi * adj[:, i0:i1]
@@ -440,11 +505,12 @@ def edge_vector_reduce_pair_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                                   coords_range: float = 15.0,
                                   norm_constant: float = 1.0,
                                   norm_factor: float = 100.0,
-                                  n_rows: Optional[int] = None):
+                                  n_rows: Optional[int] = None,
+                                  compute_dtype: str = "float32"):
     parts = [edge_vector_reduce_plain(
         a[s], b[s], d2c, d2i, adj, x, center, we[s], w2[s], b2[s], wout[s],
-        tanh, coords_range, norm_constant, bool(s), norm_factor, n_rows)
-        for s in (0, 1)]
+        tanh, coords_range, norm_constant, bool(s), norm_factor, n_rows,
+        compute_dtype) for s in (0, 1)]
     return parts[0] + parts[1]
 
 
@@ -479,15 +545,26 @@ def _chain_backward(dm, u1, s, u, w2, we, d2c, d2i, grads, i0, i1):
     dwe[1] += (dz * d2i[..., None]).sum((0, 1, 2))
 
 
+def _fp32_backward(name: str, compute_dtype: str) -> None:
+    """The plain backwards are those of the fp32 forwards; a bf16 forward
+    differentiates through autograd of its plain version, on the CPU."""
+    if _is_bf16(compute_dtype):
+        raise ValueError(f"{name}: the plain backward is float32 only; "
+                         f"differentiate the bf16 plain forward instead")
+
+
 def gcl_messages_backward_plain(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
                                 batt=None, attention: bool = True,
-                                norm_factor: float = 100.0):
+                                norm_factor: float = 100.0,
+                                compute_dtype: str = "float32"):
     """The gradients of ``gcl_messages_plain``'s output, given its
     gradient gout [B, N, H], with respect to its arguments, in their
     order: (a, b, d2c, d2i, None for adj, we, w2, b2, watt, batt or
     None).  With g = gout_i * adj_ij / norm_factor per edge:
     dm = g * gate + (g . m) * gate * (1 - gate) * watt, then the chain.
-    Recomputed in row chunks; nothing of [B, N, N, H] size is kept."""
+    Recomputed in row chunks; nothing of [B, N, N, H] size is kept.
+    Float32 only (``_fp32_backward``)."""
+    _fp32_backward("gcl_messages", compute_dtype)
     bsz, n, h = a.shape
     da, db, dd2c, dd2i, dwe, dw2, db2, dwatt = _zeros(a, b, d2c, d2i, we, w2,
                                                       b2, watt)
@@ -524,7 +601,8 @@ def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
                                       norm_constant: float = 1.0,
                                       cross: bool = False,
                                       norm_factor: float = 100.0,
-                                      n_rows: Optional[int] = None):
+                                      n_rows: Optional[int] = None,
+                                      compute_dtype: str = "float32"):
     """The gradients of ``edge_vector_reduce_plain``'s output, given its
     gradient gout [B, N, 3], with respect to its arguments, in their
     order: (a, b, d2c, d2i, None for adj, x, center, we, w2, b2, wout).
@@ -532,6 +610,7 @@ def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
     tanh to dm = dphi' * wout, then the chain; and the direction's own
     gradient, w * gout_i with w = adj * phi / norm_factor, to x_i, x_j
     and (cross) the centre.  Rows at or beyond n_rows give nothing."""
+    _fp32_backward("edge_vector_reduce", compute_dtype)
     bsz, n, h = a.shape
     rows = _clamp_rows(n, n_rows)
     da, db, dd2c, dd2i, dx, dcenter, dwe, dw2, db2, dwout = _zeros(
@@ -575,14 +654,15 @@ def edge_vector_reduce_pair_backward_plain(gout, a, b, d2c, d2i, adj, x,
                                            coords_range: float = 15.0,
                                            norm_constant: float = 1.0,
                                            norm_factor: float = 100.0,
-                                           n_rows: Optional[int] = None):
+                                           n_rows: Optional[int] = None,
+                                           compute_dtype: str = "float32"):
     """``edge_vector_reduce_backward_plain`` of the pair: the per-set
     gradients (a, b, we, w2, b2, wout) as pairs, the shared ones (d2c,
     d2i, x, center) summed over the two sets."""
     parts = [edge_vector_reduce_backward_plain(
         gout, a[s], b[s], d2c, d2i, adj, x, center, we[s], w2[s], b2[s],
         wout[s], tanh, coords_range, norm_constant, bool(s), norm_factor,
-        n_rows) for s in (0, 1)]
+        n_rows, compute_dtype) for s in (0, 1)]
     return tuple(None if p0 is None else
                  (p0 + p1 if i in _VEC_SHARED else (p0, p1))
                  for i, (p0, p1) in enumerate(zip(*parts)))
@@ -598,8 +678,13 @@ def _ptrs(*tensors) -> ctypes.Array:
         *(None if t is None else t.data_ptr() for t in tensors))
 
 
+def _packed_w2(w2: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """W2 as the kernel variant reads it, cached per weight tensor."""
+    return pack_w2_bf16_cached(w2) if bf16 else split_w2(w2)
+
+
 def _gcl_messages_cuda(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
-                       attention, norm_factor):
+                       attention, norm_factor, bf16=False):
     bsz, n, h = a.shape
     _hidden_ok("gcl_messages", h, n)
     if batt is None:
@@ -607,45 +692,50 @@ def _gcl_messages_cuda(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
     ptr = _check_cuda("gcl_messages",
                       dict(a=a, b=b, d2c=d2c, d2i=d2i, adj=adj, we=we, w2=w2,
                            b2=b2, watt=watt, batt=batt), _shapes(bsz, n, h))
-    ptr["w2"] = split_w2(w2).data_ptr()
+    w2p = _packed_w2(w2, bf16)
+    ptr["w2"] = w2p.data_ptr()
     out = torch.empty((bsz, n, h), dtype=torch.float32, device=a.device)
-    _launch("gcl_messages", a.device, _library().egnn_gcl_messages,
+    suffix = "_bf16" if bf16 else ""
+    _launch("gcl_messages", a.device,
+            getattr(_library(), "egnn_gcl_messages" + suffix),
             *(ptr[k] for k in ("a", "b", "d2c", "d2i", "adj", "we", "w2",
                                "b2", "watt", "batt")),
             out.data_ptr(), bsz, n, h, int(bool(attention)),
             float(norm_factor))
-    LAUNCHES["gcl_messages"] += 1
+    _count("gcl_messages", bf16)
     return out
 
 
 def _edge_vector_reduce_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                              wout, tanh, coords_range, norm_constant, cross,
-                             norm_factor, n_rows):
+                             norm_factor, n_rows, bf16=False):
     bsz, n, h = a.shape
     _hidden_ok("edge_vector_reduce", h, n)
     ptr = _check_cuda("edge_vector_reduce",
                       dict(a=a, b=b, d2c=d2c, d2i=d2i, adj=adj, x=x,
                            center=center, we=we, w2=w2, b2=b2, wout=wout),
                       _shapes(bsz, n, h))
-    ptr["w2"] = split_w2(w2).data_ptr()
+    w2p = _packed_w2(w2, bf16)
+    ptr["w2"] = w2p.data_ptr()
     rows = _clamp_rows(n, n_rows)
     out = _vec_output((bsz, n, 3), rows, n, a.device)
     if rows == 0:
         return out
+    suffix = "_bf16" if bf16 else ""
     _launch("edge_vector_reduce", a.device,
-            _library().egnn_edge_vector_reduce,
+            getattr(_library(), "egnn_edge_vector_reduce" + suffix),
             *(ptr[k] for k in ("a", "b", "d2c", "d2i", "adj", "x", "center",
                                "we", "w2", "b2", "wout")),
             out.data_ptr(), bsz, n, h, rows, int(bool(tanh)),
             float(coords_range), float(norm_constant), int(bool(cross)),
             float(norm_factor))
-    LAUNCHES["edge_vector_reduce"] += 1
+    _count("edge_vector_reduce", bf16)
     return out
 
 
 def _edge_vector_reduce_pair_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                                   wout, tanh, coords_range, norm_constant,
-                                  norm_factor, n_rows):
+                                  norm_factor, n_rows, bf16=False):
     name = "edge_vector_reduce_pair"
     bsz, n, h = a[0].shape
     _hidden_ok(name, h, n)
@@ -656,21 +746,25 @@ def _edge_vector_reduce_pair_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                         dict(a=a[s], b=b[s], we=we[s], w2=w2[s], b2=b2[s],
                              wout=wout[s], **shared[s]), shapes)
             for s in (0, 1)]
+    # the packed weights, held until the launch is queued
+    packed = [_packed_w2(w2[s], bf16) for s in (0, 1)]
     for s in (0, 1):
-        ptrs[s]["w2"] = split_w2(w2[s]).data_ptr()
+        ptrs[s]["w2"] = packed[s].data_ptr()
     if a[1].device != a[0].device:
         raise ValueError(f"{name}: the two sets are on different devices")
     rows = _clamp_rows(n, n_rows)
     out = _vec_output((2, bsz, n, 3), rows, n, a[0].device)
     if rows == 0:
         return out[0]
-    _launch(name, a[0].device, _library().egnn_edge_vector_reduce_pair,
+    suffix = "_bf16" if bf16 else ""
+    _launch(name, a[0].device,
+            getattr(_library(), "egnn_edge_vector_reduce_pair" + suffix),
             *(ptrs[s][k] for s in (0, 1)
               for k in ("a", "b", "we", "w2", "b2", "wout")),
             *(ptrs[0][k] for k in ("d2c", "d2i", "adj", "x", "center")),
             out.data_ptr(), bsz, n, h, rows, int(bool(tanh)),
             float(coords_range), float(norm_constant), float(norm_factor))
-    LAUNCHES["edge_vector_reduce"] += 1
+    _count("edge_vector_reduce", bf16)
     return out[0] + out[1]
 
 
@@ -802,6 +896,20 @@ def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
 # autograd Functions: the forward and backward of each wrapper
 # ---------------------------------------------------------------------------
 
+def _bf16_forward(name: str, device: torch.device, plain, cuda):
+    """A bf16 call: the plain version on the CPU (through autograd in grad
+    mode), the bf16 kernel on the card, which has no backward."""
+    if device.type == "cpu":
+        return plain()
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: the bf16 kernels have no backward; call them under "
+            f"torch.no_grad(), or use compute_dtype='float32' to train")
+    return cuda()
+
+
 def _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
                  norm_factor):
     if a.device.type == "cpu":
@@ -906,11 +1014,19 @@ class _EdgeVectorReduce(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
-                 attention: bool = True, norm_factor: float = 100.0):
+                 attention: bool = True, norm_factor: float = 100.0,
+                 compute_dtype: str = "float32"):
     """a, b: [B, N, H] node projections (edge_dst bias folded into b);
     d2c/d2i/adj: [B, N, N]; we: [2, H]; w2: [H, H]; b2: [H]; watt: [H, 1];
     batt: [1] or None.  Returns [B, N, H] float32; differentiable with
-    respect to every argument but adj."""
+    respect to every argument but adj (in bf16 on the CPU only)."""
+    if _is_bf16(compute_dtype):
+        args = (a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
+                norm_factor)
+        return _bf16_forward(
+            "gcl_messages", a.device,
+            lambda: gcl_messages_plain(*args, compute_dtype),
+            lambda: _gcl_messages_cuda(*args, bf16=True))
     if torch.is_grad_enabled():
         return _GclMessages.apply(a, b, d2c, d2i, adj, we, w2, b2, watt,
                                   batt, attention, norm_factor)
@@ -922,12 +1038,19 @@ def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
                        tanh: bool = True, coords_range: float = 15.0,
                        norm_constant: float = 1.0, cross: bool = False,
                        norm_factor: float = 100.0,
-                       n_rows: Optional[int] = None):
+                       n_rows: Optional[int] = None,
+                       compute_dtype: str = "float32"):
     """Returns [B, N, 3] = sum_j adj_ij * phi_ij * v_ij / norm_factor.
 
     x: [B, N, 3]; center: [B, 1, 3] (joint COM, used when cross=True);
     n_rows: only rows < n_rows are computed, the rest are zero."""
     opts = (tanh, coords_range, norm_constant, cross, norm_factor, n_rows)
+    if _is_bf16(compute_dtype):
+        args = (a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, *opts)
+        return _bf16_forward(
+            "edge_vector_reduce", a.device,
+            lambda: edge_vector_reduce_plain(*args, compute_dtype),
+            lambda: _edge_vector_reduce_cuda(*args, bf16=True))
     if torch.is_grad_enabled():
         return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center, a, b,
                                        we, w2, b2, wout)
@@ -944,7 +1067,8 @@ def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
                             coords_range: float = 15.0,
                             norm_constant: float = 1.0,
                             norm_factor: float = 100.0,
-                            n_rows: Optional[int] = None):
+                            n_rows: Optional[int] = None,
+                            compute_dtype: str = "float32"):
     """``edge_vector_reduce(..., cross=False)`` with the first weight set
     plus ``edge_vector_reduce(..., cross=True)`` with the second, over the
     same graph, in one launch.  ``a``, ``b``, ``we``, ``w2``, ``b2`` and
@@ -954,6 +1078,13 @@ def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
     for key, pair in dict(a=a, b=b, we=we, w2=w2, b2=b2, wout=wout).items():
         if len(pair) != 2:
             raise ValueError(f"{name}: {key} must be a pair of tensors")
+    if _is_bf16(compute_dtype):
+        args = (a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, tanh,
+                coords_range, norm_constant, norm_factor, n_rows)
+        return _bf16_forward(
+            name, a[0].device,
+            lambda: edge_vector_reduce_pair_plain(*args, compute_dtype),
+            lambda: _edge_vector_reduce_pair_cuda(*args, bf16=True))
     opts = (tanh, coords_range, norm_constant, True, norm_factor, n_rows)
     sets = [(a[s], b[s], we[s], w2[s], b2[s], wout[s]) for s in (0, 1)]
     if torch.is_grad_enabled():

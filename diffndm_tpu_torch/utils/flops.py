@@ -69,11 +69,15 @@ def egnn_flops_analytic(cfg, atom_nf: int, b: int, n_lig: int,
                    edge: w_l2 H^2 + w_edg e*H + att H
     per EqUpdate   node: coord_src/dst + cross_src/dst = 4*H^2
                    edge: 2 chains of (H^2 + e*H + H) (coord + cross)
+
+    The edge slots are the band's under ``band_window``, else all N^2;
+    ``neighbors`` is not counted (the JAX package's closed form does not
+    count it either).
     """
     H = cfg.hidden_nf
     e = 1 + (cfg.edge_embedding_dim or 0)  # radial (+ optional embedding)
     n = n_lig + n_pocket
-    band = getattr(cfg, "band_window", None)
+    band = cfg.band_window
     if band:
         edges = n_lig * n + n_pocket * min(n, n_lig + band)
     else:
@@ -87,9 +91,10 @@ def egnn_flops_analytic(cfg, atom_nf: int, b: int, n_lig: int,
         equ_edges = edges
     else:
         # conditional mode: the coordinate chains run for the ligand rows
-        # only (rounded up to whole row tiles where there are tiles)
-        rt = max(int(getattr(cfg, "row_tile", 1) or 1), 1)
-        equ_edges = min(-(-n_lig // rt) * rt, n) * n
+        # only.  The kernels take those rows as they are; the JAX package
+        # rounds them up to its row tiles (row_tile), equal to this where
+        # n_lig is a whole number of tiles
+        equ_edges = min(n_lig, n) * n
     per_layer = (n * (cfg.inv_sublayers * per_gcl_node + per_equ_node)
                  + edges * cfg.inv_sublayers * per_gcl_edge
                  + equ_edges * per_equ_edge)

@@ -50,10 +50,10 @@ def ptxas_report(so):
     out, kernel = {}, None
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function .*edge_chain_mmaILi(\d+)"
-                      r"ELb([01])E", line)
+                      r"ELb([01])E(?:Lb([01])E)?", line)
         if m:
             name = "edge_vector_reduce" if m[2] == "1" else "gcl_messages"
-            kernel = f"{name} H={int(m[1])}"
+            kernel = f"{name}{'_bf16' if m[3] == '1' else ''} H={int(m[1])}"
         elif kernel and ("registers" in line or "spill" in line):
             out.setdefault(kernel, []).append(line.split(":")[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}

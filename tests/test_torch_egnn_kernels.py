@@ -147,8 +147,11 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     K.gcl_messages(*as_torch(d, GCL_KEYS))
     K.edge_vector_reduce(*as_torch(d, VEC_KEYS))
     K.edge_vector_reduce_pair(*pair_args(d, make_inputs(1, 9, seed=5)))
+    K.gcl_messages(*as_torch(d, GCL_KEYS), compute_dtype="bfloat16")
     assert K.LAUNCHES == {"gcl_messages": 0, "edge_vector_reduce": 0,
-                          "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0}
+                          "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0,
+                          "gcl_messages_bf16": 0,
+                          "edge_vector_reduce_bf16": 0}
 
 
 def test_cpu_wrappers_in_grad_mode_route_backward_through_the_plain_backward(
