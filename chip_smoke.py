@@ -184,10 +184,11 @@ Phases, each of which fails the run on any fault or mismatch:
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
 phases 1 and 21, ``--only etl`` phases 1 and 22, ``--only modes``
-phases 1 and 23, and ``--only phases`` prints, from
-a build of the kernels with cycle counters, where a block's time goes in
-the forward kernels and in the vector backward, with the device time of
-each kernel a backward call launches (both for work on the kernels).
+phases 1 and 23, and ``--only phases`` prints, from a build of the
+kernels with cycle counters, where a block's time goes in the forward
+kernels (fp32 and bf16) and in both backward epilogues, with the device
+time of each kernel a backward call launches (both for work on the
+kernels).
 ``--only quality`` runs phase 7 alone over five seeds and prints how far
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
@@ -395,8 +396,8 @@ SDF_ATOL, PDB_ATOL = 5e-5 + 1e-5, 5e-4 + 1e-5
 ETL_SPANS = ("forward", "backward", "optimizer")
 ETL_FORWARD_REPS = 20
 # modes phase: the denoiser's precision and sparsity modes.  The bf16
-# variants of the two forward kernels (csrc/egnn_edge.cu, template
-# argument BF) port the Pallas kernels' mxu_dtype = bfloat16 mode.  Their
+# kernel of the two forward wrappers (csrc/egnn_edge.cu, edge_chain_wgmma)
+# ports the Pallas kernels' mxu_dtype = bfloat16 mode.  Their
 # gate against the bf16 plain version on the card, per output: max
 # |kernel - plain| <= BF16_GATE * max |plain| + BF16_ATOL.  Both round the
 # same operands to bf16, so what is left is an fp32 sum in another order
@@ -419,12 +420,14 @@ BF16_GATE, BF16_ATOL = 1e-3, 1e-6
 # moves an operand by 2^-8 of itself, and ten steps amplify it: on the
 # CPU alone, summing the W2 product in float64 instead of float32 moved
 # this check's coordinates by 0.40 A in bf16 (1.8e-5 A in fp32).  On the
-# card (NVIDIA H100 80GB HBM3, 700 W) the bf16 kernels read 0.267 A with
-# the atom types equal; the controls, the same run with a fault, read
-# 0.592 A (the fp32 kernels) and 0.406 A (no rounding outside the
-# kernels), both with atom types changed.  The gate lies between; the
+# card (NVIDIA H100 80GB HBM3, 700 W) the first bf16 kernels read 0.267 A
+# and the wgmma ones (fast silu, the sum over k carried in the tensor
+# cores) 0.238 A, with the atom types equal; the controls, the same run
+# with a fault, read 0.592 A (the fp32 kernels) and 0.406 A (no rounding
+# outside the kernels), both with atom types changed.  The gate lies between; the
 # types separate the faults more clearly than the distance.
 BF16_PATH_ATOL = 0.34        # Angstrom
+BF16_PATH_SIZES = (12, 18, 9, 24)
 # K-nearest-neighbour edges at v3b's width on the main path's first state
 KNN_K = (16, 32)
 # the band: crossdock_fullatom_cond at its published width on seeded
@@ -833,6 +836,25 @@ def kernel_phase(torch, K, model, pocket, sizes):
     return results
 
 
+def describe_cycles(K, name, args, kw):
+    """Where the blocks of one call of the profile build spend their
+    cycles (the forward kernels' spans; the bf16 kernel waits once per
+    block for W2 and asks for nothing)."""
+    getattr(K, name)(*args, **kw)
+    K.read_profile()                        # warm, and clear
+    getattr(K, name)(*args, **kw)
+    c = K.read_profile()
+    blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
+    rest = c["loop"] - c["wait"] - c["request"] - c["mma"]
+    return (f"{c['blocks']} blocks, {c['passes']} passes of 128 edges; "
+            f"cycles per block: set-up and compaction "
+            f"{c['setup'] / blocks:.0f}, loop {c['loop'] / blocks:.0f}, of "
+            f"it waiting for W2 or its chunks {c['wait'] / blocks:.0f}; "
+            f"per pass: asking for chunks {c['request'] / passes:.0f}, z "
+            f"and the product {c['mma'] / passes:.0f}, epilogue "
+            f"{rest / passes:.0f}")
+
+
 def phase_cycles(torch, K, model, pocket, sizes):
     """Where a block's cycles go, per kernel call of the main path and of
     the flagship shapes, for the forward kernels and both epilogues of the
@@ -847,19 +869,10 @@ def phase_cycles(torch, K, model, pocket, sizes):
         cases.append(("flagship", name,
                       *flagship_inputs(torch, name, model.device)))
     for label, name, args, kw in cases:
-        getattr(K, name)(*args, **kw)
-        K.read_profile()                        # warm, and clear
-        getattr(K, name)(*args, **kw)
-        c = K.read_profile()
-        blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
-        rest = c["loop"] - c["wait"] - c["request"] - c["mma"]
-        log(f"[phases] {label} {name}: {c['blocks']} blocks, "
-            f"{c['passes']} passes of 128 edges; cycles per block: set-up "
-            f"and compaction {c['setup'] / blocks:.0f}, chunk loop "
-            f"{c['loop'] / blocks:.0f}; per pass: waiting for chunks "
-            f"{c['wait'] / passes:.0f}, asking for them "
-            f"{c['request'] / passes:.0f}, z and mma {c['mma'] / passes:.0f}, "
-            f"epilogue {rest / passes:.0f}")
+        for dtype in K.COMPUTE_DTYPES:
+            log(f"[phases] {label} {name} {dtype}: "
+                + describe_cycles(K, name, args, dict(kw,
+                                                      compute_dtype=dtype)))
     # both epilogues of the backward, on the first call of each wrapper on
     # the main path and at the flagship shapes, under an output gradient
     # drawn from the seed
@@ -4303,6 +4316,24 @@ def fp32_kernel(wrapper):
                                        **dict(kw, compute_dtype="float32"))
 
 
+def bf16_fixed_run(torch, make_model, pair, device):
+    """v3b in bf16 on ``device``: T_CHECK steps from fixed noise on the
+    pair's pocket, BF16_PATH_SIZES ligands; (x, h, mask) on the CPU."""
+    sizes = np.array(BF16_PATH_SIZES)
+    m = with_egnn(make_model(device), compute_dtype="bfloat16")
+    r = m.sample_given_pocket(m.pocket_from_dataset(pair, len(sizes)), sizes,
+                              timesteps=T_CHECK,
+                              noise=fixed_noise(torch, m, sizes, T_CHECK))
+    return [v.cpu() for v in (r.ligand.x, r.ligand.h, r.ligand.mask)]
+
+
+def bf16_path_error(torch, run, ref):
+    """(max |x - x_ref| in A, atom types equal) of two bf16_fixed_run."""
+    (x, h, _), (xr, hr, mr) = run, ref
+    return (float((x - xr).abs().max()),
+            bool(torch.equal(h.argmax(-1)[mr > 0.5], hr.argmax(-1)[mr > 0.5])))
+
+
 def modes_bf16_path(torch, K, make_model, pocket, sizes, ds, fp32_rows):
     """(b) v3b in bf16: one unguided batch at T=500 (s, launches), a
     fixed-noise run on the card against the CPU's plain bf16 run, beside
@@ -4329,22 +4360,13 @@ def modes_bf16_path(torch, K, make_model, pocket, sizes, ds, fp32_rows):
     if launches != want or any(fp32.values()) or not finite:
         raise AssertionError(f"[modes] bf16 launches {launches} != {want}, "
                              f"or an fp32 launch, or non-finite output")
-    sizes_c = np.array([12, 18, 9, 24])
-
-    def fixed_run(device):
-        m = with_egnn(make_model(device), compute_dtype="bfloat16")
-        r = m.sample_given_pocket(m.pocket_from_dataset(
-            ds[POCKETS[0]], len(sizes_c)), sizes_c, timesteps=T_CHECK,
-            noise=fixed_noise(torch, m, sizes_c, T_CHECK))
-        return [v.cpu() for v in (r.ligand.x, r.ligand.h, r.ligand.mask)]
-
-    xc, hc, mc = fixed_run("cpu")
+    cpu_run = bf16_fixed_run(torch, make_model, ds[POCKETS[0]], "cpu")
 
     def against_cpu(run):
-        x, h, _ = run
-        return (float((x - xc).abs().max()),
-                bool(torch.equal(h.argmax(-1)[mc > 0.5],
-                                 hc.argmax(-1)[mc > 0.5])))
+        return bf16_path_error(torch, run, cpu_run)
+
+    def fixed_run(device):
+        return bf16_fixed_run(torch, make_model, ds[POCKETS[0]], device)
 
     err, same_types = against_cpu(fixed_run("cuda"))
     # controls, each with a fault the gate must see: the fp32 kernels in
@@ -4366,7 +4388,7 @@ def modes_bf16_path(torch, K, make_model, pocket, sizes, ds, fp32_rows):
         finally:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
-    log(f"[modes] (b) bf16 T={T_CHECK} fixed noise, B={len(sizes_c)}: max "
+    log(f"[modes] (b) bf16 T={T_CHECK} fixed noise, B={len(BF16_PATH_SIZES)}: max "
         f"|x_cuda - x_cpu| = {err:.3e} A (atol {BF16_PATH_ATOL}); atom "
         f"types identical: {same_types}; controls: " + "; ".join(
             f"{k} {e:.3e} A, types identical {t}"
@@ -4591,14 +4613,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s: {os.path.relpath(so, REPO)}, "
         f"{os.path.relpath(bwd_so, REPO)}, "
         f"{os.path.relpath(scorer_so, REPO)}")
-    # the compiler's report, per instantiation edge_chain_mma<H, VEC>
+    # the compiler's report, per instantiation edge_chain_mma<H, VEC> (fp32)
+    # and edge_chain_wgmma<H, VEC> (bf16)
     kernel = None
     for line in so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function .*edge_chain_mmaILi(\d+)"
-                      r"ELb([01])ELb([01])E", line)
+        m = re.search(r"Compiling entry function .*edge_chain_(w?gmma|mma)"
+                      r"ILi(\d+)ELb([01])E", line)
         if m:
-            name = "edge_vector_reduce" if m[2] == "1" else "gcl_messages"
-            kernel = f"{name}{'_bf16' if m[3] == '1' else ''} H={int(m[1])}"
+            name = "edge_vector_reduce" if m[3] == "1" else "gcl_messages"
+            kernel = (f"{name}{'_bf16' if m[1] == 'wgmma' else ''} "
+                      f"H={int(m[2])}")
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
     # and per instantiation edge_chain_bwd_mma<H, VEC> of the backward

@@ -1,6 +1,7 @@
 // Tensor-core and bulk-copy helpers shared by the EGNN edge-chain kernels
 // (egnn_edge.cu) and their backward (egnn_edge_bwd.cu), for sm_90a: the
-// TF32 split and mma.sync.m16n8k8, and the mbarrier + cp.async.bulk ring.
+// TF32 split and mma.sync.m16n8k8, the bf16 packing of an operand pair,
+// and the mbarrier + cp.async.bulk copies.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,19 +40,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     uint32_t r;
     asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
     return r;
-}
-
-// D += A (16x16, row) * B (16x8, col) in bf16 with fp32 sums; two bf16 per
-// register, the lower k in the low half; lane = 4 * g + t:
-//   a0 (g, 2t..2t+1) a1 (g+8, 2t..2t+1) a2 (g, 2t+8..) a3 (g+8, 2t+8..);
-//   b0 (2t..2t+1, g) b1 (2t+8..2t+9, g); d as in mma_tf32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {

@@ -28,8 +28,9 @@ and watt / wout are rounded to bf16 (nearest even) as the operands of their
 products, whose sums stay fp32.  The inputs and the output stay fp32; the
 caller rounds what the JAX package rounds outside its kernels (h, the
 coordinates, d2i, adj, W_e, and the aggregate).  On the card this is the
-bf16 variant of each kernel (one ``mma.sync`` m16n8k16 bf16 product per
-chunk), counted under ``gcl_messages_bf16`` / ``edge_vector_reduce_bf16``.  It has no backward, so a bf16 call on the
+bf16 kernel (``wgmma`` with W2 whole in shared memory, packed by
+``pack_w2_bf16``), counted under ``gcl_messages_bf16`` /
+``edge_vector_reduce_bf16``.  It has no backward, so a bf16 call on the
 card in grad mode raises; on the CPU the plain bf16 version differentiates
 through autograd.
 
@@ -329,15 +330,29 @@ def pack_w2(w2: torch.Tensor) -> torch.Tensor:
     return F.pad(packed, (0, 0, 0, 4)).contiguous()
 
 
+# k of the A slot s (0..15) inside a k-step of 16 in the bf16 kernel:
+# thread t computes k = 4t..4t+3 and packs k = 4t, 4t+1 into slots 2t, 2t+1
+# and k = 4t+2, 4t+3 into slots 2t+8, 2t+9
+_BF16_SLOT_K = [4 * (s % 8 // 2) + 2 * (s // 8) + s % 2 for s in range(16)]
+
+
 def pack_w2_bf16(w2: torch.Tensor) -> torch.Tensor:
-    """W2 [H, H] as the bf16 kernels read it: [H/16, 4, H+4, 4] bf16.  For
-    each chunk of 16 rows (the k index) and each t in 0..3, a row of H
-    columns (padded by 4 for the shared-memory banks) holding the four
-    values W2[16c + 4t .. 16c + 4t + 3, n], the k slots that thread t's
-    two B registers carry in ``mma.sync`` m16n8k16."""
+    """W2 [H, H] as the bf16 kernel's ``wgmma`` reads it from shared
+    memory: [H/64, H, 64] bf16, K-major with the 128-byte swizzle.  Slab
+    ``s`` holds k = 64s..64s+63; its row ``n`` holds those 64 values of
+    column n as eight 16-byte groups, k-step ``q`` = 0..3 of the slab in
+    groups 2q (slots 0-7) and 2q+1 (slots 8-15), and group ``j`` is stored
+    at position j ^ (n % 8).  Slot ``i`` of a k-step holds k =
+    ``_BF16_SLOT_K[i]`` of it, the k order of the A fragments."""
     h = w2.shape[0]
-    w = w2.to(torch.bfloat16).reshape(h // 16, 4, 4, h)      # [c, t, j, n]
-    return F.pad(w.permute(0, 1, 3, 2), (0, 0, 0, 4)).contiguous()
+    k = torch.arange(h).reshape(h // 16, 16)
+    k = (k[:, :1] + torch.tensor(_BF16_SLOT_K)).reshape(h // 64, 8, 8)
+    n = torch.arange(h)
+    # stored group position -> logical group: j = pos ^ (n % 8)
+    group = torch.arange(8)[None, :] ^ (n % 8)[:, None]          # [n, pos]
+    src = k[:, group]                                   # [slab, n, pos, 8]
+    w = w2.to(torch.bfloat16)
+    return w[src, n[None, :, None, None]].reshape(h // 64, h, 64).contiguous()
 
 
 # (data_ptr, layout) -> (weak reference to the weight, its version, its

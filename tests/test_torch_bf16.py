@@ -28,7 +28,8 @@ through XLA.  Held here, on the same seeded inputs and weights:
   operation; seen: 8e-5 apart, where fp32 lies 4e-3 away.  Tolerance rtol
   1e-3, atol 2e-4 (JAX's own bf16 kernel tests use rtol 2e-2, atol 2e-3);
 - the CPU's plain bf16 path differentiates; the packing of W2 for the bf16
-  kernels.
+  kernel's ``wgmma`` (an index model of the swizzled layout) and a mirror
+  of its rows per block against the shared-memory sums its source states.
 
 Torch runs on one thread around its ops (the ROADMAP's ground rules).
 """
@@ -177,22 +178,112 @@ def test_compute_dtype_is_checked():
         tcfg.EGNNConfig(compute_dtype="float16")
 
 
-def test_pack_w2_bf16_layout():
-    """[H/16, 4, H+4, 4]: chunk c, thread t, column n, slot j holds
-    bf16(W2[16c + 4t + j, n]); the 4 padding columns are zero."""
-    h = 32
+def slot_of(r):
+    """The A slot of k = r inside a k-step of 16: thread t computes k =
+    4t..4t+3 and packs 4t, 4t+1 into slots 2t, 2t+1 and 4t+2, 4t+3 into
+    2t+8, 2t+9."""
+    t, j = divmod(r, 4)
+    return 8 * (j // 2) + 2 * t + j % 2
+
+
+def wgmma_offset(k, n, h):
+    """Byte offset of bf16(W2[k, n]) in the bf16 kernel's shared copy of
+    W2: slab k // 64 of h rows of 128 bytes, row n, 16-byte group g of the
+    row (k-step q of the slab: groups 2q, 2q + 1) stored at g ^ (n % 8)."""
+    slab, r = divmod(k, 64)
+    q, s = divmod(slot_of(r % 16) + 16 * (r // 16), 16)
+    group = 2 * q + s // 8
+    return slab * h * 128 + n * 128 + 16 * (group ^ (n % 8)) + 2 * (s % 8)
+
+
+@pytest.mark.parametrize("h", [64, 128])
+def test_pack_w2_bf16_layout(h):
+    """[H/64, H, 64] bf16 for wgmma's K-major B with the 128-byte swizzle:
+    every bf16(W2[k, n]) where the index model puts it, each 16-byte group
+    holding eight k of one column and one k-step half (whole under the
+    swizzle), and the packing cached per weight tensor."""
     w2 = torch.from_numpy(np.random.default_rng(6).normal(
         size=(h, h)).astype(np.float32))
     packed = K.pack_w2_bf16(w2)
-    assert packed.shape == (h // 16, 4, h + 4, 4)
+    assert packed.shape == (h // 64, h, 64)
     assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    flat = packed.reshape(-1)
     ref = w2.to(torch.bfloat16)
-    for c in range(h // 16):
-        for t in range(4):
-            for j in range(4):
-                assert torch.equal(packed[c, t, :h, j], ref[16 * c + 4 * t + j])
-    assert not packed[:, :, h:].float().abs().any()
-    assert K.pack_w2_bf16_cached(w2) is K.pack_w2_bf16_cached(w2)
+    where = {}
+    for k in range(h):
+        for n in range(h):
+            off = wgmma_offset(k, n, h)
+            assert torch.equal(flat[off // 2], ref[k, n])
+            where[off // 2] = (k, n)
+    assert len(where) == h * h                 # every element once
+    for group in range(h * h // 8):
+        ks, ns = zip(*(where[8 * group + i] for i in range(8)))
+        assert len(set(ns)) == 1               # one column
+        assert len({k // 16 for k in ks}) == 1     # one k-step
+        assert len({slot_of(k % 16) // 8 for k in ks}) == 1   # one half
+    first = K.pack_w2_bf16_cached(w2)
+    assert K.pack_w2_bf16_cached(w2) is first
+    w2.mul_(0.5)                               # bumps the version counter
+    assert K.pack_w2_bf16_cached(w2) is not first
+    assert torch.equal(K.pack_w2_bf16_cached(w2), K.pack_w2_bf16(w2))
+
+
+# The bf16 kernel's rows per block (``pick_rows`` in csrc/egnn_edge.cu),
+# mirrored: one block per SM or fewer, at most 16 rows, fewer where the
+# shared memory would not hold them.  Bytes besides the edge list: 1024
+# of alignment, W2 whole in bf16, its barrier, and the fp32 arrays (a rows,
+# four weight vectors, gcl's row sums and heads, row starts).
+SMEM_LIMIT, R_MAX, NW, SMS = 232448, 16, 8, 132
+
+
+def bf16_fixed_bytes(h, vec):
+    floats = R_MAX * h + 4 * h + (0 if vec else (R_MAX + NW) * h) \
+        + R_MAX + 1 + NW + 3
+    return 1024 + 2 * h * h + 16 + 4 * floats
+
+
+def bf16_rows(bsz, rows, n, n_sets, h, vec):
+    r = min(-(-bsz * rows * n_sets // SMS), R_MAX, rows)
+    r = max(r, 1)
+    while r > 1 and bf16_fixed_bytes(h, vec) + r * n * (16 if vec else 4) \
+            > SMEM_LIMIT:
+        r -= 1
+    return r
+
+
+@pytest.mark.parametrize("h,vec,fixed", [
+    (128, False, 56448), (192, False, 108672), (256, False, 177280),
+    (128, True, 44160), (192, True, 90240), (256, True, 152704)])
+def test_bf16_shared_memory_sums(h, vec, fixed):
+    """The fixed bytes that the source's note states for each width."""
+    assert bf16_fixed_bytes(h, vec) == fixed
+
+
+@pytest.mark.parametrize("shape,n_rows,n_sets,vec,rows,total", [
+    # v3b's first forward: 80 rows of gcl_messages, the pair on 24 ligand
+    # rows
+    ((16, 80, 192), 80, 1, False, 10, 111872),
+    ((16, 80, 192), 24, 2, True, 6, 97920),
+    # the joint first forward: every row of both
+    ((16, 584, 128), 584, 1, False, 16, 93824),
+    ((16, 584, 128), 584, 2, True, 16, 193664),
+    # the flagship: gcl_messages at 16 rows is the tightest fit
+    ((20, 344, 256), 344, 1, False, 16, 199296),
+    ((20, 344, 256), 24, 2, True, 8, 196736),
+    # the largest N the wrappers take: three rows, or one of the pair
+    ((1, 4096, 256), 4096, 1, False, 3, 226432),
+    ((1, 4096, 256), 4096, 2, True, 1, 218240)])
+def test_bf16_rows_per_block_mirror(shape, n_rows, n_sets, vec, rows,
+                                    total):
+    """The mirror's rows per block and the shared memory they take at the
+    main path's shapes, within the card's 232,448 bytes; ``launch_grid``
+    reports the library's choice on the card (scripts/forward_build_ab.py
+    --bf16 prints it per case)."""
+    bsz, n, h = shape
+    r = bf16_rows(bsz, n_rows, n, n_sets, h, vec)
+    used = bf16_fixed_bytes(h, vec) + r * n * (16 if vec else 4)
+    assert (r, used) == (rows, total)
+    assert used <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
