@@ -37,9 +37,9 @@ Phases, each of which fails the run on any fault or mismatch:
    ([k*2B, N, H] = [320, 80, 192]); the native scorer against the Python
    scorer on one 320-molecule population of that run, each with one
    worker and with min(8, cores) (threads for the native scorer, spawned
-   processes for the Python one), rewards bit-equal; then one guided
-   pocket batch with the oracle on that many workers and one with a
-   single worker, in turn: seconds and the oracle's share;
+   processes for the Python one), rewards bit-equal (one guided pocket
+   batch with the oracle on that many workers and one with a single
+   worker, in turn, seconds and the oracle's share: ``--only workers``);
 7. quality: 8 test pockets x 16 samples, unguided and guided, scored by
    the evaluation protocol of the JAX package's guided-lift script
    (largest fragment, sizes floored at 4) beside that script's committed
@@ -179,12 +179,29 @@ Phases, each of which fails the run on any fault or mismatch:
    against CPU, ms per forward of each; (e) generate_ligands on that crop
    with its "[banding] window=" line and launch counts, beside the same
    call under DIFFNDM_AUTO_BAND=0, whose result it must equal to the bit
-   (the exact window runs the denoiser dense).
+   (the exact window runs the denoiser dense);
+24. dp: data parallelism at v3b's full width. (a) the train CLI with
+   --device cuda on every visible card (one process per card over NCCL;
+   on one card this process) for 8 micro-steps from v3b's raw state,
+   whose losses equal a Trainer's in this process on the same batches (to
+   the bit on one card); (b) two ranks sharing card 0 over gloo
+   (parallel.mesh.spawn): 4 micro-steps at [16, 96, 192], then 15 rows
+   padded to 16, against one process on the padded batches with the same
+   draws (losses, parameters and EMA, the ranks equal to the bit, each
+   rank holding the weights it loaded after rank 0's broadcast, launch
+   counts per rank); (c) those ranks sampling pocket 220 (B = 16) with
+   SPSA + ATP at the guided phase's config for T = 60 under fixed noise,
+   ATP's selection across the ranks, against one process (rows,
+   coordinates, atom types, forwards and launches per rank).  With more
+   than one card visible, (b) and (c) run again over NCCL, a card per
+   rank.
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
 phases 1 and 21, ``--only etl`` phases 1 and 22, ``--only modes``
-phases 1 and 23, and ``--only phases`` prints, from a build of the
+phases 1 and 23, ``--only dp`` phases 1 and 24, ``--only workers``
+phase 1 and phase 6's oracle-worker batches, and ``--only phases``
+prints, from a build of the
 kernels with cycle counters, where a block's time goes in the forward
 kernels (fp32 and bf16) and in both backward epilogues, with the device
 time of each kernel a backward call launches (both for work on the
@@ -193,7 +210,7 @@ kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then does the same for phase 11.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the nine prints a result line.
+None of the eleven prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -211,6 +228,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -436,6 +454,23 @@ KNN_K = (16, 32)
 # over N^2 pairs) and of the timed ones; forwards per timing
 BAND_CONFIG = os.path.join(REPO, "configs", "crossdock_fullatom_cond.yml")
 BAND_APPROX_W, BAND_CHECK_B, MODES_REPS = 128, 2, 10
+# dp phase: (a) the train CLI on every visible card for DP_CLI_STEPS
+# micro-steps from v3b's raw state on a cut of virtual_v3's training split
+# (DP_CLI_STEPS batches, no val split); (b) DP_RANKS ranks sharing one card
+# over gloo: DP_TRAIN_STEPS micro-steps of the N=96 training batch, then
+# its first DP_PAD_ROWS rows (padded to 16), against one process on the
+# padded batches with the same draws; (c) those ranks sampling test pocket
+# DP_POCKET (B = N_SAMPLES) with SPSA + ATP at the guided phase's config
+# for DP_T steps under fixed noise (ATP at s = 50, 40, .., 0; SPSA at
+# s = 30, 28, .., 0; the hybrid at 30), against one process.  Gates: the
+# losses within TRAIN_RTOL; parameters and EMA within DP_PARAM_RTOL of each
+# tensor's largest entry (the gradient sums run in another order); the
+# coordinates within PATH_COORD_ATOL.  A rank that hangs fails the phase
+# after DP_JOIN_TIMEOUT seconds.
+DP_CLI_STEPS, DP_TRAIN_STEPS, DP_PAD_ROWS, DP_RANKS = 8, 4, 15, 2
+DP_POCKET, DP_T = 220, 60
+DP_PARAM_RTOL = 1e-4
+DP_JOIN_TIMEOUT = 300.0
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -1189,7 +1224,7 @@ def fanout_phase(torch, K, calls):
 def oracle_phase(model, population):
     """The native scorer against the Python scorer on one fan-out
     population of the guided run, each with one worker and with
-    oracle_workers() of them.  Returns that worker count."""
+    oracle_workers() of them."""
     from diffndm_tpu_torch.guidance.oracle import RewardOracle
 
     coords, types, mask, weights = population
@@ -1223,7 +1258,6 @@ def oracle_phase(model, population):
     if not equal:
         raise AssertionError("the rewards differ between scorers or worker "
                              "counts")
-    return n_workers
 
 
 def oracle_workers() -> int:
@@ -3808,9 +3842,9 @@ def train_batches(torch, device):
     return ds, found
 
 
-def make_trainer(torch, device, raw=None):
+def make_trainer(torch, device, raw=None, group=None):
     """v3b's model and Trainer on ``device``, resumed from its raw
-    training state."""
+    training state (data-parallel over ``group`` when given)."""
     from diffndm_tpu_torch.config import (load_yaml, model_config_from_yaml,
                                           train_config_from_yaml)
     from diffndm_tpu_torch.constants import dataset_params
@@ -3822,7 +3856,7 @@ def make_trainer(torch, device, raw=None):
     trainer = Trainer(model.core, model.dynamics,
                       train_config_from_yaml(raw),
                       lj_rm=dataset_params[model.cfg.dataset][
-                          "lennard_jones_rm"])
+                          "lennard_jones_rm"], group=group)
     trainer.load_checkpoint(TRAIN_STATE)
     return model, trainer
 
@@ -4565,6 +4599,306 @@ def modes_phase(torch, K, make_model, pocket, sizes, ds, fp32_rows=None):
     return dict(kernels=kernels, path=path, knn=knn, band=band)
 
 
+# ---------------------------------------------------------------------------
+# data parallelism
+# ---------------------------------------------------------------------------
+
+def dp_cli(torch, K, train_ds, tmp):
+    """(a) The train CLI in this process with ``--device cuda``: one
+    process per visible card (one card: this process), resuming v3b's raw
+    state for DP_CLI_STEPS micro-steps; against a Trainer in this process
+    on the same batches and draws (the CLI's generator, seeded alike)."""
+    from diffndm_tpu_torch.cli import train as train_cli
+    from diffndm_tpu_torch.config import (load_yaml, model_config_from_yaml,
+                                          train_config_from_yaml)
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.data.dataset import (BucketedLoader,
+                                                ProcessedLigandPocketDataset,
+                                                save_npz_split)
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.train.trainer import Trainer
+
+    datadir = os.path.join(tmp, "dp_data")
+    os.makedirs(datadir)
+    save_npz_split(os.path.join(datadir, "train.npz"),
+                   train_ds.pairs[:DP_CLI_STEPS * N_SAMPLES])
+    argv = ["--config", os.path.join(RUN, "hparams.yaml"), "--resume",
+            TRAIN_STATE, "--max_steps", str(DP_CLI_STEPS), "--set",
+            f"logdir={tmp}", "--set", f"datadir={datadir}", "--set",
+            "run_name=dp"]
+    world = torch.cuda.device_count()
+    log(f"[dp] (a) python -m diffndm_tpu_torch.cli.train {' '.join(argv)} "
+        f"on {world} visible card(s)")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    summary = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = fp32_launches(K)
+    raw = load_yaml(os.path.join(RUN, "hparams.yaml"))
+    tcfg = train_config_from_yaml(raw)
+    model = DiffNDM(model_config_from_yaml(raw), device="cuda")
+    di = dataset_params[model.cfg.dataset]
+    trainer = Trainer(model.core, model.dynamics, tcfg,
+                      lj_rm=di["lennard_jones_rm"], generator=torch.Generator(
+                          device="cuda").manual_seed(tcfg.seed),
+                      gamma=model.gamma)
+    trainer.load_checkpoint(TRAIN_STATE)
+    loader = BucketedLoader(ProcessedLigandPocketDataset(
+        os.path.join(datadir, "train.npz")), tcfg.batch_size,
+        drop_feature_cols=di["_pad_types"])
+    plain = [trainer.train_step(lig, poc)[0]
+             for _, (lig, poc) in zip(range(DP_CLI_STEPS), loader)]
+    losses = summary["train_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
+                "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
+    want = {k: v * DP_CLI_STEPS for k, v in per_step.items()}
+    log(f"[dp] (a) {len(losses)} micro-steps in {wall:.1f} s (load and "
+        f"checkpoint included): CLI losses {[round(v, 6) for v in losses]}; "
+        f"a Trainer in this process on the same batches: "
+        f"{[round(v, 6) for v in plain]} (max rel {rel:.2e}; "
+        + ("to the bit on one card" if world == 1 else
+           f"gate {TRAIN_RTOL} over {world} cards") + ")"
+        + (f"; launches {launches} (want {want})" if world == 1 else
+           "; launches are counted in the card's own process"))
+    if len(losses) != DP_CLI_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError("[dp] (a) the CLI run is short or not finite")
+    if world == 1 and (losses != plain or launches != want):
+        raise AssertionError("[dp] (a) the CLI on one card is not the "
+                             "single-process trainer")
+    if world > 1 and rel > TRAIN_RTOL:
+        raise AssertionError("[dp] (a) the CLI over the cards disagrees "
+                             "with one process")
+    return dict(world=world, launches=launches if world == 1 else None,
+                losses=losses, wall_s=wall)
+
+
+def dp_guided_config():
+    from diffndm_tpu_torch.config import ATPConfig, SampleConfig, SPSAConfig
+
+    return SampleConfig(pocket_pad_multiple=16,
+                        spsa=SPSAConfig(enabled=True),
+                        atp=ATPConfig(enabled=True))
+
+
+def dp_sample(torch, K, device, pocket, sizes, noise, group=None):
+    """(c) One guided sampling of the whole pocket batch (this rank's rows
+    of it under ``group``) under fixed noise, with its forwards and
+    launches."""
+    from diffndm_tpu_torch.diffusion.sampler import ConditionalSampler
+    from diffndm_tpu_torch.model import DiffNDM
+
+    model = DiffNDM.from_yaml(os.path.join(RUN, "hparams.yaml"),
+                              device=device, sample_cfg=dp_guided_config(),
+                              scorer="native")
+    model.load_params_npz(WEIGHTS)
+    sampler = ConditionalSampler(model.core, model.dynamics,
+                                 model.sample_cfg, model.oracle, group=group)
+    forwards = []
+    model.dynamics.register_forward_hook(lambda *a: forwards.append(1))
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = sampler.sample_given_pocket(pocket.to(device), sizes,
+                                          timesteps=DP_T, noise=noise)
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0,
+                launches=forward_launches(K), forwards=len(forwards),
+                scored=model.oracle.n_scored,
+                **{k: v.cpu().numpy() for k, v in (
+                    ("x", out.ligand.x), ("h", out.ligand.h),
+                    ("mask", out.ligand.mask), ("row_src", out.row_src))})
+
+
+def dp_train(torch, K, device, steps, group=None):
+    """(b) The micro-steps on v3b's raw state; in one process on the
+    padded batches.  Returns the losses, ms per micro-step, launches, the
+    state and whether this process holds the weights it loaded."""
+    from diffndm_tpu_torch.convert import params_from_jax
+    from diffndm_tpu_torch.parallel.mesh import pad_rows
+    from diffndm_tpu_torch.structs import NodeBatch
+    from diffndm_tpu_torch.train.trainer import load_train_state
+
+    _, trainer = make_trainer(torch, device, group=group)
+    loaded = params_from_jax(load_train_state(TRAIN_STATE)[0])
+    holds_loaded = all(torch.equal(p.cpu(), loaded[n]) for n, p in
+                       zip(trainer.names, trainer.params))
+    K.reset_launches()
+    losses, ms = [], []
+    for lig, poc, t_int, noise in steps:
+        lig, poc = (NodeBatch(*(torch.from_numpy(a) for a in nb))
+                    for nb in (lig, poc))
+        if group is None:
+            lig, poc = pad_rows(lig, poc, DP_RANKS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(lig, poc, torch.from_numpy(t_int),
+                                         torch.from_numpy(noise))[0])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(losses=losses, ms=ms, launches=fp32_launches(K),
+                holds_loaded=holds_loaded,
+                state=[t.detach().cpu().numpy()
+                       for t in trainer.params + trainer.ema])
+
+
+def noise_arrays(torch, noise):
+    """A SamplerNoise as numpy arrays (to send to a rank)."""
+    return {k: (v.numpy() if isinstance(v, torch.Tensor) else
+                {s: a.numpy() for s, a in v.items()} if isinstance(v, dict)
+                else tuple(a.numpy() for a in v))
+            for k, v in noise._asdict().items()}
+
+
+def noise_tensors(torch, arrays):
+    from diffndm_tpu_torch.diffusion.sampler import SamplerNoise
+
+    return SamplerNoise(**{
+        k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else
+            {s: torch.from_numpy(a) for s, a in v.items()}
+            if isinstance(v, dict) else tuple(torch.from_numpy(a) for a in v))
+        for k, v in arrays.items()})
+
+
+def dp_rank(group, spec):
+    """A rank of (b) and (c) (run by parallel.mesh.spawn)."""
+    import torch
+
+    from diffndm_tpu_torch.ops import egnn_kernels as K
+    from diffndm_tpu_torch.structs import NodeBatch
+
+    torch.set_grad_enabled(False)
+    train = dp_train(torch, K, group.device, spec["train"], group)
+    noise = noise_tensors(torch, spec["noise"])
+    sample = dp_sample(torch, K, group.device, NodeBatch(
+        *(torch.from_numpy(a) for a in spec["pocket"])), spec["sizes"],
+        noise, group)
+    return dict(train=train, sample=sample, device=str(group.device),
+                backend=group.backend)
+
+
+def dp_phase(torch, K, model, pocket, sizes, train_ds, batches, tmp):
+    """(a) the train CLI on every visible card; (b) and (c) on DP_RANKS
+    ranks sharing card 0 over gloo and, with more than one card visible,
+    over NCCL on one card each, against one process.  ``pocket`` and
+    ``sizes``: (c)'s batch (test pocket DP_POCKET)."""
+    from diffndm_tpu_torch.diffusion.sampler import count_forwards
+    from diffndm_tpu_torch.parallel import mesh
+    from diffndm_tpu_torch.parallel.mesh import pad_rows
+    from diffndm_tpu_torch.structs import NodeBatch
+
+    t_phase = time.perf_counter()
+    cli = dp_cli(torch, K, train_ds, tmp)
+
+    lig, poc = (NodeBatch(*(t.cpu() for t in nb)) for nb in batches[96])
+    steps = []
+    for i in range(DP_TRAIN_STEPS + 1):
+        rows = slice(0, DP_PAD_ROWS if i == DP_TRAIN_STEPS else N_SAMPLES)
+        cut = [NodeBatch(*(t[rows] for t in nb)) for nb in (lig, poc)]
+        t_int, noise = step_draws(torch, pad_rows(*cut, DP_RANKS)[0],
+                                  SEED + 40 + i)
+        steps.append((*(tuple(t.numpy() for t in nb) for nb in cut),
+                      t_int.numpy(), noise.numpy()))
+    single = dp_train(torch, K, "cuda", steps)
+
+    cfg = dp_guided_config()
+    noise = event_noise(torch, types.SimpleNamespace(
+        sample_cfg=cfg, cfg=model.cfg), sizes, DP_T)
+    single_sample = dp_sample(torch, K, "cuda", pocket, sizes, noise)
+    forwards = count_forwards(cfg, DP_T)
+    spec = dict(train=steps, pocket=tuple(t.cpu().numpy() for t in pocket),
+                sizes=np.asarray(sizes), noise=noise_arrays(torch, noise))
+    runs = [("gloo", ["cuda:0"] * DP_RANKS)]
+    if torch.cuda.device_count() >= DP_RANKS:
+        runs.append(("nccl", [f"cuda:{r}" for r in range(DP_RANKS)]))
+    out = dict(cli=cli, single_train_ms=single["ms"],
+               single_sample_s=single_sample["seconds"], runs={})
+    for backend, devices in runs:
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(dp_rank, DP_RANKS, backend, args=(spec,),
+                           devices=devices, timeout=DP_JOIN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        names = [f"{r['device']} ({torch.cuda.get_device_name(r['device'])})"
+                 for r in ranks]
+        log(f"[dp] backend {backend}, {DP_RANKS} ranks on {names}: "
+            f"spawned, run and joined in {wall:.1f} s")
+        # (b) training
+        tr = [r["train"] for r in ranks]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(tr[0]["losses"], single["losses"]))
+        param_share = max(
+            float(np.abs(a - b).max()) / (DP_PARAM_RTOL * float(
+                np.abs(b).max()) + 1e-30)
+            for a, b in zip(tr[0]["state"], single["state"]))
+        same_bits = all(
+            t["losses"] == tr[0]["losses"] and all(
+                np.array_equal(a, b) for a, b in zip(t["state"],
+                                                     tr[0]["state"]))
+            for t in tr[1:])
+        log(f"[dp] (b) {len(single['losses'])} micro-steps of v3b (the N=96 "
+            f"batch x {DP_TRAIN_STEPS}, then {DP_PAD_ROWS} rows padded to "
+            f"{N_SAMPLES}): losses rank 0 {[round(v, 6) for v in tr[0]['losses']]}"
+            f" / one process {[round(v, 6) for v in single['losses']]} (max "
+            f"rel {loss_rel:.2e}, gate {TRAIN_RTOL}); params and EMA at most "
+            f"{param_share:.3f} of the gate {DP_PARAM_RTOL} x max|p|; ranks "
+            f"equal to the bit: {same_bits}; each rank held the weights it "
+            f"loaded after the broadcast: "
+            f"{[t['holds_loaded'] for t in tr]}; launches per rank "
+            f"{[t['launches'] for t in tr]} (one process: "
+            f"{single['launches']}); ms per micro-step per rank "
+            f"{[[round(v, 1) for v in t['ms']] for t in tr]} (one process "
+            f"{[round(v, 1) for v in single['ms']]})")
+        if not (loss_rel <= TRAIN_RTOL and param_share <= 1.0 and same_bits
+                and all(t["holds_loaded"] for t in tr) and single[
+                    "holds_loaded"] and all(t["launches"] == single["launches"]
+                                            for t in tr)):
+            raise AssertionError(f"[dp] (b) the data-parallel trainer over "
+                                 f"{backend} disagrees with one process")
+        # (c) guided sampling
+        sm = [r["sample"] for r in ranks]
+        ref = single_sample
+        same_rows = all(np.array_equal(x["row_src"], ref["row_src"]) and
+                        np.array_equal(x["mask"], ref["mask"]) for x in sm)
+        err = (max(float(np.abs(x["x"] - ref["x"]).max()) for x in sm)
+               if same_rows else float("inf"))
+        m = ref["mask"] > 0.5
+        same_types = same_rows and all(np.array_equal(
+            x["h"].argmax(-1)[m], ref["h"].argmax(-1)[m]) for x in sm)
+        log(f"[dp] (c) guided SPSA + ATP, pocket {DP_POCKET}, B={N_SAMPLES}, "
+            f"T={DP_T} fixed noise: surviving rows {sm[0]['row_src'].tolist()}"
+            f" (one process {ref['row_src'].tolist()}); max |x_dp - x_one| "
+            f"= {err:.3e} A (atol {PATH_COORD_ATOL}); atom types identical: "
+            f"{same_types}; forwards per rank {[x['forwards'] for x in sm]} "
+            f"(count_forwards {forwards}, one process {ref['forwards']}); "
+            f"launches per rank {[x['launches'] for x in sm]}; rows scored "
+            f"per rank {[x['scored'] for x in sm]} (one process "
+            f"{ref['scored']}); seconds per rank "
+            f"{[round(x['seconds'], 2) for x in sm]} (one process "
+            f"{ref['seconds']:.2f})")
+        want = {"gcl_messages": 5 * forwards,
+                "edge_vector_reduce": 5 * forwards}
+        if not (same_rows and same_types and err <= PATH_COORD_ATOL
+                and all(np.isfinite(x["x"]).all() for x in sm)
+                and all(x["forwards"] == forwards for x in sm)
+                and ref["forwards"] == forwards
+                and all(x["launches"] == want for x in sm)):
+            raise AssertionError(f"[dp] (c) data-parallel guided sampling "
+                                 f"over {backend} disagrees with one process")
+        out["runs"][backend] = dict(
+            wall_s=wall, devices=devices,
+            train_launches=tr[0]["launches"], train_ms=[t["ms"] for t in tr],
+            sample_launches=sm[0]["launches"],
+            sample_s=[x["seconds"] for x in sm], loss_rel=loss_rel,
+            param_share=param_share, coord_err=err)
+    if any(v == 0 for r in out["runs"].values()
+           for v in (*r["train_launches"].values(),
+                     *r["sample_launches"].values())):
+        raise AssertionError("[dp] a kernel was not launched on a rank")
+    log(f"[dp] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -4572,7 +4906,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
                                            "train", "vina", "joint",
-                                           "variants", "etl", "modes"],
+                                           "variants", "etl", "modes",
+                                           "dp", "workers"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
@@ -4581,8 +4916,10 @@ def main() -> int:
                         "optimize-vina and dock phases alone, run the "
                         "kernel checks and the joint, joint-train and "
                         "configs phases alone, run the variants phase "
-                        "alone, run the etl phase alone, or run the modes "
-                        "phase alone")
+                        "alone, run the etl phase alone, run the modes "
+                        "phase alone, run the data-parallel phase alone, or "
+                        "time a guided batch with the oracle's workers and "
+                        "with one")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4688,6 +5025,18 @@ def main() -> int:
         modes_phase(torch, K, make_model, pockets[0], sizes[0], ds)
         log("[modes] done (--only modes: no result)")
         return 0
+    if opts.only == "dp":
+        train_ds, batches = train_batches(torch, model.device)
+        with tempfile.TemporaryDirectory() as tmp:
+            dp_phase(torch, K, model, pockets[0], sizes[0], train_ds,
+                     batches, tmp)
+        log("[dp] done (--only dp: no result)")
+        return 0
+    if opts.only == "workers":
+        guided_workers_phase(torch, make_model, guided_cfg, pockets[0],
+                             sizes[0], oracle_workers())
+        log("[guided] workers done (--only workers: no result)")
+        return 0
     results = kernel_phase(torch, K, model, pockets[0], sizes[0])
     train_ds, batches = train_batches(torch, model.device)
     bwd_results = backward_phase(torch, K, batches,
@@ -4725,9 +5074,7 @@ def main() -> int:
         torch, K, guided, pockets, sizes)
     fanout = fanout_phase(torch, K, calls)
     del calls
-    n_workers = oracle_phase(guided, population)
-    guided_workers_phase(torch, make_model, guided_cfg, pockets[0], sizes[0],
-                         n_workers)
+    oracle_phase(guided, population)
     quality = quality_phase(torch, ds, {"unguided": model, "guided": guided})
     step_phase(torch, K, model, pockets[0], sizes[0])
     del guided
@@ -4766,6 +5113,10 @@ def main() -> int:
         etl = etl_phase(torch, K, tmp)
     modes = modes_phase(torch, K, make_model, pockets[0], sizes[0], ds,
                         quality)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = dp_phase(torch, K, model, pockets[0], sizes[0], train_ds,
+                      batches, tmp)
+    dp_ranks = dp["runs"]["gloo"]
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -4810,6 +5161,10 @@ def main() -> int:
                             for label, res in variants.items()},
                   etl_train_launches=etl["launches"][name],
                   etl_sample_launches=etl["sample_launches"][name],
+                  dp_cli_launches=(dp["cli"]["launches"] or {}).get(name),
+                  dp_train_launches_per_rank=dp_ranks["train_launches"][name],
+                  dp_sample_launches_per_rank=dp_ranks["sample_launches"][
+                      name],
                   configs={cfg: {k: checks[name][k] for k in (
                       *CALL_KEYS, "joint_first") if k in checks[name]}
                            for cfg, checks in config_checks.items()})
@@ -4835,6 +5190,8 @@ def main() -> int:
             joint_train_launches=joint_train_launches[name],
             variants_train_launches=variant_train_launches[name],
             etl_train_launches=etl["launches"][name],
+            dp_cli_launches=(dp["cli"]["launches"] or {}).get(name),
+            dp_train_launches_per_rank=dp_ranks["train_launches"][name],
             joint_train={c: joint_train[name][c] for c in (
                 "shape", "max_abs_err", "tolerance_share", "ms", "plain_ms",
                 "bound_ms", "bound_by", "blocks")}))

@@ -16,13 +16,29 @@ package's ``cli/train.py``), on the GPU unless ``--device cpu``.
   scored by the chemistry dashboard, all in ``metrics.jsonl``; ``best``
   (lowest validation loss) and ``last`` checkpoints (``.npz``) and the
   run's ``hparams.yaml`` go to ``<logdir>/<run_name>``.
+
+Data parallelism, as the JAX CLI trains over ``make_mesh()`` of every
+local device: with ``--device cuda`` and more than one visible card it
+runs one process per card (``CUDA_VISIBLE_DEVICES`` narrows the set)
+over NCCL, the kernels built once before the ranks start; started by
+``torchrun`` it joins the group torchrun describes (NCCL on the cards,
+gloo with ``--device cpu``).  Every rank iterates the same loader order
+and the trainer pads and splits each global batch (``Trainer(...,
+group=...)``).  Rank 0 alone writes the run's files and samples the
+dashboard while the other ranks wait.  On one card it is one process, as
+before.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
+
+# how long a rank waits in a collective (the others may be sampling the
+# dashboard or writing checkpoints meanwhile)
+COLLECTIVE_TIMEOUT = 3600.0
 
 
 def merge_resume_hparams(raw: dict, resume: str) -> dict:
@@ -91,8 +107,46 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     p = parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
 
+    import torch
+
+    from diffndm_tpu_torch.device import resolve_device
+    from diffndm_tpu_torch.parallel import mesh
+
+    device = resolve_device(args.device)
+    if mesh.launched_by_torchrun():
+        group = mesh.init_data_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            timeout=COLLECTIVE_TIMEOUT)
+        try:
+            return run(args, group.device, group, p.error)
+        finally:
+            mesh.close(group)
+    world = (torch.cuda.device_count()
+             if device.type == "cuda" and device.index is None else 1)
+    if world == 1:
+        return run(args, device, None, p.error)
+    from diffndm_tpu_torch.ops import egnn_kernels as K
+
+    K.build_library()
+    K.build_library(source=K.BWD_SOURCE)
+    print(f"[train] data-parallel over {world} cards (NCCL)")
+    return mesh.spawn(_train_rank, world, "nccl", args=(argv,),
+                      timeout=None,
+                      collective_timeout=COLLECTIVE_TIMEOUT)[0]
+
+
+def _train_rank(group, argv) -> dict:
+    """One rank of a run ``main`` spawned."""
+    p = parser()
+    return run(p.parse_args(argv), group.device, group, p.error)
+
+
+def run(args, device, group, error) -> dict:
+    """The training run of one process: the whole run, or a rank's part
+    of a data-parallel one (``group``)."""
     import numpy as np
     import torch
 
@@ -104,36 +158,45 @@ def main(argv=None) -> dict:
                                                 ProcessedLigandPocketDataset)
     from diffndm_tpu_torch.device import resolve_device
     from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.parallel import mesh
     from diffndm_tpu_torch.train.eval_dashboard import ChemistryDashboard
     from diffndm_tpu_torch.train.metrics_logger import MetricsLogger
     from diffndm_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    device = resolve_device(device)     # also in a spawned rank
+    lead = group is None or group.rank == 0
+    if group is not None and device.type == "cuda":
+        # one build for the group (a cached build is found at once)
+        if lead:
+            from diffndm_tpu_torch.ops import egnn_kernels as K
+
+            K.build_library()
+            K.build_library(source=K.BWD_SOURCE)
+        mesh.barrier(group)
     raw = load_yaml(args.config)
     if args.resume:
         raw = merge_resume_hparams(raw, args.resume)
-    apply_overrides(raw, args.overrides, p.error)
+    apply_overrides(raw, args.overrides, error)
     mcfg = model_config_from_yaml(raw)
     tcfg = train_config_from_yaml(raw)
     datadir = raw["datadir"]
     outdir = os.path.join(raw.get("logdir", "runs"),
                           raw.get("run_name", "run"))
-    os.makedirs(outdir, exist_ok=True)
-    with open(os.path.join(outdir, "hparams.yaml"), "w") as f:
-        f.write(dump_yaml(raw))
-    logger = MetricsLogger(outdir)
+    if lead:
+        os.makedirs(outdir, exist_ok=True)
+        with open(os.path.join(outdir, "hparams.yaml"), "w") as f:
+            f.write(dump_yaml(raw))
+        logger = MetricsLogger(outdir)
 
     hist_path = os.path.join(datadir, "size_distribution.npy")
     hist = np.load(hist_path) if os.path.exists(hist_path) else None
     model = DiffNDM(mcfg, size_histogram=hist, device=device)
-    # the eval samples from a second model that holds the EMA weights
-    eval_model = DiffNDM(mcfg, size_histogram=hist, device=device)
     di = dataset_params[mcfg.dataset]
     generator = torch.Generator(device=device).manual_seed(tcfg.seed)
     # a learned schedule's gamma network trains with the dynamics (VLB)
     trainer = Trainer(model.core, model.dynamics, tcfg,
                       lj_rm=di["lennard_jones_rm"], generator=generator,
-                      gamma=model.gamma)
+                      gamma=model.gamma, group=group)
     if args.resume:
         trainer.load_checkpoint(args.resume)
 
@@ -149,10 +212,13 @@ def main(argv=None) -> dict:
     train_smiles = (np.load(smiles_path, allow_pickle=True).tolist()
                     if os.path.exists(smiles_path) else None)
     eval_params = raw.get("eval_params") or {}
-    dashboard = ChemistryDashboard(
-        di, os.path.join(outdir, "eval"), train_smiles=train_smiles,
-        n_visualize=int(eval_params.get("n_visualize_samples", 0)),
-        receptor_pdb=eval_params.get("receptor_pdb"))
+    if lead:
+        # the eval samples from a second model that holds the EMA weights
+        eval_model = DiffNDM(mcfg, size_histogram=hist, device=device)
+        dashboard = ChemistryDashboard(
+            di, os.path.join(outdir, "eval"), train_smiles=train_smiles,
+            n_visualize=int(eval_params.get("n_visualize_samples", 0)),
+            receptor_pdb=eval_params.get("receptor_pdb"))
 
     step, best_val, n_evals = 0, float("inf"), 0
     train_losses, val_losses = [], []
@@ -169,10 +235,11 @@ def main(argv=None) -> dict:
                 stop = True
                 break
         train_losses.extend(losses)
-        logger.log({"loss": float(np.mean(losses)),
-                    "grad_norm": info.get("grad_norm", 0.0),
-                    "epoch_seconds": time.time() - t0,
-                    "steps": len(losses)}, step, epoch, "train")
+        if lead:
+            logger.log({"loss": float(np.mean(losses)),
+                        "grad_norm": info.get("grad_norm", 0.0),
+                        "epoch_seconds": time.time() - t0,
+                        "steps": len(losses)}, step, epoch, "train")
         if val_ds is not None and (epoch + 1) % tcfg.eval_epochs == 0:
             val_loader = BucketedLoader(val_ds, tcfg.batch_size,
                                         shuffle=False,
@@ -185,7 +252,7 @@ def main(argv=None) -> dict:
             v = float(np.mean(vl))
             val_losses.append(v)
             metrics = {"loss": v}
-            if first_pocket is not None:
+            if first_pocket is not None and lead:
                 # sample from the EMA weights (the raw ones without EMA),
                 # a learned schedule's included
                 eval_model.set_params(trainer.ema_state_dict(),
@@ -193,19 +260,27 @@ def main(argv=None) -> dict:
                 metrics.update(dashboard.sample_and_analyze(
                     eval_model, first_pocket.to(device), epoch=epoch,
                     dump_sdf=True, seed=tcfg.seed + n_evals))
-                n_evals += 1
-            logger.log(metrics, step, epoch, "val")
+            n_evals += first_pocket is not None
+            if lead:
+                logger.log(metrics, step, epoch, "val")
+            if group is not None:
+                mesh.barrier(group)     # the others wait for the dashboard
             if v < best_val:
                 best_val = v
                 trainer.save_checkpoint(os.path.join(outdir, "best.npz"))
         trainer.save_checkpoint(os.path.join(outdir, "last.npz"))
-        if args.max_seconds and time.time() - t_start > args.max_seconds:
+        over = bool(args.max_seconds
+                    and time.time() - t_start > args.max_seconds)
+        if group is not None:
+            over = mesh.rank0_flag(group, over)     # rank 0's clock decides
+        if over:
             print(f"[train] wall-clock budget reached ({args.max_seconds}s);"
                   f" stopping")
             stop = True
         if stop:
             break
-    logger.close()
+    if lead:
+        logger.close()
     print("training done")
     return {"steps": step, "train_losses": train_losses,
             "val_losses": val_losses, "best_val": best_val,

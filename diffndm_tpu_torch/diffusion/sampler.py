@@ -7,7 +7,17 @@ integer step index.
 RL: with an AdjustNet (``adjust``) its output is added to eps at every
 reverse step (and at the prunes' branch steps); with ``collect_rl`` the
 loop also stacks each step's (z_t, eps) for the REINFORCE update
-``rl_update`` makes after decoding."""
+``rl_update`` makes after decoding.
+
+Data-parallel (``group``, the JAX sampler's mesh): every rank passes the
+global pocket batch and samples its own contiguous rows; the noise is
+taken at the global shape (from ``SamplerNoise`` or, in the same order,
+from the generator) and sliced, so the ranks together compute what one
+process computes on the whole batch.  SPSA is per row and stays local;
+ATP's selection crosses the ranks (``guidance.atp``); the result is the
+whole batch, all-gathered.  Every rank makes the forwards
+``count_forwards`` counts.  The REINFORCE update stays single-process, as
+the JAX package's CLIs pass no mesh."""
 
 from __future__ import annotations
 
@@ -23,7 +33,12 @@ from diffndm_tpu_torch.guidance.atp import atp_prune, hybrid_spsa_prune
 from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.guidance.spsa import spsa_update
 from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
+from diffndm_tpu_torch.parallel.mesh import (DataGroup, all_gather_rows,
+                                             all_reduce_flat, shard_rows)
 from diffndm_tpu_torch.structs import NodeBatch, pad_to
+
+# the batch axis of each SamplerNoise table (of one step's entry)
+_NOISE_BATCH_AXIS = dict(init=0, steps=0, decode=0, atp=1, spsa=1)
 
 
 class SampleResult(NamedTuple):
@@ -86,15 +101,18 @@ def count_forwards(cfg: SampleConfig, timesteps: int) -> int:
 
 class ConditionalSampler:
     def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
-                 cfg: SampleConfig, oracle: Optional[RewardOracle] = None):
+                 cfg: SampleConfig, oracle: Optional[RewardOracle] = None,
+                 group: Optional[DataGroup] = None):
         """oracle: the reward oracle; needed when ``cfg`` enables
-        guidance, and by ``rl_update``."""
+        guidance, and by ``rl_update``.  group: sample data-parallel over
+        its ranks (the batch must split evenly over them)."""
         if (cfg.spsa.enabled or cfg.atp.enabled) and oracle is None:
             raise ValueError("guided sampling needs a reward oracle")
         self.core = core
         self.dynamics = dynamics
         self.cfg = cfg
         self.oracle = oracle
+        self.group = group
 
     def ligand_mask(self, num_nodes_lig, device) -> torch.Tensor:
         """[B, NL] mask; NL is the largest size rounded up to
@@ -131,21 +149,61 @@ class ConditionalSampler:
 
     def _sample(self, pocket: NodeBatch, num_nodes_lig, timesteps: int,
                 generator, noise, adjust, collect_rl) -> SampleResult:
-        core = self.core
+        core, group = self.core, self.group
         device = pocket.x.device
-        b = pocket.x.shape[0]
         lig_mask = self.ligand_mask(num_nodes_lig, device)
+        pocket_all = pocket
+        if group is not None:
+            if collect_rl:
+                raise ValueError("the REINFORCE update is single-process: "
+                                 "collect_rl needs a sampler without a "
+                                 "group")
+            rows = group.rows(pocket.x.shape[0])
+            pocket, lig_mask = shard_rows((pocket, lig_mask), group.rank,
+                                          group.world)
+        b = pocket.x.shape[0]
         pocket_mask = pocket.mask
+        feat = (lig_mask.shape[1], core.n_dims + core.atom_nf)
+        g_extra, k = self.cfg.atp.num_groups - 1, self.cfg.spsa.num_probes
+
+        def drawn(name):
+            """Under the group: the generator's draws of an event at the
+            global shape, in the order one process draws them, and this
+            rank's rows of them."""
+            bg = b * group.world
+
+            def draw(shape, axis):
+                return torch.randn(shape, generator=generator,
+                                   device=device).narrow(axis, rows.start, b)
+
+            if name in ("init", "steps", "decode"):
+                return draw((bg,) + feat, 0)
+            if name == "spsa":
+                return draw((k, bg, feat[0], core.n_dims), 1)
+            if g_extra == 0:
+                return None
+            if name == "atp":
+                return draw((g_extra, bg) + feat, 1)
+            branch = draw((g_extra, bg) + feat, 1)
+            return branch, torch.stack([
+                draw((k, bg, feat[0], core.n_dims), 1)
+                for _ in range(g_extra)])
 
         def fixed(name, s=None):
-            """The fixed noise of an event, or None where it is drawn."""
+            """The fixed noise of an event (this rank's rows of it under
+            the group), or None where it is drawn."""
             if noise is None:
-                return None
+                return None if group is None else drawn(name)
             table = getattr(noise, name)
             if table is None:
                 raise ValueError(f"SamplerNoise.{name} is missing, and the "
                                  f"event fires at step {s}")
-            return table if s is None else table[s]
+            value = table if s is None else table[s]
+            if group is None:
+                return value
+            if name == "hybrid":
+                return value[0][:, rows], value[1][:, :, rows]
+            return value.narrow(_NOISE_BATCH_AXIS[name], rows.start, b)
 
         nx, nh = core.cfg.norm_values
         bh = core.cfg.norm_biases[1]
@@ -161,8 +219,9 @@ class ConditionalSampler:
 
         cfg, oracle = self.cfg, self.oracle
         events = guidance_events(cfg, timesteps)
-        pocket_mask0 = pocket_mask
         row_src = torch.arange(b, device=device)
+        if group is not None:
+            row_src = row_src + rows.start
         lp_sum = z_lig.new_zeros(())
         traj = ((z_lig.new_empty((timesteps,) + z_lig.shape),
                  z_lig.new_empty((timesteps,) + z_lig.shape))
@@ -187,8 +246,9 @@ class ConditionalSampler:
                     core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
                     pocket_mask, s_norm, t_norm, s, cfg.atp,
                     noise=fixed("atp", s), generator=generator,
-                    noise_scale=cfg.noise_scale, adjust_fn=adjust)
-                row_src = row_src[sel % b]
+                    noise_scale=cfg.noise_scale, adjust_fn=adjust,
+                    group=group)
+                row_src = self._origin(row_src, sel, b)
 
             if s in events["spsa"]:
                 # float32 arithmetic, as the latents are
@@ -207,8 +267,8 @@ class ConditionalSampler:
                         pocket_mask, s_norm, t_norm, s, cfg.atp, cfg.spsa,
                         zeta, noise=branch, spsa_noise=probes,
                         generator=generator, noise_scale=cfg.noise_scale,
-                        adjust_fn=adjust)
-                    row_src = row_src[sel % b]
+                        adjust_fn=adjust, group=group)
+                    row_src = self._origin(row_src, sel, b)
 
         x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
             z_lig, xh_pocket, lig_mask, pocket_mask, self._eps,
@@ -218,18 +278,35 @@ class ConditionalSampler:
         # original pocket frame
         x_lig, x_pocket = remove_mean_ligand(x_lig, x_pocket, lig_mask,
                                              pocket_mask)
-        com_before = masked_mean(pocket.x, pocket_mask0, dim=1,
+        com_before = masked_mean(pocket_all.x, pocket_all.mask, dim=1,
                                  keepdim=True)[row_src]
         com_after = masked_mean(x_pocket, pocket_mask, dim=1, keepdim=True)
         shift = com_before - com_after
         x_lig = (x_lig + shift) * lig_mask[..., None]
         x_pocket = (x_pocket + shift) * pocket_mask[..., None]
-        return SampleResult(ligand=NodeBatch(x_lig, h_lig, lig_mask),
-                            pocket=NodeBatch(x_pocket, h_pocket,
-                                             pocket_mask),
-                            row_src=row_src,
+        out = (x_lig, h_lig, lig_mask, x_pocket, h_pocket, pocket_mask,
+               row_src)
+        if group is not None:
+            out = tuple(all_gather_rows(group, t) for t in out)
+            if adjust is not None:
+                # each rank's log-prob is a mean over its rows
+                lp_sum = all_reduce_flat(group, [lp_sum])[0] / group.world
+        return SampleResult(ligand=NodeBatch(*out[:3]),
+                            pocket=NodeBatch(*out[3:6]), row_src=out[6],
                             avg_log_prob=lp_sum / max(timesteps, 1),
                             rl_traj=traj)
+
+    def _origin(self, row_src, sel, b: int) -> torch.Tensor:
+        """The input rows of the rows a prune selected: ``sel`` indexes
+        the G*B candidates (global under the group; ``b`` is this rank's
+        rows)."""
+        group = self.group
+        if group is None:
+            return row_src[sel % b]
+        bg = b * group.world
+        if self.cfg.atp.per_sample:     # every row keeps its own candidate
+            return row_src[sel % bg - group.rank * b]
+        return all_gather_rows(group, row_src)[sel % bg]
 
     def rl_update(self, adjust_state, result: SampleResult):
         """The REINFORCE update of the AdjustNet after a generation with

@@ -18,6 +18,17 @@ The G-1 branches run as one denoiser forward of (G-1)*B rows and the G
 lookaheads as one of G*B rows: row by row the same arithmetic as one
 forward per group, in fewer launches.  An RL adjustment (``adjust_fn``)
 applies to the branch steps, not to the lookaheads or the SPSA probes.
+
+Data-parallel (``group``, the JAX sampler's mesh): each rank holds its
+rows of the population and makes their branches, lookaheads and rewards.
+The global and ``group_size`` scopes select across ranks, as JAX's one
+``lax.top_k`` over the sharded G*B rewards does: the mixed rewards are
+all-gathered into JAX's G-major [G*B] layout, every rank runs the same
+selection on all of them, then takes its selected rows from the
+all-gathered candidates, z, xh and masks (a ``group_size`` group may
+straddle two ranks).  ``per_sample`` keeps each row's own candidates and
+stays local.  The selection then returns, for this rank's rows, indices
+into the global G*B candidates.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from diffndm_tpu_torch.diffusion.core import CondDiffusion
 from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.guidance.spsa import spsa_update
 from diffndm_tpu_torch.ops.segment import remove_mean_ligand
+from diffndm_tpu_torch.parallel.mesh import DataGroup, all_gather_rows
 
 
 def _top(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -102,7 +114,8 @@ def _branches(core, eps_fn, z_lig, xh_pocket, lig_mask, pocket_mask, s_norm,
 
 
 def _score_and_select(core, eps_fn, oracle, z_groups, xh_groups, lig_mask,
-                      pocket_mask, t_norm, s_step: int, cfg: ATPConfig):
+                      pocket_mask, t_norm, s_step: int, cfg: ATPConfig,
+                      group: Optional[DataGroup] = None):
     """Lookahead, both rewards, the mixed weighting, selection, gather."""
     g, b = z_groups.shape[:2]
     nd = core.n_dims
@@ -123,29 +136,58 @@ def _score_and_select(core, eps_fn, oracle, z_groups, xh_groups, lig_mask,
     else:
         w_z = (denom - s_f) / denom
     mixed = r_x0 * float(s_f / denom) + r_z * float(w_z)
+    if group is not None and not cfg.per_sample:
+        return _select_across(group, mixed, z_groups, xh_groups, lig_mask,
+                              pocket_mask, cfg, core)
     sel_idx = select_candidates(mixed, cfg, b)
-    return gather_selected(sel_idx, z_flat, xh_flat, lig_mask, pocket_mask,
-                           core) + (sel_idx,)
+    out = gather_selected(sel_idx, z_flat, xh_flat, lig_mask, pocket_mask,
+                          core)
+    if group is not None:
+        # per_sample: the rows' own candidates, named in the global G*B
+        bg = b * group.world
+        sel_idx = (sel_idx // b) * bg + group.rank * b + sel_idx % b
+    return out + (sel_idx,)
+
+
+def _select_across(group: DataGroup, mixed, z_groups, xh_groups, lig_mask,
+                   pocket_mask, cfg: ATPConfig, core: CondDiffusion):
+    """The global or per-group selection over every rank's candidates:
+    returns this rank's rows as ``_score_and_select`` does, with indices
+    into the global G*B."""
+    g, b = z_groups.shape[:2]
+    bg = b * group.world
+    mixed = all_gather_rows(group, mixed.reshape(g, b), dim=1).reshape(g * bg)
+    sel_idx = select_candidates(mixed, cfg, bg)[group.rows(bg)]
+    z_all = all_gather_rows(group, z_groups, dim=1)
+    xh_all = all_gather_rows(group, xh_groups, dim=1)
+    out = gather_selected(
+        sel_idx, z_all.reshape((g * bg,) + z_all.shape[2:]),
+        xh_all.reshape((g * bg,) + xh_all.shape[2:]),
+        all_gather_rows(group, lig_mask), all_gather_rows(group, pocket_mask),
+        core)
+    return out + (sel_idx,)
 
 
 def atp_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle, z_lig,
               xh_pocket, lig_mask, pocket_mask, s_norm, t_norm, s_step: int,
               cfg: ATPConfig, noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              noise_scale: float = 1.0, adjust_fn=None):
+              noise_scale: float = 1.0, adjust_fn=None,
+              group: Optional[DataGroup] = None):
     """One pruning event.  z_lig: [B, NL, D]; s_norm, t_norm: [B]; noise:
     the branches' step noise [G-1, B, NL, D], else drawn from
-    ``generator``; adjust_fn: the RL adjustment of the branch steps.
+    ``generator``; adjust_fn: the RL adjustment of the branch steps;
+    group: select across its ranks (z_lig etc. are this rank's rows).
     Returns (z_lig, xh_pocket, lig_mask, pocket_mask,
     sel_idx): the masks replace the caller's, and sel_idx % B is each
-    output row's origin row."""
+    output row's origin row (B the global batch under a group)."""
     zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
                         pocket_mask, s_norm, t_norm, cfg.num_groups - 1,
                         noise, generator, noise_scale, adjust_fn)
     return _score_and_select(
         core, eps_fn, oracle, torch.cat([z_lig[None], zb]),
         torch.cat([xh_pocket[None], xhb]), lig_mask, pocket_mask, t_norm,
-        s_step, cfg)
+        s_step, cfg, group)
 
 
 def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
@@ -155,13 +197,16 @@ def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
                       noise: Optional[torch.Tensor] = None,
                       spsa_noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      noise_scale: float = 1.0, adjust_fn=None):
+                      noise_scale: float = 1.0, adjust_fn=None,
+                      group: Optional[DataGroup] = None):
     """The one-off hybrid event at s == spsa.start_step: G-1 extra branches
     are sampled, each gets its own SPSA update, then the G-group ensemble
     is scored and pruned like ``atp_prune``.  Branches with index >= 2 use
     zeta = zeta0, not ``zeta`` (the reference implementation's multi-scale
     quirk).  noise: [G-1, B, NL, D]; spsa_noise: [G-1, k, B, NL, 3];
-    adjust_fn: the RL adjustment of the branch steps."""
+    adjust_fn: the RL adjustment of the branch steps; group: as in
+    ``atp_prune`` (each branch's SPSA update is per row and stays
+    local)."""
     g_extra = atp_cfg.num_groups - 1
     zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
                         pocket_mask, s_norm, t_norm, g_extra, noise,
@@ -175,4 +220,4 @@ def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
         core, eps_fn, oracle,
         torch.cat([z_lig[None]] + [u[0][None] for u in updated]),
         torch.cat([xh_pocket[None]] + [u[1][None] for u in updated]),
-        lig_mask, pocket_mask, t_norm, s_step, atp_cfg)
+        lig_mask, pocket_mask, t_norm, s_step, atp_cfg, group)

@@ -17,6 +17,13 @@ explicit choice: ``"native"`` (one C++ call per batch, ``chem/native.py``) or
 ``"python"`` (this package's chem stack); both return the same float32
 rewards bit for bit, with any number of workers.
 
+Data-parallel sampling needs nothing here like the JAX oracle's
+``result_mesh``.  There the rewards come back from one host callback
+pinned to device 0, and ``result_mesh`` replicates them over the mesh.
+Here each rank scores its own rows with its own oracle on its host, and
+what crosses ranks (ATP's mixed rewards) is all-gathered by the selection
+itself (``guidance.atp``).
+
 This module imports torch only where a method takes tensors, so that the
 spawned workers of the Python scorer load the chem stack alone.
 """

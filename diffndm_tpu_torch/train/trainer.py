@@ -1,7 +1,8 @@
 """Training loop: AdamW with amsgrad, the adaptive gradient clip,
 gradient accumulation, an EMA of the weights, ``.npz`` checkpoints.
 
-The JAX package's ``train/trainer.py`` on one device, step for step:
+The JAX package's ``train/trainer.py``, step for step, on one device or
+data-parallel over a ``parallel.DataGroup``:
 
 - the update is optax's ``chain(scale_by_amsgrad(), add_decayed_weights(
   weight_decay), scale_by_learning_rate(lr))``, written out here because
@@ -22,6 +23,19 @@ clip, the update and the EMA).
 With a learned noise schedule the trainer also trains its gamma network
 (``gamma``), as the JAX trainer trains the tree ``{"dynamics", "gamma"}``:
 one optimizer, one clip over the global norm of both, one EMA over both.
+
+Under a group (the JAX trainer's mesh), ``train_step`` and ``eval_step``
+take the global batch: it is repeat-padded to a multiple of the ranks as
+JAX pads it, the draws (t and the noise) are made for the whole padded
+batch, alike on every rank, and each rank takes its rows.  A rank's loss
+is the sum of its rows' NLL over the global batch size; its gradients are
+summed over the ranks in one flat all-reduce per micro-step (with the
+loss and the ``info`` entries, which come back as JAX's global means), so
+the clip, the optimizer and the EMA run on the same bits on every rank.
+The parameters are rank 0's from the start (broadcast at construction and
+by ``load_checkpoint``), and only rank 0 writes checkpoints.  The
+``DistributedDataParallel`` wrapper would not do: its hooks do not see
+``torch.autograd.grad``.
 
 Checkpoints are ``.npz`` files with the JAX tree's flat key names
 (``params/...``, ``ema_params/...``, ``step``; with a gamma network
@@ -44,9 +58,12 @@ from diffndm_tpu_torch.convert import (gamma_params_from_jax,
                                        params_from_jax, params_to_jax,
                                        split_trees)
 from diffndm_tpu_torch.diffusion.core import CondDiffusion
+from diffndm_tpu_torch.parallel.mesh import (DataGroup, all_reduce_flat,
+                                             pad_rows, replicate, shard_rows)
 from diffndm_tpu_torch.structs import NodeBatch
 from diffndm_tpu_torch.train.losses import (assemble_loss,
-                                            conditional_loss_terms)
+                                            conditional_loss_terms,
+                                            draw_timesteps)
 from diffndm_tpu_torch.utils.profiling import annotate
 
 QUEUE_LEN = 50          # accepted gradient norms the clip looks back on
@@ -103,13 +120,17 @@ class Trainer:
     its parameters lie on, and with it ``gamma``, the ``GammaNetwork`` of
     a learned schedule (the one ``core.schedule`` evaluates), when given.
     ``names`` / ``params`` are the dynamics', ``gamma_names`` /
-    ``gamma_params`` the gamma network's (empty without one)."""
+    ``gamma_params`` the gamma network's (empty without one).
+    ``group``: train data-parallel over its ranks, each holding a copy of
+    the model on ``group.device``."""
 
     def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
                  cfg: TrainConfig, lj_rm: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None,
-                 gamma: Optional[torch.nn.Module] = None):
+                 gamma: Optional[torch.nn.Module] = None,
+                 group: Optional[DataGroup] = None):
         self.core = core
+        self.group = group
         self.module = dynamics
         self.gamma = gamma
         self.cfg = cfg
@@ -123,6 +144,8 @@ class Trainer:
                       torch.as_tensor(lj_rm, dtype=torch.float32,
                                       device=self.device))
         self.generator = generator
+        if group is not None:
+            replicate(group, self.trained)
         self.opt = AmsgradState(self.trained, cfg)
         self.step = 0
         self.gradnorm_buf = torch.full((QUEUE_LEN,), QUEUE_FLUSH,
@@ -138,7 +161,9 @@ class Trainer:
 
     # -----------------------------------------------------------------
     def _loss(self, ligand: NodeBatch, pocket: NodeBatch, training: bool,
-              t_int=None, noise=None, noise0=None):
+              t_int=None, noise=None, noise0=None, global_b=None):
+        """The mean NLL and the info means; with ``global_b`` (a rank's
+        rows of a global batch) the sums over these rows divided by it."""
         def eps_fn(z_lig, xh_pocket, t, lm, pm):
             return self.module(z_lig, xh_pocket, t, lm, pm)
 
@@ -147,7 +172,40 @@ class Trainer:
                                        self.generator)
         nll, info = assemble_loss(terms, self.core, ligand, pocket,
                                   self.cfg, training, self.lj_rm)
-        return nll.mean(), info
+        if global_b is None:
+            return nll.mean(), info
+        share = nll.shape[0] / global_b
+        return nll.sum() / global_b, {k: v * share for k, v in info.items()}
+
+    def _rank_rows(self, ligand: NodeBatch, pocket: NodeBatch,
+                   training: bool, draws):
+        """Under the group: the padded global batch, the draws made for
+        all of it (those not given, in the order the loss draws them), and
+        this rank's rows of both.  Returns (ligand, pocket, draws, global
+        rows)."""
+        group = self.group
+        ligand, pocket = pad_rows(ligand, pocket, group.world)
+        b, nl = ligand.x.shape[:2]
+        draws = list(draws)
+        if draws[0] is None:
+            draws[0] = draw_timesteps(b, self.core.schedule.timesteps,
+                                      training, self.generator, self.device)
+        for i in range(1, len(draws)):
+            if draws[i] is None:
+                draws[i] = torch.randn(
+                    (b, nl, 3 + ligand.h.shape[-1]),
+                    generator=self.generator, device=self.device)
+        draws = [torch.as_tensor(d).to(self.device) for d in draws]
+        return (*shard_rows((ligand, pocket, draws), group.rank,
+                            group.world), b)
+
+    def _reduce(self, tensors, loss, info):
+        """The sums over the ranks of ``tensors``, the loss and the info
+        values, in one all-reduce; returns (tensors, loss, info)."""
+        keys, n = list(info), len(tensors)
+        out = all_reduce_flat(self.group, [*tensors, loss.detach(), *(
+            info[k].detach().float() for k in keys)])
+        return out[:n], out[n], dict(zip(keys, out[n + 1:]))
 
     def _clip(self, grads, gnorm: torch.Tensor) -> torch.Tensor:
         """Scale grads in place by the adaptive clip; returns the
@@ -166,18 +224,28 @@ class Trainer:
 
     def train_step(self, ligand: NodeBatch, pocket: NodeBatch, t_int=None,
                    noise=None) -> Tuple[float, Dict[str, float]]:
-        """One micro-step; draws what is not given from the generator."""
+        """One micro-step; draws what is not given from the generator.
+        Under a group: the global batch, and draws (when given) for the
+        padded global batch."""
         ligand, pocket = ligand.to(self.device), pocket.to(self.device)
+        global_b = None
+        if self.group is not None:
+            ligand, pocket, (t_int, noise), global_b = self._rank_rows(
+                ligand, pocket, True, (t_int, noise))
         self.module.train()
         with torch.enable_grad():
             with annotate("forward"):
-                loss, info = self._loss(ligand, pocket, True, t_int, noise)
+                loss, info = self._loss(ligand, pocket, True, t_int, noise,
+                                        global_b=global_b)
             # parameters the loss does not reach (the pocket's decoder in
             # the conditional model) get a zero gradient, as in JAX
             with annotate("backward"):
                 grads = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(self.trained, torch.autograd.grad(
                              loss, self.trained, allow_unused=True))]
+        if self.group is not None:
+            with annotate("all_reduce"):
+                grads, loss, info = self._reduce(grads, loss, info)
         with torch.no_grad(), annotate("optimizer"):
             gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
             info["grad_norm"] = gnorm
@@ -203,10 +271,18 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, ligand: NodeBatch, pocket: NodeBatch, t_int=None,
                   noise=None, noise0=None) -> Tuple[float, Dict[str, float]]:
-        """The VLB loss with the current (raw) parameters."""
+        """The VLB loss with the current (raw) parameters; under a group
+        as ``train_step`` takes its batch and draws."""
         ligand, pocket = ligand.to(self.device), pocket.to(self.device)
+        global_b = None
+        if self.group is not None:
+            ligand, pocket, (t_int, noise, noise0), global_b = \
+                self._rank_rows(ligand, pocket, False, (t_int, noise, noise0))
         self.module.eval()
-        loss, info = self._loss(ligand, pocket, False, t_int, noise, noise0)
+        loss, info = self._loss(ligand, pocket, False, t_int, noise, noise0,
+                                global_b=global_b)
+        if self.group is not None:
+            _, loss, info = self._reduce([], loss, info)
         return float(loss), {k: float(v) for k, v in info.items()}
 
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
@@ -220,7 +296,10 @@ class Trainer:
     # -- checkpoints ----------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """``path`` (``.npz`` appended if missing): params, step and, with
-        an EMA, ema_params, under the JAX tree's flat names."""
+        an EMA, ema_params, under the JAX tree's flat names.  Under a
+        group only rank 0 writes."""
+        if self.group is not None and self.group.rank != 0:
+            return
         out = {"step": np.asarray(self.step, dtype=np.int32)}
         trees = [("params", self.trained)]
         if self.cfg.ema_decay > 0.0:
@@ -243,11 +322,14 @@ class Trainer:
 
     def load_checkpoint(self, path: str) -> None:
         """params, step and ema_params (the params where a file has
-        none); the optimizer state is not restored."""
+        none); the optimizer state is not restored.  Under a group every
+        rank ends with rank 0's."""
         params, ema, step = load_train_state(path)
         self._assign(self.trained, params)
         self._assign(self.ema, ema if ema is not None else params)
         self.step = step
+        if self.group is not None:
+            replicate(self.group, self.trained + self.ema)
 
     def _assign(self, targets, tree) -> None:
         dyn, gamma = split_trees(tree)

@@ -68,7 +68,8 @@ def test_sources_found():
                    "chem/smiles.py", "data/process_crossdock.py",
                    "data/prepare_crossdocked.py",
                    "data/process_bindingmoad.py", "utils/flops.py",
-                   "utils/profiling.py", "utils/visualization.py"):
+                   "utils/profiling.py", "utils/visualization.py",
+                   "parallel/mesh.py"):
         assert f"diffndm_tpu_torch/{module}" in SOURCES
     assert len(SOURCES) > 30
 
