@@ -66,7 +66,8 @@ Phases, each of which fails the run on any fault or mismatch:
    against their plain versions on the calls of the run's first forward,
    the fixed atoms' geometry kept, seconds per batch and the host time of
    the RePaint combine;
-11. inpaint-quality: the protocol of the JAX package's
+11. inpaint-quality (``--only quality`` only, to keep the full run near
+   800 s): the protocol of the JAX package's
    scripts/inpaint_lift_eval.py (8 test pockets x 16, the first quarter of
    each test ligand fixed, 10 atoms added, T=60 x 10, unguided then ATP,
    whole molecules) beside that script's committed rows, with floors;
@@ -164,7 +165,7 @@ Phases, each of which fails the run on any fault or mismatch:
    BF16_GATE of the largest plain element) on the calls of a bf16 v3b
    forward [16, 80, 192], of the joint sampler's first forward [16, 584,
    128] and at the flagship shapes, timed beside the fp32 kernels on the
-   same calls and the dense bf16 bound; a bf16 call in grad mode raises;
+   same calls and the dense bf16 bound;
    (b) v3b in bf16: one unguided batch (16, T=500) with its launch
    counts, a 10-step fixed-noise run on the card against the CPU's plain
    bf16 run, beside two runs with a fault that the gate must fail (the
@@ -194,12 +195,34 @@ Phases, each of which fails the run on any fault or mismatch:
    ATP's selection across the ranks, against one process (rows,
    coordinates, atom types, forwards and launches per rank).  With more
    than one card visible, (b) and (c) run again over NCCL, a card per
-   rank.
+   rank;
+25. bf16train: training under EGNNConfig.compute_dtype = "bfloat16".
+   (a) both bf16 backward kernels (csrc/egnn_edge_bwd.cu,
+   edge_chain_bwd_mma<H, VEC, true>) against the plain bf16 backward in
+   float64 on the card (gate BF16_BWD_L2 in relative L2 norm per
+   gradient, or twice the distance of the plain bf16 backward in fp32
+   where that is further; the weights' gradients bf16 values), on the
+   calls of a bf16 v3b training forward at each training shape [16,
+   72/80/88/96, 192], of [joint-train]'s joint loss in bf16 [8, 416, 128]
+   and at the flagship shapes; repeat launches bit-identical; the fp32 backward kernel on the
+   same calls fails the gate; on the first call of each, each rounding
+   point of the backward held apart against float64 references with and
+   without it (the plain backward without it fails), and at [16, 88,
+   192] the gate under 8 output gradients; ms per call beside the fp32
+   backward, the plain bf16 backward and the bound (the recompute at the
+   bf16 peak, the rest at TF32's); (b) a bf16 fixed-noise micro-step
+   pair from v3b's raw state, card against CPU (loss, gradient norm, the
+   whole clipped gradient; the card's fp32 pair fails the gates; the
+   optimizer fed the CPU's gradients), then 8 micro-steps of a bf16 and an
+   fp32 Trainer on [dp] (a)'s 128 training pairs: losses side by side, ms
+   per micro-step, peak memory, launches per micro-step (5 + 5 forward,
+   10 + 10 backward, all in the run's compute dtype).
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
 phases 1 and 21, ``--only etl`` phases 1 and 22, ``--only modes``
-phases 1 and 23, ``--only dp`` phases 1 and 24, ``--only workers``
+phases 1 and 23, ``--only dp`` phases 1 and 24, ``--only bf16train``
+phases 1 and 25, ``--only workers``
 phase 1 and phase 6's oracle-worker batches, and ``--only phases``
 prints, from a build of the
 kernels with cycle counters, where a block's time goes in the forward
@@ -208,9 +231,10 @@ time of each kernel a backward call launches (both for work on the
 kernels).
 ``--only quality`` runs phase 7 alone over five seeds and prints how far
 each metric moves with the random stream (what a change to the kernels'
-arithmetic has to exceed), then does the same for phase 11.  ``--only
+arithmetic has to exceed), then phase 11 with its floors and the same
+spread for it.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the eleven prints a result line.
+None of the twelve prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -221,7 +245,9 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -471,6 +497,60 @@ DP_CLI_STEPS, DP_TRAIN_STEPS, DP_PAD_ROWS, DP_RANKS = 8, 4, 15, 2
 DP_POCKET, DP_T = 220, 60
 DP_PARAM_RTOL = 1e-4
 DP_JOIN_TIMEOUT = 300.0
+# bf16train phase: training under EGNNConfig.compute_dtype = "bfloat16".
+# (a) The bf16 backward kernels (edge_chain_bwd_mma<H, VEC, true>) against
+# the plain bf16 backward in float64 on the card.  Both round the same
+# values to bf16, but two programs' fp32 sums and transcendentals (the
+# kernel's fast silu, its recomputed u summed in another order than the
+# bf16 forward's) differ in their last bits, and a value at a bf16
+# midpoint then rounds to the other side, by 2^-8 of itself, moving every
+# gradient downstream of it.  On the card (NVIDIA H100 80GB HBM3, 700 W)
+# at [16, 80-96, 192] the plain bf16 backward in fp32 lies up to 3.9e-3
+# from the same in float64 in relative L2 norm (dwatt, dbatt: sums over
+# every edge), the kernel up to 1.2e-3 from the float64 one, which is the
+# reference, and the fp32 backward kernel 5.2e-3 or more on some gradient
+# of every call.  So the gate (bf16_bwd_gate) is, per gradient tensor: the
+# relative L2 norm of the difference within BF16_BWD_L2, or within
+# BF16_BWD_NOISE times the distance of the plain bf16 backward in fp32
+# where that is further (a sum that cancels: under some output gradients
+# dbatt of v3b's first layer at [16, 88, 192], the plain in fp32 read 6.84
+# times the L2 bound and the kernel 6.34); the gradients the backward
+# rounds once per call (BF16_ROUNDED) bf16 values, an element one bf16
+# step off taken as agreeing.  The fp32 backward kernel on the same calls
+# must fail it on the gradients it does not round.  That gate does
+# not pin the rounding points the backward adds (BF16_POINTS: "ds" the
+# rounding of ds' = du W2'^T, "dm" that of the gradient of bf16(m), coef
+# w', "mw" bf16(m), not m, in dwatt / dwout): the plain backward without
+# the one of ds' read 0.63-0.99 of it.  So on the first call of each
+# group each point is held apart (rounding_share): of the elements where
+# the float64 references with and without the point differ, the kernel
+# lies nearer the one with it on at least BF16_POINT_MIN; the plain bf16
+# backward in fp32 without the point must not (the control), the one with
+# it is recorded.  On the card kernels built without one point read
+# 0.002-0.075, the kernel 0.974 or more, the plain in fp32 0.849 or more.
+# The first call at [16, 88, 192] is also held to the gate under
+# BF16_BWD_SEEDS output gradients.  (b) A fixed-noise
+# micro-step pair in bf16, card against CPU
+# (fixed_step_pair): the loss within BF16_TRAIN_RTOL, the gradient norm
+# within BF16_TRAIN_NORM, the whole clipped gradient within BF16_TRAIN_L2
+# in relative L2 norm, the card's fp32 pair against the CPU's bf16 one as
+# the control that must fail (on the card: the bf16 pair 2.2e-4, 7.8e-3,
+# 5.7e-2; the control 3.0e-3, 1.3e-1, 7.2e-1: a flipped rounding in the
+# forward moves a bf16 step's gradient far more than its loss); then
+# BF16_TRAIN_STEPS micro-steps of a bf16 and an fp32 Trainer on [dp] (a)'s
+# training cut.
+BF16_BWD_KERNELS = {"gcl_messages_bwd_bf16": "gcl_messages",
+                    "edge_vector_reduce_bwd_bf16": "edge_vector_reduce"}
+BF16_ROUNDED = ("w2", "watt", "wout")
+BF16_BWD_L2, BF16_BWD_NOISE = 2.5e-3, 2.0
+BF16_POINTS = ("ds", "dm", "mw")
+BF16_POINT_MIN, BF16_BWD_SEEDS = 0.75, 8
+BF16_BWD_MAIN = "88"          # the training shape the kernels line reads
+BF16_TRAIN_RTOL, BF16_TRAIN_NORM, BF16_TRAIN_L2 = 1e-3, 3e-2, 0.2
+BF16_TRAIN_STEPS = 8
+GCL_ARGS = ("a", "b", "d2c", "d2i", "adj", "we", "w2", "b2", "watt", "batt")
+VEC_ARGS = ("a", "b", "d2c", "d2i", "adj", "x", "center", "we", "w2", "b2",
+            "wout")
 # what the kernel table keeps of a path's call check
 CALL_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 # [B, N, H] of the edge-shape sweep; the last is large enough for blocks
@@ -522,7 +602,7 @@ def call_cost(name, args, kw):
 def fp32_launches(K):
     """The fp32 kernels' launch counts, forward and backward; a bf16
     kernel launched in an fp32 phase fails the run."""
-    if any(K.LAUNCHES[k] for k in BF16_KERNELS):
+    if any(K.LAUNCHES[k] for k in (*BF16_KERNELS, *BF16_BWD_KERNELS)):
         raise AssertionError(f"a bf16 kernel launched in an fp32 phase: "
                              f"{K.LAUNCHES}")
     return {k: K.LAUNCHES[k] for k in (*KERNELS, *BWD_KERNELS)}
@@ -531,7 +611,7 @@ def fp32_launches(K):
 def forward_launches(K):
     """The forward kernels' launch counts; a backward kernel launched
     while sampling (which runs under no_grad) fails the run."""
-    if any(K.LAUNCHES[k] for k in BWD_KERNELS):
+    if any(K.LAUNCHES[k] for k in (*BWD_KERNELS, *BF16_BWD_KERNELS)):
         raise AssertionError(f"a backward kernel launched while sampling: "
                              f"{K.LAUNCHES}")
     return {k: K.LAUNCHES[k] for k in KERNELS}
@@ -2776,17 +2856,12 @@ def joint_phase(torch, K, ds, tmp):
     return results, (pdb, sdf)
 
 
-def joint_train_phase(torch, K, ds, pdb, sdf):
-    """[joint-train]: one joint_loss_terms value at B=JOINT_TRAIN_B (the
-    synthetic receptor's crop and pocket CLI_POCKET's ligand, seeded t
-    and noise) and its gradient through the CUDA backward kernels: launch
-    counts; the loss against the plain forward on the card; each backward
-    call against the plain backward per gradient tensor (the first of each
-    wrapper also against autograd through the plain forward, and timed)."""
+def joint_train_loss(torch, model, ds, pdb, sdf):
+    """[joint-train]'s joint loss at B=JOINT_TRAIN_B (the synthetic
+    receptor's crop and pocket CLI_POCKET's ligand, seeded t and noise),
+    as a function of no arguments."""
     from diffndm_tpu_torch.train.losses import joint_loss_terms
 
-    model = seeded_model(torch, JOINT_CONFIG, "cuda")
-    n_layers = model.cfg.egnn.n_layers
     core = model.joint_sampler.core
     lig = joint_ligand(torch, model, ds[CLI_POCKET], JOINT_TRAIN_B)
     poc = model.pocket_from_pdb(pdb, sdf, JOINT_TRAIN_B)
@@ -2803,7 +2878,18 @@ def joint_train_phase(torch, K, ds, pdb, sdf):
         terms = joint_loss_terms(core, model.dynamics, lig, poc, True,
                                  t_int, noise)
         return sum(terms[k].mean() for k in keys)
+    return loss_value
 
+
+def joint_train_phase(torch, K, ds, pdb, sdf):
+    """[joint-train]: one joint loss value (``joint_train_loss``) and its
+    gradient through the CUDA backward kernels: launch counts; the loss
+    against the plain forward on the card; each backward call against the
+    plain backward per gradient tensor (the first of each wrapper also
+    against autograd through the plain forward, and timed)."""
+    model = seeded_model(torch, JOINT_CONFIG, "cuda")
+    n_layers = model.cfg.egnn.n_layers
+    loss_value = joint_train_loss(torch, model, ds, pdb, sdf)
     calls, recorders, originals = first_forward_recorder(K, n_layers)
     params = list(model.dynamics.parameters())
     for n, f in recorders.items():
@@ -3698,6 +3784,17 @@ def bwd_inputs(torch, name, args):
     return new, leaves, pair
 
 
+def flat_grads(grads):
+    """A plain backward's gradients in the order of ``bwd_inputs``'
+    leaves."""
+    flat = []
+    for i, g in enumerate(grads):
+        if i == 4 or g is None:
+            continue
+        flat += list(g) if isinstance(g, tuple) else [g]
+    return flat
+
+
 def bwd_compare(torch, label, got, ref):
     """Largest share of the per-tensor gate used; raises past it."""
     worst = 0.0
@@ -3712,13 +3809,14 @@ def bwd_compare(torch, label, got, ref):
     return worst
 
 
-def bwd_call(K, name, args, kw, gout):
+def bwd_call(K, name, args, kw, gout, bf16=False):
     """The backward kernels' two launches for one wrapper call, every
-    gradient asked for, as a function of no arguments."""
+    gradient asked for, as a function of no arguments (``bf16``: the bf16
+    backward)."""
     if name == "gcl_messages":
         opts = (kw.get("attention", True), kw.get("norm_factor", 100.0))
         return lambda: K._gcl_messages_backward_cuda(
-            gout, *args[:10], *opts, [True] * 10)
+            gout, *args[:10], *opts, [True] * 10, bf16)
     sets = ([tuple(a[s] for a in (args[0], args[1], *args[7:]))
              for s in (0, 1)] if name.endswith("_pair") else
             [tuple(args[i] for i in (0, 1, 7, 8, 9, 10))])
@@ -3726,7 +3824,7 @@ def bwd_call(K, name, args, kw, gout):
         gout, sets, *args[2:7], kw.get("tanh", True),
         kw.get("coords_range", 15.0), kw.get("norm_constant", 1.0),
         kw.get("cross", False), kw.get("norm_factor", 100.0),
-        kw.get("n_rows"), (True, True))
+        kw.get("n_rows"), (True, True), bf16)
 
 
 def check_backward(torch, K, name, args, kw, gout, against_autograd, reps):
@@ -3750,12 +3848,7 @@ def check_backward(torch, K, name, args, kw, gout, against_autograd, reps):
                 else (a.detach() if a is not None else None) for a in args]
     bwd_plain = getattr(K, name.replace("_pair", "") + (
         "_pair" if pair else "") + "_backward_plain")
-    ref = bwd_plain(gout, *detached, **kw)
-    flat = []
-    for i, r in enumerate(ref):
-        if i == 4 or r is None:
-            continue
-        flat += list(r) if isinstance(r, tuple) else [r]
+    flat = flat_grads(bwd_plain(gout, *detached, **kw))
     share = bwd_compare(torch, f"{name} backward", got, flat)
     auto_share = None
     if against_autograd:
@@ -3842,9 +3935,14 @@ def train_batches(torch, device):
     return ds, found
 
 
-def make_trainer(torch, device, raw=None, group=None):
+def make_trainer(torch, device, raw=None, group=None,
+                 compute_dtype="float32", generator=None):
     """v3b's model and Trainer on ``device``, resumed from its raw
-    training state (data-parallel over ``group`` when given)."""
+    training state (data-parallel over ``group`` when given), in the
+    given compute dtype (an ``EGNNConfig`` field, as the JAX package
+    takes it)."""
+    import dataclasses
+
     from diffndm_tpu_torch.config import (load_yaml, model_config_from_yaml,
                                           train_config_from_yaml)
     from diffndm_tpu_torch.constants import dataset_params
@@ -3852,11 +3950,15 @@ def make_trainer(torch, device, raw=None, group=None):
     from diffndm_tpu_torch.train.trainer import Trainer
 
     raw = raw or load_yaml(os.path.join(RUN, "hparams.yaml"))
-    model = DiffNDM(model_config_from_yaml(raw), device=device)
+    cfg = model_config_from_yaml(raw)
+    cfg = dataclasses.replace(cfg, egnn=dataclasses.replace(
+        cfg.egnn, compute_dtype=compute_dtype))
+    model = DiffNDM(cfg, device=device)
     trainer = Trainer(model.core, model.dynamics,
                       train_config_from_yaml(raw),
                       lj_rm=dataset_params[model.cfg.dataset][
-                          "lennard_jones_rm"], group=group)
+                          "lennard_jones_rm"], group=group,
+                      generator=generator)
     trainer.load_checkpoint(TRAIN_STATE)
     return model, trainer
 
@@ -3949,6 +4051,34 @@ def backward_phase(torch, K, batches, trainer, device):
 # training
 # ---------------------------------------------------------------------------
 
+def fixed_step_pair(torch, batches, device, compute_dtype="float32"):
+    """Two fixed-noise micro-steps (one optimizer update at
+    accumulate_grad_batches 2) from v3b's raw state on ``device``: the
+    first TRAIN_CHECK_B rows of the N=80 batch, seeded t and noise.
+    Returns the infos, the clipped gradients the optimizer took, the
+    trainer, and its params, EMA and clip buffer on the CPU."""
+    from diffndm_tpu_torch.structs import NodeBatch
+
+    lig, poc = batches[80]
+    rows = slice(0, TRAIN_CHECK_B)
+    cut = [NodeBatch(*(a[rows].cpu() for a in nb)) for nb in (lig, poc)]
+    draws = [step_draws(torch, cut[0], SEED + 20 + i) for i in range(2)]
+    _, trainer = make_trainer(torch, device, compute_dtype=compute_dtype)
+    grads, update = [], trainer.opt.update
+
+    def recording(params, g):
+        grads.append([t.detach().cpu().clone() for t in g])
+        return update(params, g)
+
+    trainer.opt.update = recording
+    infos = [trainer.train_step(*cut, *d) for d in draws]
+    if trainer.opt.count != 1:
+        raise AssertionError("[train] the two micro-steps made no update")
+    return dict(infos=infos, grads=grads, trainer=trainer,
+                state=[t.detach().cpu() for t in trainer.params + trainer.ema]
+                + [trainer.gradnorm_buf.cpu()])
+
+
 def train_path_check(torch, batches):
     """One fixed-noise training micro-step pair (one optimizer update at
     accumulate_grad_batches 2) from v3b's raw state on the card and on the
@@ -3961,30 +4091,8 @@ def train_path_check(torch, batches):
     update.  Adam's first update is about sign(g) * lr for every element,
     so an element whose gradient lies within the kernels' accepted error
     of zero moves by up to 2 * lr differently on the two devices."""
-    from diffndm_tpu_torch.structs import NodeBatch
-
-    lig, poc = batches[80]
-    rows = slice(0, TRAIN_CHECK_B)
-    cut = [NodeBatch(*(a[rows].cpu() for a in nb)) for nb in (lig, poc)]
-    draws = [step_draws(torch, cut[0], SEED + 20 + i) for i in range(2)]
-    out = {}
-    for device in ("cuda", "cpu"):
-        _, trainer = make_trainer(torch, device)
-        grads, update = [], trainer.opt.update
-
-        def recording(params, g, _grads=grads, _update=update):
-            _grads.append([t.detach().cpu().clone() for t in g])
-            return _update(params, g)
-
-        trainer.opt.update = recording
-        infos = [trainer.train_step(*cut, *d) for d in draws]
-        if trainer.opt.count != 1:
-            raise AssertionError("[train] the two micro-steps made no update")
-        out[device] = dict(
-            infos=infos, grads=grads, trainer=trainer,
-            state=[t.detach().cpu() for t in trainer.params + trainer.ema]
-            + [trainer.gradnorm_buf.cpu()])
-    g, c = out["cuda"], out["cpu"]
+    g, c = (fixed_step_pair(torch, batches, device)
+            for device in ("cuda", "cpu"))
     loss_rel = max(abs(a[0] - b[0]) / abs(b[0])
                    for a, b in zip(g["infos"], c["infos"]))
     norm_rel = max(abs(a[1]["grad_norm"] - b[1]["grad_norm"])
@@ -4262,7 +4370,7 @@ def eps_error(torch, got, want):
 
 def check_bf16(torch, K, wrapper, args, kw, reps):
     """A bf16 kernel call against its bf16 plain version, with the fp32
-    kernel on the same call beside it; the call in grad mode must raise."""
+    kernel on the same call beside it."""
     kernel = getattr(K, wrapper)
     plain = getattr(K, wrapper + "_plain")
     kw = dict(kw, compute_dtype="bfloat16")
@@ -4281,13 +4389,6 @@ def check_bf16(torch, K, wrapper, args, kw, reps):
             f"{wrapper} bf16: kernel disagrees with its plain version: max "
             f"abs {err:.3e} > {tol:.3e} ({BF16_GATE} max |plain| + "
             f"{BF16_ATOL})")
-    try:
-        with torch.enable_grad():
-            kernel(*args, **kw)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError(f"{wrapper} bf16 in grad mode did not raise")
     ops, nbytes = call_cost(wrapper, args, kw)
     t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     shape = list((args[0][0] if wrapper.endswith("_pair") else args[0]).shape)
@@ -4339,7 +4440,6 @@ def modes_kernels(torch, K, make_model, pocket, sizes):
             results.setdefault(kernel, {})[label] = res
             log(f"[modes] (a) {label} {wrapper} bf16 {res['shape']} "
                 f"({len(mine)} calls checked): {describe_bf16(res)}")
-    log(f"[modes] (a) a bf16 call on the card in grad mode raises")
     return results
 
 
@@ -4900,6 +5000,476 @@ def dp_phase(torch, K, model, pocket, sizes, train_ds, batches, tmp):
 
 
 
+# ---------------------------------------------------------------------------
+# bf16 training
+# ---------------------------------------------------------------------------
+
+def leaf_names(name, args):
+    """The names of ``bwd_inputs``' leaves for these arguments (a pair's
+    two sets as name0, name1)."""
+    keys = GCL_ARGS if name == "gcl_messages" else VEC_ARGS
+    out = []
+    for i, a in enumerate(args):
+        if i == 4 or a is None:
+            continue
+        out += ([f"{keys[i]}{s}" for s in range(len(a))]
+                if isinstance(a, (tuple, list)) else [keys[i]])
+    return out
+
+
+def bf16_bwd_error(torch, g, r, name):
+    """The L2 norm of g - r, where for a gradient rounded once per call
+    (BF16_ROUNDED) an element one bf16 step from the reference's (the
+    final rounding gone the other way) is taken as agreeing."""
+    diff = g - r
+    if name.rstrip("01") in BF16_ROUNDED:
+        big = torch.maximum(g.abs(), r.abs()).clamp_min(1e-30)
+        step = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        diff = torch.where(diff.abs() <= step, 0.0, diff)
+    return float(diff.norm())
+
+
+def bf16_bwd_gate(torch, K, got, ref, names, plain):
+    """(worst share of the gate, passes) of bf16 gradients against a
+    reference: each within BF16_BWD_L2 of it in relative L2 norm or, where
+    ``plain`` (the plain bf16 backward in fp32, the same formula in fp32
+    sums) lies further, within BF16_BWD_NOISE times its distance (errors
+    by ``bf16_bwd_error``); those in BF16_ROUNDED bf16 values."""
+    worst, ok = 0.0, True
+    for name, g, r, q in zip(names, got, ref, plain):
+        ok = ok and bool(torch.isfinite(g).all())
+        if name.rstrip("01") in BF16_ROUNDED:
+            ok = ok and torch.equal(K.bf16_round(g), g)
+        bound = max(BF16_BWD_L2 * float(r.norm()),
+                    BF16_BWD_NOISE * bf16_bwd_error(torch, q, r, name))
+        share = (bf16_bwd_error(torch, g, r, name) / bound if bound
+                 else 2.0 * float(g.abs().max() > 0))
+        ok = ok and share <= 1.0
+        worst = max(worst, share)
+    return worst, ok
+
+
+def bf16_bwd_bound(name, args, kw):
+    """(bound ms, what binds) of one bf16 backward call: ``bwd_cost``'s
+    work, of whose 6H^2 per edge the recompute s'.W2' (2H^2, both operands
+    bf16) runs at the dense bf16 peak, and the two products with du in
+    fp32 (4H^2) and the O(H) work at TF32's."""
+    ops, nbytes = bwd_cost(name, args, kw)
+    h = (args[0][0] if name == "edge_vector_reduce_pair" else args[0]).shape[2]
+    bf16_ops = ops * 2 * h * h / (6 * h * h + 24 * h)
+    t_ops = bf16_ops / PEAK_BF16_FLOPS + (ops - bf16_ops) / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+@contextlib.contextmanager
+def dropped_rounding(K, point):
+    """The plain bf16 backward with one of BF16_POINTS dropped."""
+    chain, dot = K._chain_backward, K._dot_backward
+    if point == "ds":                       # ds' = du W2'^T left unrounded
+        K._chain_backward = lambda *a: chain(*a[:11])
+    elif point == "dm":                     # the gradient of bf16(m)
+        K._dot_backward = lambda c, m, w, rnd: (c * w[:, 0],
+                                                dot(c, m, w, rnd)[1])
+    else:                                   # m, not bf16(m), in dwatt, dwout
+        K._dot_backward = lambda c, m, w, rnd: (
+            dot(c, m, w, rnd)[0], (c * m).sum((0, 1, 2))[:, None])
+    try:
+        yield
+    finally:
+        K._chain_backward, K._dot_backward = chain, dot
+
+
+def rounding_share(got, ref, fault, names):
+    """Where the references with and without a rounding point differ, the
+    share of the elements on which ``got`` lies nearer the one with it (a
+    tie counts half); None where they agree.  An element of a gradient
+    rounded once per call (BF16_ROUNDED) has one vote: the references lie
+    one bf16 step of it apart, so a few large elements cannot outvote the
+    rest.  The votes of any other gradient are shared out in proportion
+    to how far apart the references lie there, so that elements the point
+    barely moves, where another program's fp32 sums decide, count little.
+    """
+    near = total = 0.0
+    for name, g, r, f in zip(names, got, ref, fault):
+        differ = r != f
+        if not bool(differ.any()):
+            continue
+        r, f, g = r[differ], f[differ], g.double()[differ]
+        apart = (r - f).abs()
+        weight = (apart.new_ones(apart.shape) if name.rstrip("01") in
+                  BF16_ROUNDED else apart / apart.mean())
+        dr, df = (g - r).abs(), (g - f).abs()
+        near += float((weight * ((dr < df) + 0.5 * (dr == df))).sum())
+        total += float(weight.sum())
+    return near / total if total else None
+
+
+def check_bf16_backward(torch, K, name, args, kw, gout, reps, points=False):
+    """The bf16 backward kernel (through the wrapper's Function) against
+    the plain bf16 backward in float64 on the card, twice for bit
+    identity, gated by ``bf16_bwd_gate``; the fp32 backward kernel on the
+    same call must fail the gate on the gradients it does not round.
+    ``points``: each of BF16_POINTS held by ``rounding_share`` against the
+    float64 references with and without it; the plain bf16 backward in
+    fp32 without it must fail that, the one with it is recorded.  Timed
+    beside the fp32 backward and the plain bf16 backward in fp32 where
+    ``reps``."""
+    kw = dict(kw, compute_dtype="bfloat16")
+    new, leaves, pair = bwd_inputs(torch, name, args)
+    names = leaf_names(name, args)
+
+    def kernel_grads(dtype):
+        with torch.enable_grad():
+            out = getattr(K, name)(*new, **dict(kw, compute_dtype=dtype))
+            return torch.autograd.grad(out, leaves, gout)
+
+    got, again = kernel_grads("bfloat16"), kernel_grads("bfloat16")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} bf16 backward: two launches differ in "
+                             f"their bits")
+    detached = [tuple(t.detach() for t in a) if isinstance(a, (tuple, list))
+                else (a.detach() if a is not None else None) for a in args]
+    bwd_plain = getattr(K, name.replace("_pair", "") + (
+        "_pair" if pair else "") + "_backward_plain")
+
+    def plain(dtype):
+        cast = [tuple(t.to(dtype) for t in a) if isinstance(a, tuple)
+                else (a.to(dtype) if a is not None else None)
+                for a in detached]
+        return flat_grads(bwd_plain(gout.to(dtype), *cast, **kw))
+
+    # the reference: the plain bf16 backward in float64, whose sums and
+    # transcendentals move no bf16 rounding as the fp32 ones do
+    ref64 = plain(torch.float64)
+    ref = [g.float() for g in ref64]
+    sound = plain(torch.float32)
+    share, ok = bf16_bwd_gate(torch, K, got, ref, names, sound)
+    # the plain's own distance, in shares of the L2 bound: the call's
+    # conditioning (recorded)
+    plain_share = max(bf16_bwd_error(torch, q, r, n) / BF16_BWD_L2
+                      / max(float(r.norm()), 1e-30)
+                      for n, q, r in zip(names, sound, ref))
+    # the control on the gradients that neither backward rounds once per
+    # call: the fp32 backward's are never bf16 values
+    keep = [i for i, n in enumerate(names) if n.rstrip("01") not in
+            BF16_ROUNDED]
+    got32 = kernel_grads("float32")
+    share32, ok32 = bf16_bwd_gate(
+        torch, K, *([x[i] for i in keep] for x in (got32, ref, names, sound)))
+    shape = list((args[0][0] if pair else args[0]).shape)
+    if not ok:
+        raise AssertionError(
+            f"{name} bf16 backward {shape}: the kernel disagrees with the "
+            f"plain bf16 backward ({share:.3f} of the gate {BF16_BWD_L2})")
+    if ok32:
+        raise AssertionError(f"{name} bf16 backward {shape}: the fp32 "
+                             f"backward passes the bf16 gate")
+    res = dict(shape=shape, max_abs_err=max(float((g - r).abs().max())
+                                            for g, r in zip(got, ref)),
+               gate_share=share, fp32_gate_share=share32,
+               plain_share=plain_share)
+    if points:
+        res["points"] = {}
+        for point in BF16_POINTS:
+            with dropped_rounding(K, point):
+                fault, dropped = plain(torch.float64), plain(torch.float32)
+            shares = [rounding_share(x, ref64, fault, names)
+                      for x in (got, sound, dropped)]
+            if shares[0] is None:
+                if (name != "gcl_messages" or kw.get("attention", True)
+                        or point == "ds"):
+                    raise AssertionError(f"{name} bf16 backward {shape}: "
+                                         f"rounding point {point} changes "
+                                         f"nothing")
+                continue
+            if shares[0] < BF16_POINT_MIN:
+                raise AssertionError(
+                    f"{name} bf16 backward {shape}: the kernel misses "
+                    f"rounding point {point} (share {shares[0]:.3f})")
+            if shares[2] >= BF16_POINT_MIN:
+                raise AssertionError(
+                    f"{name} bf16 backward {shape}: the plain backward "
+                    f"without rounding point {point} passes its check")
+            res["points"][point] = dict(zip(("kernel", "plain", "dropped"),
+                                            shares))
+    if reps:
+        res["ms"] = time_ms(torch, bwd_call(K, name, args, kw, gout, True),
+                            reps)
+        res["fp32_ms"] = time_ms(torch, bwd_call(K, name, args, kw, gout),
+                                 reps)
+        # the plain takes 0.1-0.5 s a call at the joint and flagship
+        # shapes (fewer reps there): one round of two calls
+        res["plain_ms"] = time_ms(torch, lambda: bwd_plain(
+            gout, *detached, **kw), 2, warmup=1,
+            rounds=3 if reps >= 10 else 1)
+        res["bound_ms"], res["bound_by"] = bf16_bwd_bound(name, args, kw)
+        res["blocks"], res["rows_per_block"] = K.bwd_launch_grid(
+            name, *shape, kw.get("n_rows"))
+    return res
+
+
+def describe_bf16_bwd(res):
+    text = (f"max abs {res['max_abs_err']:.3e}, {res['gate_share']:.3f} of "
+            f"the gate (the fp32 backward {res['fp32_gate_share']:.2f} on "
+            f"the gradients it does not round; the plain in fp32 "
+            f"{res['plain_share']:.2f} of the L2 bound)")
+    if "points" in res:
+        text += "; rounding points, kernel / plain / plain without: " + (
+            ", ".join(f"{p} {v['kernel']:.3f} / {v['plain']:.3f} / "
+                      f"{v['dropped']:.3f}" for p, v in res["points"].items()))
+    if "seed_shares" in res:
+        text += (f"; over {len(res['seed_shares'])} gout seeds "
+                 f"{min(res['seed_shares']):.3f}-"
+                 f"{max(res['seed_shares']):.3f} of the gate (the plain "
+                 f"{min(res['seed_plain_shares']):.2f}-"
+                 f"{max(res['seed_plain_shares']):.2f} of the L2 bound)")
+    if "ms" in res:
+        text += (f"; bf16 backward {res['ms']:.4f} ms per call (2 "
+                 f"launches), fp32 {res['fp32_ms']:.4f} ms, plain bf16 "
+                 f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+                 f"({res['bound_by']}; the recompute at bf16's "
+                 f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, the rest at TF32's "
+                 f"{PEAK_TF32_FLOPS / 1e12:.0f}); grid {res['blocks']} "
+                 f"blocks of {res['rows_per_block']} rows")
+    return text
+
+
+def bf16train_kernels(torch, K, batches, ds, tmp):
+    """(a) Both bf16 backward kernels on the calls of a bf16 v3b training
+    forward at each training shape (the first call of each kind timed),
+    of [joint-train]'s joint loss forward in bf16 and at the flagship
+    shapes."""
+    _, trainer = make_trainer(torch, "cuda", compute_dtype="bfloat16")
+    groups = []
+    for n in TRAIN_N:
+        calls = capture_train_calls(torch, K, trainer, *batches[n])
+        counts = {w: sum(1 for c in calls if c[0] == w) for w in WRAPPERS}
+        if counts != {"gcl_messages": 5, "edge_vector_reduce": 0,
+                      "edge_vector_reduce_pair": 5}:
+            raise AssertionError(f"[bf16train] a training forward made "
+                                 f"{counts} wrapper calls")
+        groups.append((n, calls, 10))
+    joint = with_egnn(seeded_model(torch, JOINT_CONFIG, "cuda"),
+                      compute_dtype="bfloat16")
+    pdb, sdf, _ = joint_receptor(ds, tmp)
+    loss_value = joint_train_loss(torch, joint, ds, pdb, sdf)
+    calls, recorders, originals = first_forward_recorder(
+        K, joint.cfg.egnn.n_layers)
+    for n, f in recorders.items():
+        setattr(K, n, f)
+    try:
+        loss_value()
+    finally:
+        for n, f in originals.items():
+            setattr(K, n, f)
+    groups.append(("joint-train", calls, 5))
+    groups.append(("flagship", [
+        (w, *flagship_inputs(torch, w, "cuda"))
+        for w in ("gcl_messages", "edge_vector_reduce_pair")], 3))
+    results = {k: {} for k in BF16_BWD_KERNELS}
+    for label, calls, reps in groups:
+        for wrapper, kernel in (("gcl_messages", "gcl_messages_bwd_bf16"),
+                                ("edge_vector_reduce_pair",
+                                 "edge_vector_reduce_bwd_bf16")):
+            t0 = time.perf_counter()
+            mine = [c for c in calls if c[0] == wrapper]
+            pair = wrapper.endswith("_pair")
+
+            def gout(args, seed):
+                shape = (args[0][0] if pair else args[0]).shape
+                return torch.randn(
+                    (*shape[:2], 3 if pair else shape[2]),
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed), device="cuda") * 1e-2
+
+            checks = [check_bf16_backward(
+                torch, K, wrapper, args, kw, gout(args, SEED + i),
+                reps if i == 0 else 0, points=i == 0)
+                for i, (_, args, kw) in enumerate(mine)]
+            # the first call's times and rounding points (and, at the
+            # kernels line's shape, its gate share over BF16_BWD_SEEDS
+            # output gradients); the worst share of the gate over the
+            # calls, the least of the control's
+            first = dict(checks[0], calls=len(checks))
+            if str(label) == BF16_BWD_MAIN:
+                _, args, kw = mine[0]
+                seeds = [checks[0]] + [check_bf16_backward(
+                    torch, K, wrapper, args, kw, gout(args, SEED + 100 + k),
+                    0) for k in range(1, BF16_BWD_SEEDS)]
+                first["seed_shares"] = [c["gate_share"] for c in seeds]
+                first["seed_plain_shares"] = [c["plain_share"] for c in seeds]
+            for key, pick in (("gate_share", max), ("max_abs_err", max),
+                              ("fp32_gate_share", min),
+                              ("plain_share", max)):
+                first[key] = pick(c[key] for c in checks)
+            results[kernel][str(label)] = first
+            log(f"[bf16train] (a) {label} {wrapper} bf16 backward "
+                f"{first['shape']} ({len(checks)} calls, gate {BF16_BWD_L2}"
+                f", {time.perf_counter() - t0:.1f} s): "
+                f"{describe_bf16_bwd(first)}")
+    return results
+
+
+def bf16_train_path_check(torch, K, batches):
+    """(b) The fixed-noise micro-step pair of ``train_path_check`` in bf16,
+    card against CPU, and the card's fp32 pair as the control that must
+    fail the gate: the losses within BF16_TRAIN_RTOL, the gradient norms
+    within BF16_TRAIN_NORM and the whole clipped gradient within
+    BF16_TRAIN_L2 in relative L2 norm; beside them the plain bf16 chain on
+    the card (recorded).  Then the card's optimizer fed the CPU's clipped
+    gradients gives the CPU's parameters and EMA within TRAIN_RTOL."""
+    card, cpu, control = (fixed_step_pair(torch, batches, d, dt) for d, dt
+                          in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                              ("cuda", "float32")))
+    # recorded: the plain bf16 chain on the card (autograd through the
+    # plain versions), what two devices' sums alone give
+    originals = {n: getattr(K, n) for n in WRAPPERS}
+    for n in WRAPPERS:
+        setattr(K, n, getattr(K, n + "_plain"))
+    try:
+        plain = fixed_step_pair(torch, batches, "cuda", "bfloat16")
+    finally:
+        for n, f in originals.items():
+            setattr(K, n, f)
+
+    names = cpu["trainer"].names
+
+    def against_cpu(run):
+        loss = max(abs(a[0] - b[0]) / abs(b[0])
+                   for a, b in zip(run["infos"], cpu["infos"]))
+        norm = max(abs(a[1]["grad_norm"] - b[1]["grad_norm"])
+                   / b[1]["grad_norm"]
+                   for a, b in zip(run["infos"], cpu["infos"]))
+        # the whole clipped gradient (every tensor) in relative L2 norm
+        grads = max(math.sqrt(sum(float((a - b).norm()) ** 2
+                                  for a, b in zip(ga, gb))
+                              / sum(float(b.norm()) ** 2 for b in gb))
+                    for ga, gb in zip(run["grads"], cpu["grads"]))
+        # recorded: the tensor that differs most in its own L2 norm
+        per = [(float((a - b).norm() / b.norm().clamp_min(1e-30)), n)
+               for ga, gb in zip(run["grads"], cpu["grads"])
+               for n, a, b in zip(names, ga, gb)]
+        ok = (loss <= BF16_TRAIN_RTOL and norm <= BF16_TRAIN_NORM
+              and grads <= BF16_TRAIN_L2)
+        return dict(loss_rel=loss, norm_rel=norm, grad_l2=grads,
+                    worst_tensor=max(per), passes=ok)
+
+    res, ctl, pln = (against_cpu(r) for r in (card, control, plain))
+    _, replay = make_trainer(torch, "cuda", compute_dtype="bfloat16")
+    for grads in cpu["grads"]:
+        replay.apply_gradients([t.cuda() for t in grads])
+    replay_rel = max(
+        float((a.detach().cpu() - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(replay.params + replay.ema,
+                                    cpu["state"][:-1]))
+    log(f"[bf16train] (b) fixed-noise step in bf16, card vs CPU "
+        f"({TRAIN_CHECK_B} rows of the N=80 batch, v3b's raw state, 2 "
+        f"micro-steps = 1 update): losses "
+        f"{[round(a[0], 6) for a in card['infos']]} / "
+        f"{[round(b[0], 6) for b in cpu['infos']]} (max rel "
+        f"{res['loss_rel']:.2e}, gate {BF16_TRAIN_RTOL}); grad norms "
+        f"{[round(a[1]['grad_norm'], 4) for a in card['infos']]} / "
+        f"{[round(b[1]['grad_norm'], 4) for b in cpu['infos']]} (max rel "
+        f"{res['norm_rel']:.2e}, gate {BF16_TRAIN_NORM}); the clipped "
+        f"gradient relative L2 {res['grad_l2']:.2e} (gate {BF16_TRAIN_L2}; "
+        f"recorded: the tensor furthest off in its own norm, "
+        f"{res['worst_tensor'][1]}, {res['worst_tensor'][0]:.2e}); the "
+        f"control, the card's fp32 step: loss {ctl['loss_rel']:.2e}, norm "
+        f"{ctl['norm_rel']:.2e}, gradient {ctl['grad_l2']:.2e} "
+        f"({ctl['worst_tensor'][1]}, {ctl['worst_tensor'][0]:.2e}); "
+        f"recorded, the plain bf16 chain on the card: loss "
+        f"{pln['loss_rel']:.2e}, norm {pln['norm_rel']:.2e}, gradient "
+        f"{pln['grad_l2']:.2e}; the card's "
+        f"optimizer on the CPU's gradients: params and EMA max rel "
+        f"{replay_rel:.2e} (gate {TRAIN_RTOL})")
+    if not (res["passes"] and replay_rel <= TRAIN_RTOL):
+        raise AssertionError("[bf16train] the card's bf16 training step "
+                             "disagrees with the CPU's")
+    if ctl["passes"]:
+        raise AssertionError("[bf16train] the fp32 control passes the bf16 "
+                             "step gate")
+    return dict(res, control=ctl, plain=pln, replay_rel=replay_rel,
+                losses=[a[0] for a in card["infos"]],
+                cpu_losses=[b[0] for b in cpu["infos"]])
+
+
+def bf16_train_steps(torch, K, train_ds, tmp):
+    """(b) BF16_TRAIN_STEPS micro-steps of v3b from its raw state on [dp]
+    (a)'s cut of the training split (the train CLI's loader and
+    generator), in bf16 and in fp32: the losses side by side, ms per
+    micro-step, peak device memory, and the launches of each run
+    (per micro-step 5 + 5 forward and 10 + 10 backward, all of the run's
+    compute dtype)."""
+    from diffndm_tpu_torch.config import load_yaml, train_config_from_yaml
+    from diffndm_tpu_torch.constants import dataset_params
+    from diffndm_tpu_torch.data.dataset import (BucketedLoader,
+                                                ProcessedLigandPocketDataset,
+                                                save_npz_split)
+
+    path = os.path.join(tmp, "bf16_train.npz")
+    save_npz_split(path, train_ds.pairs[:BF16_TRAIN_STEPS * N_SAMPLES])
+    tcfg = train_config_from_yaml(load_yaml(os.path.join(RUN,
+                                                         "hparams.yaml")))
+    per_step = {"gcl_messages": 5, "edge_vector_reduce": 5,
+                "gcl_messages_bwd": 10, "edge_vector_reduce_bwd": 10}
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        model, trainer = make_trainer(
+            torch, "cuda", compute_dtype=dtype, generator=torch.Generator(
+                device="cuda").manual_seed(tcfg.seed))
+        loader = BucketedLoader(
+            ProcessedLigandPocketDataset(path), tcfg.batch_size,
+            drop_feature_cols=dataset_params[model.cfg.dataset][
+                "_pad_types"])
+        losses, ms = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        for _, (lig, poc) in zip(range(BF16_TRAIN_STEPS), loader):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(lig, poc)[0])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        suffix = "_bf16" if dtype == "bfloat16" else ""
+        want = {k + suffix: v * BF16_TRAIN_STEPS for k, v in per_step.items()}
+        if ({k: launches[k] for k in want} != want
+                or sum(launches.values()) != sum(want.values())
+                or len(losses) != BF16_TRAIN_STEPS
+                or not all(np.isfinite(losses))):
+            raise AssertionError(f"[bf16train] {dtype} micro-steps: "
+                                 f"launches {launches} (want {want}) or "
+                                 f"losses {losses}")
+        out[dtype] = dict(losses=losses, ms=ms, peak_mib=peak,
+                          launches={k: launches[k] for k in want})
+    b, f = out["bfloat16"], out["float32"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(b["losses"], f["losses"])]
+    log(f"[bf16train] (b) {BF16_TRAIN_STEPS} micro-steps of v3b on [dp] "
+        f"(a)'s {BF16_TRAIN_STEPS * N_SAMPLES} training pairs: losses bf16 "
+        f"{[round(v, 6) for v in b['losses']]} / fp32 "
+        f"{[round(v, 6) for v in f['losses']]} (rel {max(rel):.2e} at "
+        f"most); ms per micro-step bf16 {[round(v, 1) for v in b['ms']]} / "
+        f"fp32 {[round(v, 1) for v in f['ms']]}; peak device memory "
+        f"{b['peak_mib']:.1f} / {f['peak_mib']:.1f} MiB; launches "
+        f"{b['launches']} / {f['launches']}")
+    return dict(out, loss_rel=rel)
+
+
+def bf16train_phase(torch, K, ds, train_ds, batches, tmp):
+    """[bf16train]: (a) and (b); returns the bf16 backward kernels' checks
+    and the runs."""
+    t0 = time.perf_counter()
+    kernels = bf16train_kernels(torch, K, batches, ds, tmp)
+    path = bf16_train_path_check(torch, K, batches)
+    steps = bf16_train_steps(torch, K, train_ds, tmp)
+    log(f"[bf16train] done in {time.perf_counter() - t0:.1f} s")
+    return dict(kernels=kernels, path=path, steps=steps)
+
+
 def main() -> int:
     import torch
 
@@ -4907,7 +5477,7 @@ def main() -> int:
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
                                            "train", "vina", "joint",
                                            "variants", "etl", "modes",
-                                           "dp", "workers"],
+                                           "dp", "workers", "bf16train"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
@@ -4917,9 +5487,9 @@ def main() -> int:
                         "kernel checks and the joint, joint-train and "
                         "configs phases alone, run the variants phase "
                         "alone, run the etl phase alone, run the modes "
-                        "phase alone, run the data-parallel phase alone, or "
+                        "phase alone, run the data-parallel phase alone, "
                         "time a guided batch with the oracle's workers and "
-                        "with one")
+                        "with one, or run the bf16 training phase alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -4962,15 +5532,16 @@ def main() -> int:
                       f"H={int(m[2])}")
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
-    # and per instantiation edge_chain_bwd_mma<H, VEC> of the backward
-    kernel, bwd_ptxas = None, {k: {} for k in BWD_KERNELS}
+    # and per instantiation edge_chain_bwd_mma<H, VEC, BF16> of the backward
+    kernel = None
+    bwd_ptxas = {k: {} for k in (*BWD_KERNELS, *BF16_BWD_KERNELS)}
     for line in bwd_so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function .*edge_chain_bwd_(mma|reduce)"
-                      r"(?:ILi(\d+)ELb([01])E)?", line)
+                      r"(?:ILi(\d+)ELb([01])ELb([01])E)?", line)
         if m:
             kernel = ("backward reduce" if m[1] == "reduce" else
                       f"{'edge_vector_reduce' if m[3] == '1' else 'gcl_messages'}"
-                      f"_bwd H={int(m[2])}")
+                      f"_bwd{'_bf16' if m[4] == '1' else ''} H={int(m[2])}")
             continue
         if not kernel or not ("registers" in line or "spill" in line):
             continue
@@ -5008,6 +5579,7 @@ def main() -> int:
     if opts.only == "quality":
         quality_spread(torch, ds, {"unguided": model, "guided": make_model(
             "cuda", guided_cfg)})
+        inpaint_quality_phase(torch, ds, make_model("cuda"))
         inpaint_quality_spread(torch, ds, make_model("cuda"))
         return 0
     if opts.only == "variants":
@@ -5031,6 +5603,12 @@ def main() -> int:
             dp_phase(torch, K, model, pockets[0], sizes[0], train_ds,
                      batches, tmp)
         log("[dp] done (--only dp: no result)")
+        return 0
+    if opts.only == "bf16train":
+        train_ds, batches = train_batches(torch, model.device)
+        with tempfile.TemporaryDirectory() as tmp:
+            bf16train_phase(torch, K, ds, train_ds, batches, tmp)
+        log("[bf16train] done (--only bf16train: no result)")
         return 0
     if opts.only == "workers":
         guided_workers_phase(torch, make_model, guided_cfg, pockets[0],
@@ -5085,7 +5663,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         inpaint_launches, inpaint_checks, (pdb, sdf) = inpaint_cli_phase(
             torch, K, ds, tmp)
-        inpaint_quality_phase(torch, ds, make_model("cuda"))
         optimize_launches, optimize_checks = optimize_phase(torch, K, tmp,
                                                             pdb, sdf)
     diversify_path_check(torch, make_model, ds[CLI_POCKET])
@@ -5117,6 +5694,8 @@ def main() -> int:
         dp = dp_phase(torch, K, model, pockets[0], sizes[0], train_ds,
                       batches, tmp)
     dp_ranks = dp["runs"]["gloo"]
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16train = bf16train_phase(torch, K, ds, train_ds, batches, tmp)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -5212,6 +5791,29 @@ def main() -> int:
                 "shape", "max_abs_err", "gate_share", "fp32_gate_share",
                 "ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
                 "blocks")} for label, r in at.items()}))
+    for name, forward in BF16_BWD_KERNELS.items():
+        at = bf16train["kernels"][name]
+        main_res = at[BF16_BWD_MAIN]
+        table.append(dict(
+            name=name, route="cuda", source=BWD_SOURCE,
+            replaces=KERNELS[forward],
+            launches=bf16train["steps"]["bfloat16"]["launches"][name],
+            note="the backward of the bf16 forward (mxu_dtype = bfloat16): "
+            "cotangents rounded where the forward rounds; the TPU kernel "
+            "has no VJP",
+            max_abs_err=max(r["max_abs_err"] for r in at.values()),
+            ms=main_res["ms"], plain_ms=main_res["plain_ms"],
+            bound_ms=main_res["bound_ms"], bound_by=main_res["bound_by"],
+            library_ms=None, bound_peak="bf16 989 TFLOP/s for the "
+            "recompute, tf32 495 TFLOP/s for the rest, 3.35 TB/s",
+            shape=main_res["shape"], launches_per_call=2,
+            fp32_ms=main_res["fp32_ms"], gate=BF16_BWD_L2,
+            seed_shares=main_res["seed_shares"],
+            shapes={k: {c: r[c] for c in (
+                "shape", "max_abs_err", "gate_share", "fp32_gate_share",
+                "plain_share", "points", "ms", "fp32_ms", "plain_ms", "bound_ms",
+                "bound_by", "blocks")} for k, r in at.items()},
+            ptxas=bwd_ptxas[name]))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,8 @@ class EGNNConfig:
     # changes nothing
     row_tile: int = 64
     # 'float32' | 'bfloat16': the precision of the edge chains (the
-    # kernels' products take bf16 operands with fp32 sums; forward only)
+    # kernels' products take bf16 operands with fp32 sums; the weights
+    # stay fp32 and train through the bf16 backward)
     compute_dtype: str = "float32"
     # fixed-K neighbour lists: each row keeps its K best-ranked columns
     # (real edges, the ligand clique, then the nearest); exact while no

@@ -275,14 +275,6 @@ __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// ((a + b) + dc * w0) + di * w1, each operation rounded: the plain
-// version's order, no fused multiply-add
-__device__ __forceinline__ float pre_exact(float a, float b, float dc,
-                                           float w0, float di, float w1) {
-    return __fadd_rn(__fadd_rn(__fadd_rn(a, b), __fmul_rn(dc, w0)),
-                     __fmul_rn(di, w1));
-}
-
 // ---------------------------------------------------------------------------
 // shared memory
 // ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// Backward of the EGNN edge-chain kernels for NVIDIA Hopper (sm_90a), fp32.
+// Backward of the EGNN edge-chain kernels for NVIDIA Hopper (sm_90a), fp32
+// and bf16.
 //
 // The JAX package's Pallas kernels (diffndm_tpu/ops/pallas_egnn.py:
 // gcl_messages, edge_vector_reduce) have no VJP; its trainer takes the
@@ -23,7 +24,28 @@
 // matrix (the recompute s @ W2, du @ W2^T and s^T du): 6*H^2 FLOPs per edge,
 // against a few bytes of edge input.
 //
-// One kernel, edge_chain_bwd_mma<H, VEC>, with two epilogues: VEC false
+// bf16 (BF16 true): the VJP of the bf16 forward (the Pallas kernels'
+// mxu_dtype = bfloat16, edge_chain_wgmma of egnn_edge.cu) under the cast
+// rule of jax.vjp and torch autograd, a cotangent rounded to bf16 where the
+// forward rounded an operand (' a rounded value):
+//   s' = bf16(silu(u1)), u = s' @ W2' + b2 (W2' = bf16(W2), rounded and
+//   packed by the wrapper), the gate or phi dot bf16(m) . wvec' (wvec' =
+//   bf16(watt / wout), rounded as the block stages it);
+//   dm = alpha * g_i + bf16(coef * wvec') (vec: alpha = 0),
+//   du = dm * silu'(u),  ds' = bf16(du @ W2'^T),  dz = ds' * silu'(u1),
+//   dW2 = sum s'^T du and dwvec = sum coef * bf16(m), each summed in fp32
+//   over the call and rounded to bf16 once, by egnn_bwd_reduce.
+// du is not rounded (autograd and JAX's dot_general transpose do not), so
+// the products keep an fp32 operand: the same TF32 mma.sync path, without
+// the split terms that vanish on bf16-exact operands (exact in TF32): the
+// recompute s' @ W2' one pass, ds' = du @ W2'^T and s'^T du two each (du's
+// big and small parts), 5 passes where fp32 takes 9.  z is taken in the
+// plain version's order (pre_exact) before its rounding.  On an NVIDIA
+// H100 80GB HBM3 (700 W; chip_smoke.py [bf16train]) it takes 0.87-1.05x
+// the fp32 backward's time on the same call: four passes fewer left the
+// elementwise chain and the epilogues, which bound both.
+//
+// One kernel, edge_chain_bwd_mma<H, VEC, BF16>, with two epilogues: VEC false
 // is the backward of gcl_messages (the attention gate), VEC true that of
 // edge_vector_reduce (one weight set, or the difference + cross pair
 // through blockIdx.z).  Everything else exists once:
@@ -372,8 +394,10 @@ size_t mma_smem_bytes(int R, int N) {
 // acc (16 edges x NT n tiles from column n8) += A (16 x 16 of this chunk)
 // @ chunk (16 x H, split pairs as pack_w2 lays them out); zl / zh: the
 // thread's A values of its two edges g, g + 8 at k = 4t..4t+3 of the
-// chunk.  The forward's loop.
-template <int H, int NT>
+// chunk.  The forward's loop.  A_EXACT / B_EXACT: that operand is exact in
+// TF32 (a bf16 value; B's small parts are then 0), and the split terms of
+// its small part are left out.
+template <int H, int NT, bool A_EXACT = false, bool B_EXACT = false>
 __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
                                           const float* stage,
                                           const float (&zl)[4],
@@ -383,11 +407,14 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
     const float2* wst = reinterpret_cast<const float2*>(stage) + n8;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
+        const float av[4] = {zl[2 * half], zh[2 * half], zl[2 * half + 1],
+                             zh[2 * half + 1]};
         uint32_t ab[4], asml[4];
-        split_tf32(zl[2 * half], ab[0], asml[0]);
-        split_tf32(zh[2 * half], ab[1], asml[1]);
-        split_tf32(zl[2 * half + 1], ab[2], asml[2]);
-        split_tf32(zh[2 * half + 1], ab[3], asml[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if constexpr (A_EXACT) ab[i] = __float_as_uint(av[i]);
+            else split_tf32(av[i], ab[i], asml[i]);
+        }
         const float2* wk = wst + (half * 8 + t) * LD + g;
 #pragma unroll
         for (int n0 = 0; n0 < NT; n0 += NG) {
@@ -401,17 +428,39 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[NT][4],
                 bb1[j] = __float_as_uint(f1.x);
                 bs1[j] = __float_as_uint(f1.y);
             }
+            if constexpr (!B_EXACT) {
 #pragma unroll
-            for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], ab, bs0[j], bs1[j]);
+                for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], ab, bs0[j], bs1[j]);
+            }
+            if constexpr (!A_EXACT) {
 #pragma unroll
-            for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], asml, bb0[j], bb1[j]);
+                for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], asml, bb0[j], bb1[j]);
+            }
 #pragma unroll
             for (int j = 0; j < NG; ++j) mma_tf32(acc[n0 + j], ab, bb0[j], bb1[j]);
         }
     }
 }
 
-template <int H, bool VEC>
+// the edge pre-activation u1: in the fp32 kernel with fused multiply-adds,
+// in the bf16 one in the plain version's order (its silu is rounded)
+template <bool BF16>
+__device__ __forceinline__ float edge_pre(float a, float b, float dc,
+                                          float w0, float di, float w1) {
+    if constexpr (BF16) return pre_exact(a, b, dc, w0, di, w1);
+    else return fmaf(di, w1, fmaf(dc, w0, a + b));
+}
+
+// s = silu(u1) as the product takes it: rounded to bf16 in the bf16 kernel
+template <bool BF16>
+__device__ __forceinline__ float edge_s(float a, float b, float dc, float w0,
+                                        float di, float w1) {
+    const float s = silu_fast(edge_pre<BF16>(a, b, dc, w0, di, w1));
+    if constexpr (BF16) return bf16_rn(s);
+    else return s;
+}
+
+template <int H, bool VEC, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 edge_chain_bwd_mma(const Args p) {
     using C = MCfg<H>;
@@ -498,7 +547,7 @@ edge_chain_bwd_mma(const Args p) {
         we0[i] = ws.we[i];
         we1[i] = ws.we[H + i];
         b2s[i] = ws.b2[i];
-        wvs[i] = ws.wvec[i];
+        wvs[i] = BF16 ? bf16_rn(ws.wvec[i]) : ws.wvec[i];
     }
     // the partial sums added to run by run start at zero
     for (int i = tid; i < N * H; i += THREADS) part[L.b + i] = 0.f;
@@ -594,17 +643,18 @@ edge_chain_bwd_mma(const Args p) {
                 const float4 w0 = *reinterpret_cast<const float4*>(we0 + kq);
                 const float4 w1 = *reinterpret_cast<const float4*>(we1 + kq);
                 const float zl[4] = {
-                    silu_fast(fmaf(di_lo, w1.x, fmaf(dc_lo, w0.x, al.x + bl.x))),
-                    silu_fast(fmaf(di_lo, w1.y, fmaf(dc_lo, w0.y, al.y + bl.y))),
-                    silu_fast(fmaf(di_lo, w1.z, fmaf(dc_lo, w0.z, al.z + bl.z))),
-                    silu_fast(fmaf(di_lo, w1.w, fmaf(dc_lo, w0.w, al.w + bl.w)))};
+                    edge_s<BF16>(al.x, bl.x, dc_lo, w0.x, di_lo, w1.x),
+                    edge_s<BF16>(al.y, bl.y, dc_lo, w0.y, di_lo, w1.y),
+                    edge_s<BF16>(al.z, bl.z, dc_lo, w0.z, di_lo, w1.z),
+                    edge_s<BF16>(al.w, bl.w, dc_lo, w0.w, di_lo, w1.w)};
                 const float zh[4] = {
-                    silu_fast(fmaf(di_hi, w1.x, fmaf(dc_hi, w0.x, ah.x + bh.x))),
-                    silu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y))),
-                    silu_fast(fmaf(di_hi, w1.z, fmaf(dc_hi, w0.z, ah.z + bh.z))),
-                    silu_fast(fmaf(di_hi, w1.w, fmaf(dc_hi, w0.w, ah.w + bh.w)))};
-                mma_chunk<H>(acc, ring + (q % VSTAGES) * KC * LDR * 2, zl, zh,
-                             g, t, n8);
+                    edge_s<BF16>(ah.x, bh.x, dc_hi, w0.x, di_hi, w1.x),
+                    edge_s<BF16>(ah.y, bh.y, dc_hi, w0.y, di_hi, w1.y),
+                    edge_s<BF16>(ah.z, bh.z, dc_hi, w0.z, di_hi, w1.z),
+                    edge_s<BF16>(ah.w, bh.w, dc_hi, w0.w, di_hi, w1.w)};
+                mma_chunk<H, NT, BF16, BF16>(
+                    acc, ring + (q % VSTAGES) * KC * LDR * 2, zl, zh, g, t,
+                    n8);
             }
             PROF_T(p1);
             PROF_ADD(2, p0, p1);
@@ -626,13 +676,15 @@ edge_chain_bwd_mma(const Args p) {
                     acc[nt][1] += bias.y;
                     acc[nt][2] += bias.x;
                     acc[nt][3] += bias.y;
-                    float sg[4];
+                    float sg[4], mq[4];
 #pragma unroll
-                    for (int i = 0; i < 4; ++i) sg[i] = sigm_fast(acc[nt][i]);
-                    dot_lo = fmaf(acc[nt][0] * sg[0], wv.x,
-                                  fmaf(acc[nt][1] * sg[1], wv.y, dot_lo));
-                    dot_hi = fmaf(acc[nt][2] * sg[2], wv.x,
-                                  fmaf(acc[nt][3] * sg[3], wv.y, dot_hi));
+                    for (int i = 0; i < 4; ++i) {
+                        sg[i] = sigm_fast(acc[nt][i]);
+                        mq[i] = acc[nt][i] * sg[i];   // m as the dot takes it
+                        if constexpr (BF16) mq[i] = bf16_rn(mq[i]);
+                    }
+                    dot_lo = fmaf(mq[0], wv.x, fmaf(mq[1], wv.y, dot_lo));
+                    dot_hi = fmaf(mq[2], wv.x, fmaf(mq[3], wv.y, dot_hi));
                     if constexpr (!VEC) {
                         const float2 gl = *reinterpret_cast<const float2*>(gr_lo + c0);
                         const float2 gh = *reinterpret_cast<const float2*>(gr_hi + c0);
@@ -764,10 +816,16 @@ edge_chain_bwd_mma(const Args p) {
                             const float u = acc[nt][i];
                             const float sg = sgs[i];
                             const float w = i & 1 ? wv.y : wv.x;
+                            // m and the gradient of m in the dot, rounded
+                            // where the forward rounded m
                             m[i] = u * sg;
-                            const float dm = VEC ? coef[i >> 1] * w
-                                                 : fmaf(alpha[i >> 1], gv[i],
-                                                        coef[i >> 1] * w);
+                            float dw = coef[i >> 1] * w;
+                            if constexpr (BF16) {
+                                m[i] = bf16_rn(m[i]);
+                                dw = bf16_rn(dw);
+                            }
+                            const float dm = VEC ? dw
+                                                 : fmaf(alpha[i >> 1], gv[i], dw);
                             d[i] = dm * (sg * (1.f + u * (1.f - sg)));
                         }
                         v[2 * j] = fmaf(coef[0], m[0], coef[1] * m[2]);
@@ -862,14 +920,16 @@ edge_chain_bwd_mma(const Args p) {
                         const float2 w0 = *reinterpret_cast<const float2*>(we0 + k);
                         const float2 w1 = *reinterpret_cast<const float2*>(we1 + k);
                         // a0 (k, ea) a1 (k+1, ea) a2 (k, eb) a3 (k+1, eb)
-                        split_tf32(silu_fast(fmaf(dia, w1.x, fmaf(dca, w0.x, xa.x + ya[mt].x))),
-                                   sb[mt][0], ss[mt][0]);
-                        split_tf32(silu_fast(fmaf(dia, w1.y, fmaf(dca, w0.y, xa.y + ya[mt].y))),
-                                   sb[mt][1], ss[mt][1]);
-                        split_tf32(silu_fast(fmaf(dib, w1.x, fmaf(dcb, w0.x, xb.x + yb[mt].x))),
-                                   sb[mt][2], ss[mt][2]);
-                        split_tf32(silu_fast(fmaf(dib, w1.y, fmaf(dcb, w0.y, xb.y + yb[mt].y))),
-                                   sb[mt][3], ss[mt][3]);
+                        const float sv[4] = {
+                            edge_s<BF16>(xa.x, ya[mt].x, dca, w0.x, dia, w1.x),
+                            edge_s<BF16>(xa.y, ya[mt].y, dca, w0.y, dia, w1.y),
+                            edge_s<BF16>(xb.x, yb[mt].x, dcb, w0.x, dib, w1.x),
+                            edge_s<BF16>(xb.y, yb[mt].y, dcb, w0.y, dib, w1.y)};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            if constexpr (BF16) sb[mt][i] = __float_as_uint(sv[i]);
+                            else split_tf32(sv[i], sb[mt][i], ss[mt][i]);
+                        }
                     }
                     if (ks + 1 < n_ks) load_b(ks + 1);
                     // NGB n tiles at a time, one product term after the
@@ -890,11 +950,13 @@ edge_chain_bwd_mma(const Args p) {
 #pragma unroll
                             for (int mt = 0; mt < MTW; ++mt)
                                 mma_tf32(d[mt][n0 + j], sb[mt], ds0[j], ds1[j]);
+                        if constexpr (!BF16) {    // s' is exact in bf16
 #pragma unroll
-                        for (int j = 0; j < NGB; ++j)
+                            for (int j = 0; j < NGB; ++j)
 #pragma unroll
-                            for (int mt = 0; mt < MTW; ++mt)
-                                mma_tf32(d[mt][n0 + j], ss[mt], db0[j], db1[j]);
+                                for (int mt = 0; mt < MTW; ++mt)
+                                    mma_tf32(d[mt][n0 + j], ss[mt], db0[j], db1[j]);
+                        }
 #pragma unroll
                         for (int j = 0; j < NGB; ++j)
 #pragma unroll
@@ -948,8 +1010,9 @@ edge_chain_bwd_mma(const Args p) {
                     sDU + el_hi * LDU + c * KC + 4 * t);
                 const float zl[4] = {dl.x, dl.y, dl.z, dl.w};
                 const float zh[4] = {dh.x, dh.y, dh.z, dh.w};
-                mma_chunk<H>(acc, ring + (q % VSTAGES) * KC * LDR * 2, zl, zh,
-                             g, t, n8);
+                mma_chunk<H, NT, false, BF16>(
+                    acc, ring + (q % VSTAGES) * KC * LDR * 2, zl, zh, g, t,
+                    n8);
             }
             PROF_T(p5);
             PROF_ADD(2, p4, p5);
@@ -977,10 +1040,14 @@ edge_chain_bwd_mma(const Args p) {
                         bhs[nt % LB] = __ldg(reinterpret_cast<const float2*>(
                             b_hi + c0 + LB * 8));
                     }
-                    acc[nt][0] *= dsilu_fast(fmaf(di_lo, w1.x, fmaf(dc_lo, w0.x, al.x + bl.x)));
-                    acc[nt][1] *= dsilu_fast(fmaf(di_lo, w1.y, fmaf(dc_lo, w0.y, al.y + bl.y)));
-                    acc[nt][2] *= dsilu_fast(fmaf(di_hi, w1.x, fmaf(dc_hi, w0.x, ah.x + bh.x)));
-                    acc[nt][3] *= dsilu_fast(fmaf(di_hi, w1.y, fmaf(dc_hi, w0.y, ah.y + bh.y)));
+                    if constexpr (BF16) {     // ds' rounded, as s' was
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) acc[nt][i] = bf16_rn(acc[nt][i]);
+                    }
+                    acc[nt][0] *= dsilu_fast(edge_pre<BF16>(al.x, bl.x, dc_lo, w0.x, di_lo, w1.x));
+                    acc[nt][1] *= dsilu_fast(edge_pre<BF16>(al.y, bl.y, dc_lo, w0.y, di_lo, w1.y));
+                    acc[nt][2] *= dsilu_fast(edge_pre<BF16>(ah.x, bh.x, dc_hi, w0.x, di_hi, w1.x));
+                    acc[nt][3] *= dsilu_fast(edge_pre<BF16>(ah.y, bh.y, dc_hi, w0.y, di_hi, w1.y));
                     dd[0] = fmaf(acc[nt][0], w0.x, fmaf(acc[nt][1], w0.y, dd[0]));
                     dd[1] = fmaf(acc[nt][0], w1.x, fmaf(acc[nt][1], w1.y, dd[1]));
                     dd[2] = fmaf(acc[nt][2], w0.x, fmaf(acc[nt][3], w0.y, dd[2]));
@@ -1186,6 +1253,7 @@ struct RedArgs {
     float* dd2c;    // pair: [2, B, N, N] planes, summed into the first
     float* dd2i;
     int B, N, H, G, P, n_sets, vec;
+    int bf16;       // dw2 and dwvec rounded to bf16 (the bf16 backward)
 };
 
 // every sum across blocks, each element by one thread in a fixed order
@@ -1218,7 +1286,7 @@ edge_chain_bwd_reduce(const RedArgs p) {
                 float s = 0.f;
 #pragma unroll 8
                 for (int r = 0; r < B * G; ++r) s += r0[(size_t)r * p.P];
-                o.dw2[i] = s;
+                o.dw2[i] = p.bf16 ? bf16_rn(s) : s;
             } else if (i < n_w2 + n_b) {
                 i -= n_w2;
                 const int bi = (int)(i / ((long)N * H));
@@ -1235,7 +1303,7 @@ edge_chain_bwd_reduce(const RedArgs p) {
                 for (int r = 0; r < B * G; ++r) s += r0[(size_t)r * p.P];
                 if (i < H) o.db2[i] = s;
                 else if (i < 3 * H) o.dwe[i - H] = s;
-                else o.dwvec[i - 3 * H] = s;
+                else o.dwvec[i - 3 * H] = p.bf16 ? bf16_rn(s) : s;
             }
             continue;
         }
@@ -1312,12 +1380,12 @@ int pick_rows(int B, int rows, int N, int n_sets, bool vec) {
                : pick_rows<H, false>(B, rows, N, n_sets);
 }
 
-template <int H, bool VEC>
+template <int H, bool VEC, bool BF16>
 int launch(const Args& args, int n_sets, cudaStream_t stream) {
     static bool configured = false;
     if (!configured) {
         cudaError_t e = cudaFuncSetAttribute(
-            edge_chain_bwd_mma<H, VEC>,
+            edge_chain_bwd_mma<H, VEC, BF16>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
         if (e != cudaSuccess) return (int)e;
         configured = true;
@@ -1325,8 +1393,17 @@ int launch(const Args& args, int n_sets, cudaStream_t stream) {
     const size_t smem = mma_smem_bytes<H, VEC>(args.R, args.N);
     if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     dim3 grid(args.G, args.B, n_sets);
-    edge_chain_bwd_mma<H, VEC><<<grid, THREADS, smem, stream>>>(args);
+    edge_chain_bwd_mma<H, VEC, BF16><<<grid, THREADS, smem, stream>>>(args);
     return (int)cudaGetLastError();
+}
+
+template <int H>
+int launch(const Args& args, int n_sets, bool vec, bool bf16,
+           cudaStream_t stream) {
+    if (vec) return bf16 ? launch<H, true, true>(args, n_sets, stream)
+                         : launch<H, true, false>(args, n_sets, stream);
+    return bf16 ? launch<H, false, true>(args, n_sets, stream)
+                : launch<H, false, false>(args, n_sets, stream);
 }
 
 }  // namespace
@@ -1356,10 +1433,11 @@ int egnn_bwd_layout(int B, int N, int H, int n_rows, int n_sets, int vec,
 }
 
 // set0 / set1: a, b, we, w2, w2t, b2, wvec, da, dd2c, dd2i (dd2c and dd2i
-// may be null: not written; w2 and w2t are pack_w2 of W2 and of W2^T);
-// shared: gout, d2c, d2i, adj, x, center, batt, part; ints: B, N, H,
-// n_rows, n_sets, vec, flag (attention or tanh), cross of set 0 (set 1 is
-// the cross direction); floats: coords_range, norm_constant, norm_factor.
+// may be null: not written; w2 and w2t are pack_w2 of W2 and of W2^T, in
+// bf16 of W2 rounded to bf16); shared: gout, d2c, d2i, adj, x,
+// center, batt, part; ints: B, N, H, n_rows, n_sets, vec, flag (attention
+// or tanh), cross of set 0 (set 1 is the cross direction), bf16; floats:
+// coords_range, norm_constant, norm_factor.
 // Writes da rows < n_rows, the dd2c / dd2i entries with adj != 0 and every
 // block's partial record.
 int egnn_bwd_edges(void* const* set0, void* const* set1, void* const* shared,
@@ -1391,21 +1469,19 @@ int egnn_bwd_edges(void* const* set0, void* const* set1, void* const* shared,
     p.coords_range = fa[0]; p.norm_constant = fa[1]; p.norm_factor = fa[2];
     const int n_sets = ia[4];
     cudaStream_t st = (cudaStream_t)stream;
-    const bool vec = ia[5];
+    const bool vec = ia[5], bf16 = ia[8];
     switch (ia[2]) {
-        case 128: return vec ? launch<128, true>(p, n_sets, st)
-                             : launch<128, false>(p, n_sets, st);
-        case 192: return vec ? launch<192, true>(p, n_sets, st)
-                             : launch<192, false>(p, n_sets, st);
-        case 256: return vec ? launch<256, true>(p, n_sets, st)
-                             : launch<256, false>(p, n_sets, st);
+        case 128: return launch<128>(p, n_sets, vec, bf16, st);
+        case 192: return launch<192>(p, n_sets, vec, bf16, st);
+        case 256: return launch<256>(p, n_sets, vec, bf16, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 // set0 / set1: dw2, db, db2, dwe, dwvec; shared: part, dx, dcenter, dbatt,
 // dd2c planes, dd2i planes (null where not wanted; the planes are summed
-// only for two sets); ints: B, N, H, n_rows, n_sets, vec.
+// only for two sets); ints: B, N, H, n_rows, n_sets, vec, (unread: flag,
+// cross), bf16 (dw2 and dwvec rounded to bf16).
 int egnn_bwd_reduce(void* const* set0, void* const* set1, void* const* shared,
                     const int* ia, void* stream) {
     int lay[3];
@@ -1425,7 +1501,7 @@ int egnn_bwd_reduce(void* const* set0, void* const* set1, void* const* shared,
     p.dd2c = (float*)shared[4];
     p.dd2i = (float*)shared[5];
     p.B = ia[0]; p.N = ia[1]; p.H = ia[2]; p.G = lay[1]; p.P = lay[2];
-    p.n_sets = ia[4]; p.vec = ia[5];
+    p.n_sets = ia[4]; p.vec = ia[5]; p.bf16 = ia[8];
     const int blocks = 4 * sm_count();
     edge_chain_bwd_reduce<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();

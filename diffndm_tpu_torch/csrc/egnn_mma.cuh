@@ -1,6 +1,7 @@
 // Tensor-core and bulk-copy helpers shared by the EGNN edge-chain kernels
 // (egnn_edge.cu) and their backward (egnn_edge_bwd.cu), for sm_90a: the
-// TF32 split and mma.sync.m16n8k8, the bf16 packing of an operand pair,
+// TF32 split and mma.sync.m16n8k8, the bf16 packing of an operand pair and
+// the bf16 rounding, the edge pre-activation in the plain version's order,
 // and the mbarrier + cp.async.bulk copies.
 #pragma once
 
@@ -40,6 +41,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     uint32_t r;
     asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
     return r;
+}
+
+// v rounded to bf16 (nearest even), as a float
+__device__ __forceinline__ float bf16_rn(float v) {
+    return __uint_as_float(pack_bf16x2(v, 0.f) << 16);
+}
+
+// ((a + b) + dc * w0) + di * w1, each operation rounded: the plain
+// version's order, no fused multiply-add (the bf16 kernels round silu of
+// it, and so meet the plain version's rounding of z)
+__device__ __forceinline__ float pre_exact(float a, float b, float dc,
+                                           float w0, float di, float w1) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(a, b), __fmul_rn(dc, w0)),
+                     __fmul_rn(di, w1));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {

@@ -20,7 +20,7 @@ beside the denoiser's.
 
 The denoiser's precision and sparsity modes are ``EGNNConfig`` fields:
 ``compute_dtype`` ("float32", or "bfloat16": the kernels' bf16 variants,
-forward only), ``neighbors`` (K-nearest-neighbour edges) and
+forward and backward), ``neighbors`` (K-nearest-neighbour edges) and
 ``band_window`` / ``row_tile`` (the sorted band).  Set them with
 ``dataclasses.replace`` on the config before building the model; the
 weights are the same in every mode.  ``enable_banding`` picks the band's

@@ -25,14 +25,19 @@ accuracy; the plain versions are plain fp32.
 ``compute_dtype="bfloat16"`` runs the Pallas kernels' ``mxu_dtype =
 bfloat16`` mode (the JAX package's ``EGNNConfig.compute_dtype``): z, W2, m
 and watt / wout are rounded to bf16 (nearest even) as the operands of their
-products, whose sums stay fp32.  The inputs and the output stay fp32; the
-caller rounds what the JAX package rounds outside its kernels (h, the
-coordinates, d2i, adj, W_e, and the aggregate).  On the card this is the
-bf16 kernel (``wgmma`` with W2 whole in shared memory, packed by
-``pack_w2_bf16``), counted under ``gcl_messages_bf16`` /
-``edge_vector_reduce_bf16``.  It has no backward, so a bf16 call on the
-card in grad mode raises; on the CPU the plain bf16 version differentiates
-through autograd.
+products, whose sums stay fp32; each weight is rounded once per call.  The
+inputs and the output stay fp32; the caller rounds what the JAX package
+rounds outside its kernels (h, the coordinates, d2i, adj, W_e, and the
+aggregate).  On the card this is the bf16 kernel (``wgmma`` with W2 whole
+in shared memory, packed by ``pack_w2_bf16``), counted under
+``gcl_messages_bf16`` / ``edge_vector_reduce_bf16``.  Its backward is the
+VJP of that arithmetic under the cast rule of ``jax.vjp`` and torch
+autograd: a cotangent is rounded to bf16 where the forward rounded an
+operand (ds = du W2'^T, the gradient of bf16(m) in the gate or phi dot),
+and dW2 and dwatt / dwout are summed in fp32 over the call and rounded
+once.  On the card it is the bf16 variant of the backward kernel (counted
+under ``*_bwd_bf16``), on the CPU the plain backward with
+``compute_dtype="bfloat16"``.
 
 In grad mode each wrapper goes through a ``torch.autograd.Function``
 (``_GclMessages``, ``_EdgeVectorReduce``) that saves only its inputs and
@@ -80,7 +85,8 @@ MAX_NODES = 4096
 # either compute dtype); reset with reset_launches()
 LAUNCHES = {"gcl_messages": 0, "edge_vector_reduce": 0,
             "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0,
-            "gcl_messages_bf16": 0, "edge_vector_reduce_bf16": 0}
+            "gcl_messages_bf16": 0, "edge_vector_reduce_bf16": 0,
+            "gcl_messages_bwd_bf16": 0, "edge_vector_reduce_bwd_bf16": 0}
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 # memory budget of one row chunk of the plain [B, T, N, H] chain
@@ -376,7 +382,9 @@ def _packed(w2: torch.Tensor, layout: str) -> torch.Tensor:
         return hit[2]
     w = w2.detach()
     split = {"w2": pack_w2, "w2t": lambda v: pack_w2(v.t()),
-             "bf16": pack_w2_bf16}[layout](w)
+             "bf16": pack_w2_bf16,
+             "w2_bf16": lambda v: pack_w2(bf16_round(v)),
+             "w2t_bf16": lambda v: pack_w2(bf16_round(v).t())}[layout](w)
     _SPLIT_CACHE[key] = (weakref.ref(w2), w2._version, split)
     _SPLIT_CACHE.move_to_end(key)
     while len(_SPLIT_CACHE) > _SPLIT_CACHE_SIZE:
@@ -384,15 +392,18 @@ def _packed(w2: torch.Tensor, layout: str) -> torch.Tensor:
     return split
 
 
-def split_w2(w2: torch.Tensor) -> torch.Tensor:
-    """``pack_w2(w2)``, cached per weight tensor (see ``_packed``)."""
-    return _packed(w2, "w2")
+def split_w2(w2: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``pack_w2(w2)``, cached per weight tensor (see ``_packed``); with
+    ``bf16``, of ``bf16_round(w2)`` (exact in TF32: the split's small
+    parts are 0), the B operand of the bf16 backward's recompute."""
+    return _packed(w2, "w2_bf16" if bf16 else "w2")
 
 
-def split_w2t(w2: torch.Tensor) -> torch.Tensor:
+def split_w2t(w2: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """``pack_w2(w2.t())``, the B operand of du @ W2^T in the backward,
-    cached per weight tensor W2 (see ``_packed``)."""
-    return _packed(w2, "w2t")
+    cached per weight tensor W2 (see ``_packed``); with ``bf16``, of the
+    transpose of ``bf16_round(w2)``."""
+    return _packed(w2, "w2t_bf16" if bf16 else "w2t")
 
 
 def pack_w2_bf16_cached(w2: torch.Tensor) -> torch.Tensor:
@@ -426,10 +437,12 @@ def rounding(compute_dtype: str):
     return bf16_round if _is_bf16(compute_dtype) else _identity
 
 
-def _edge_messages(a, b, d2c, d2i, we, w2, b2, rnd=_identity):
-    """m = silu(rnd(silu(u1)) @ rnd(W2) + b2) for a row chunk ->
-    [B, T, N, H]."""
-    return F.silu(rnd(F.silu(_edge_pre(a, b, d2c, d2i, we))) @ rnd(w2) + b2)
+def _edge_messages(a, b, d2c, d2i, we, w2r, b2, rnd=_identity):
+    """m = silu(rnd(silu(u1)) @ w2r + b2) for a row chunk -> [B, T, N, H];
+    w2r is W2 as the call rounded it, once (a weight rounded per chunk
+    would have its gradient rounded per chunk, and so depend on the
+    chunking)."""
+    return F.silu(rnd(F.silu(_edge_pre(a, b, d2c, d2i, we))) @ w2r + b2)
 
 
 def _direction(xr, xc, center, cross: bool, norm_constant: float):
@@ -472,15 +485,16 @@ def gcl_messages_plain(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
                        attention: bool = True, norm_factor: float = 100.0,
                        compute_dtype: str = "float32"):
     rnd = rounding(compute_dtype)
+    w2r, wattr = rnd(w2), rnd(watt)
     bsz, n, h = a.shape
     out = torch.empty((bsz, n, h), dtype=a.dtype, device=a.device)
     step = _row_chunk(bsz, n, h)
     for i0 in range(0, n, step):
         i1 = min(n, i0 + step)
         m = _edge_messages(a[:, i0:i1], b, d2c[:, i0:i1], d2i[:, i0:i1],
-                           we, w2, b2, rnd)
+                           we, w2r, b2, rnd)
         if attention:
-            att = rnd(m) @ rnd(watt)
+            att = rnd(m) @ wattr
             if batt is not None:
                 att = att + batt
             m = m * torch.sigmoid(att)
@@ -497,6 +511,7 @@ def edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
                              n_rows: Optional[int] = None,
                              compute_dtype: str = "float32"):
     rnd = rounding(compute_dtype)
+    w2r, woutr = rnd(w2), rnd(wout)
     bsz, n, h = a.shape
     rows = _clamp_rows(n, n_rows)
     out = torch.zeros((bsz, n, 3), dtype=a.dtype, device=a.device)
@@ -504,8 +519,8 @@ def edge_vector_reduce_plain(a, b, d2c, d2i, adj, x, center, we, w2, b2,
     for i0 in range(0, rows, step):
         i1 = min(rows, i0 + step)
         m = _edge_messages(a[:, i0:i1], b, d2c[:, i0:i1], d2i[:, i0:i1],
-                           we, w2, b2, rnd)
-        phi = (rnd(m) @ rnd(wout))[..., 0]             # [B, T, N]
+                           we, w2r, b2, rnd)
+        phi = (rnd(m) @ woutr)[..., 0]                 # [B, T, N]
         if tanh:
             phi = torch.tanh(phi) * coords_range
         w = phi * adj[:, i0:i1]
@@ -542,16 +557,19 @@ def _zeros(*tensors):
     return [torch.zeros_like(t) for t in tensors]
 
 
-def _chain_backward(dm, u1, s, u, w2, we, d2c, d2i, grads, i0, i1):
+def _chain_backward(dm, u1, s, u, w2, we, d2c, d2i, grads, i0, i1,
+                    rnd=_identity):
     """From dm, the gradient of m over a row chunk [B, T, N, H], to the
     chain's inputs: adds into grads = [da, db, dd2c, dd2i, dwe, dw2, db2]
-    (dd2c and dd2i rows i0:i1 are written)."""
+    (dd2c and dd2i rows i0:i1 are written).  s and w2 are the operands of
+    the product as the forward rounded them; ``rnd`` rounds the gradient
+    of s, as the cast rule does where the forward rounded silu(u1)."""
     da, db, dd2c, dd2i, dwe, dw2, db2 = grads
     h = u.shape[-1]
     du = dm * _dsilu(u)
     db2 += du.sum((0, 1, 2))
     dw2 += s.reshape(-1, h).T @ du.reshape(-1, h)
-    dz = (du @ w2.T) * _dsilu(u1)
+    dz = rnd(du @ w2.T) * _dsilu(u1)
     da[:, i0:i1] += dz.sum(2)
     db += dz.sum(1)
     dd2c[:, i0:i1] = dz @ we[0]
@@ -560,12 +578,14 @@ def _chain_backward(dm, u1, s, u, w2, we, d2c, d2i, grads, i0, i1):
     dwe[1] += (dz * d2i[..., None]).sum((0, 1, 2))
 
 
-def _fp32_backward(name: str, compute_dtype: str) -> None:
-    """The plain backwards are those of the fp32 forwards; a bf16 forward
-    differentiates through autograd of its plain version, on the CPU."""
-    if _is_bf16(compute_dtype):
-        raise ValueError(f"{name}: the plain backward is float32 only; "
-                         f"differentiate the bf16 plain forward instead")
+def _dot_backward(coef, m, wr, rnd=_identity):
+    """The VJP of the per-edge dot rnd(m) . wr (wr [H, 1] as the call
+    rounded it) for the dot's gradient coef [B, T, N, 1]: the gradient of
+    rnd(m), rounded as the cast rule rounds it, and sum coef * rnd(m) over
+    the chunk's edges [H, 1], the weight's gradient before its one
+    rounding per call."""
+    return (rnd(coef * wr[:, 0]),
+            (coef * rnd(m)).sum((0, 1, 2))[:, None])
 
 
 def gcl_messages_backward_plain(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
@@ -578,8 +598,15 @@ def gcl_messages_backward_plain(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
     None).  With g = gout_i * adj_ij / norm_factor per edge:
     dm = g * gate + (g . m) * gate * (1 - gate) * watt, then the chain.
     Recomputed in row chunks; nothing of [B, N, N, H] size is kept.
-    Float32 only (``_fp32_backward``)."""
-    _fp32_backward("gcl_messages", compute_dtype)
+
+    In bf16 (rnd the rounding, ' a rounded value): s' = rnd(silu(u1)),
+    W2' and watt' rounded once; the gate reads rnd(m) . watt'; the
+    gradient of rnd(m), datt * watt', is rounded before it joins dm, and
+    that of s', du W2'^T, before silu'(u1); dW2 = sum s'^T du and dwatt =
+    sum datt rnd(m) are fp32 sums over the call, rounded once at the end.
+    """
+    rnd = rounding(compute_dtype)
+    w2r, wattr = rnd(w2), rnd(watt)
     bsz, n, h = a.shape
     da, db, dd2c, dd2i, dwe, dw2, db2, dwatt = _zeros(a, b, d2c, d2i, we, w2,
                                                       b2, watt)
@@ -590,24 +617,27 @@ def gcl_messages_backward_plain(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
         i1 = min(n, i0 + step)
         d2c_c, d2i_c = d2c[:, i0:i1], d2i[:, i0:i1]
         u1 = _edge_pre(a[:, i0:i1], b, d2c_c, d2i_c, we)
-        s = F.silu(u1)
-        u = s @ w2 + b2
+        s = rnd(F.silu(u1))
+        u = s @ w2r + b2
         m = F.silu(u)
         g = gout[:, i0:i1, None, :] * (adj[:, i0:i1, :, None] / norm_factor)
         if attention:
-            att = m @ watt
+            mr = rnd(m)
+            att = mr @ wattr
             if batt is not None:
                 att = att + batt
             gate = torch.sigmoid(att)
             datt = (g * m).sum(-1, keepdim=True) * gate * (1.0 - gate)
-            dm = g * gate + datt * watt[:, 0]
-            dwatt += (datt * m).sum((0, 1, 2))[:, None]
+            dmr, dw = _dot_backward(datt, m, wattr, rnd)
+            dm = g * gate + dmr
+            dwatt += dw
             if dbatt is not None:
                 dbatt += datt.sum()
         else:
             dm = g
-        _chain_backward(dm, u1, s, u, w2, we, d2c_c, d2i_c, grads, i0, i1)
-    return da, db, dd2c, dd2i, None, dwe, dw2, db2, dwatt, dbatt
+        _chain_backward(dm, u1, s, u, w2r, we, d2c_c, d2i_c, grads, i0, i1,
+                        rnd)
+    return da, db, dd2c, dd2i, None, dwe, rnd(dw2), db2, rnd(dwatt), dbatt
 
 
 def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
@@ -624,8 +654,12 @@ def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
     Per edge: dphi = adj / norm_factor * (gout_i . v_ij), through the
     tanh to dm = dphi' * wout, then the chain; and the direction's own
     gradient, w * gout_i with w = adj * phi / norm_factor, to x_i, x_j
-    and (cross) the centre.  Rows at or beyond n_rows give nothing."""
-    _fp32_backward("edge_vector_reduce", compute_dtype)
+    and (cross) the centre.  Rows at or beyond n_rows give nothing.  In
+    bf16 the rounding points of ``gcl_messages_backward_plain``, with phi
+    reading rnd(m) . wout', dm = rnd(dphi' wout') and dwout = sum dphi'
+    rnd(m) rounded once."""
+    rnd = rounding(compute_dtype)
+    w2r, woutr = rnd(w2), rnd(wout)
     bsz, n, h = a.shape
     rows = _clamp_rows(n, n_rows)
     da, db, dd2c, dd2i, dx, dcenter, dwe, dw2, db2, dwout = _zeros(
@@ -636,10 +670,10 @@ def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
         i1 = min(rows, i0 + step)
         d2c_c, d2i_c = d2c[:, i0:i1], d2i[:, i0:i1]
         u1 = _edge_pre(a[:, i0:i1], b, d2c_c, d2i_c, we)
-        s = F.silu(u1)
-        u = s @ w2 + b2
+        s = rnd(F.silu(u1))
+        u = s @ w2r + b2
         m = F.silu(u)
-        dot = (m @ wout)[..., 0]                       # [B, T, N]
+        dot = (rnd(m) @ woutr)[..., 0]                 # [B, T, N]
         phi = torch.tanh(dot) * coords_range if tanh else dot
         v, back = _direction(x[:, i0:i1, None, :], x[:, None, :, :], center,
                              cross, norm_constant)
@@ -648,15 +682,17 @@ def edge_vector_reduce_backward_plain(gout, a, b, d2c, d2i, adj, x, center,
         dphi = av * (g * v).sum(-1)
         if tanh:
             dphi = dphi * coords_range * (1.0 - torch.tanh(dot) ** 2)
-        dm = dphi[..., None] * wout[:, 0]
-        dwout += (dphi[..., None] * m).sum((0, 1, 2))[:, None]
+        dm, dw = _dot_backward(dphi[..., None], m, woutr, rnd)
+        dwout += dw
         gp, gq = back((av * phi)[..., None] * g)
         dx[:, i0:i1] += gp.sum(2)
         dx += gq.sum(1)
         if cross:
             dcenter -= (gp.sum((1, 2)) + gq.sum((1, 2)))[:, None, :]
-        _chain_backward(dm, u1, s, u, w2, we, d2c_c, d2i_c, grads, i0, i1)
-    return da, db, dd2c, dd2i, None, dx, dcenter, dwe, dw2, db2, dwout
+        _chain_backward(dm, u1, s, u, w2r, we, d2c_c, d2i_c, grads, i0, i1,
+                        rnd)
+    return (da, db, dd2c, dd2i, None, dx, dcenter, dwe, rnd(dw2), db2,
+            rnd(dwout))
 
 
 # argument positions of the vector reduction shared by both sets
@@ -800,7 +836,8 @@ def _bwd_layout(bsz: int, n: int, h: int, rows: int, n_sets: int,
 def bwd_launch_grid(name: str, bsz: int, n: int, h: int,
                     n_rows: Optional[int] = None) -> tuple:
     """(blocks, rows per block) of the first of the two launches that the
-    backward of wrapper ``name`` makes at these sizes."""
+    backward of wrapper ``name`` makes at these sizes.  The bf16 backward
+    takes the fp32 one's shared memory and grid."""
     rows = _clamp_rows(n, n_rows)
     if rows == 0:
         return 0, 0
@@ -811,10 +848,12 @@ def bwd_launch_grid(name: str, bsz: int, n: int, h: int,
 
 
 def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
-                                batt, attention, norm_factor, needs):
+                                batt, attention, norm_factor, needs,
+                                bf16=False):
     """Two launches: every block's edges, then the fixed-order sums of
     the blocks' partial records.  Gradients in argument order, None where
-    ``needs`` says none is wanted (d2c and d2i are then not written)."""
+    ``needs`` says none is wanted (d2c and d2i are then not written).
+    ``bf16``: the backward of the bf16 forward (W2 packed rounded)."""
     bsz, n, h = a.shape
     dev = a.device
     if gout.dtype != torch.float32 or gout.device != dev:
@@ -832,32 +871,35 @@ def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
     batt_t = batt if batt is not None else torch.zeros(
         (1,), dtype=torch.float32, device=dev)
     dbatt = torch.empty_like(batt_t)
-    ints = (ctypes.c_int * 8)(bsz, n, h, n, 1, 0, int(bool(attention)), 0)
+    ints = (ctypes.c_int * 9)(bsz, n, h, n, 1, 0, int(bool(attention)), 0,
+                              int(bf16))
     floats = (ctypes.c_float * 3)(0.0, 0.0, float(norm_factor))
     # W2 and W2^T split and packed for the ring, held until both launches
     # are queued
-    w2p, w2tp = split_w2(w2), split_w2t(w2)
+    w2p, w2tp = split_w2(w2, bf16), split_w2t(w2, bf16)
     _launch("gcl_messages backward", dev, lib.egnn_bwd_edges,
             _ptrs(a, b, we, w2p, w2tp, b2, watt, da, dd2c, dd2i),
             _ptrs(*[None] * 10),
             _ptrs(gout, d2c, d2i, adj, None, None, batt_t, part), ints,
             floats)
-    LAUNCHES["gcl_messages_bwd"] += 1
+    _count("gcl_messages_bwd", bf16)
     _launch("gcl_messages backward", dev, lib.egnn_bwd_reduce,
             _ptrs(dw2, db, db2, dwe, dwatt), _ptrs(*[None] * 5),
             _ptrs(part, None, None, dbatt, None, None), ints)
-    LAUNCHES["gcl_messages_bwd"] += 1
+    _count("gcl_messages_bwd", bf16)
     return da, db, dd2c, dd2i, None, dwe, dw2, db2, dwatt, (
         None if batt is None else dbatt)
 
 
 def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
                                       tanh, coords_range, norm_constant,
-                                      cross, norm_factor, n_rows, needs):
+                                      cross, norm_factor, n_rows, needs,
+                                      bf16=False):
     """``sets``: one or two (a, b, we, w2, b2, wout); with two, the first
     is the difference and the second the cross direction.  Returns
     (per-set gradients [(da, db, dwe, dw2, db2, dwout)], dd2c, dd2i, dx,
-    dcenter); dd2c / dd2i None unless ``needs`` = (d2c, d2i) asks."""
+    dcenter); dd2c / dd2i None unless ``needs`` = (d2c, d2i) asks.
+    ``bf16``: the backward of the bf16 forward."""
     a0 = sets[0][0]
     bsz, n, h = a0.shape
     dev = a0.device
@@ -882,7 +924,7 @@ def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
             for i, t in enumerate(s)] for s in sets]
     # W2 and W2^T of each set split and packed for the ring, held until
     # both launches are queued
-    packed = [(split_w2(st[3]), split_w2t(st[3])) for st in sets]
+    packed = [(split_w2(st[3], bf16), split_w2t(st[3], bf16)) for st in sets]
     gout = gout.contiguous()
     set_ptrs = [_ptrs(a, b, we, *packed[s], b2, wout, out[s][0],
                       *(p if p is None else p[s] for p in planes))
@@ -890,20 +932,21 @@ def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
     set_ptrs += [_ptrs(*[None] * 10)] * (2 - n_sets)
     # the direction of the first set: its own for one set, the difference
     # for the pair (whose second set is the cross direction)
-    ints = (ctypes.c_int * 8)(bsz, n, h, rows, n_sets, 1, int(bool(tanh)),
-                              int(bool(cross)) if n_sets == 1 else 0)
+    ints = (ctypes.c_int * 9)(bsz, n, h, rows, n_sets, 1, int(bool(tanh)),
+                              int(bool(cross)) if n_sets == 1 else 0,
+                              int(bf16))
     floats = (ctypes.c_float * 3)(float(coords_range), float(norm_constant),
                                   float(norm_factor))
     name = "edge_vector_reduce backward"
     _launch(name, dev, lib.egnn_bwd_edges, *set_ptrs,
             _ptrs(gout, d2c, d2i, adj, x, center, None, part),
             ints, floats)
-    LAUNCHES["edge_vector_reduce_bwd"] += 1
+    _count("edge_vector_reduce_bwd", bf16)
     red = [_ptrs(o[3], o[1], o[4], o[2], o[5]) for o in out]
     red += [_ptrs(*[None] * 5)] * (2 - n_sets)
     _launch(name, dev, lib.egnn_bwd_reduce, *red,
             _ptrs(part, dx, dcenter, None, *planes), ints)
-    LAUNCHES["edge_vector_reduce_bwd"] += 1
+    _count("edge_vector_reduce_bwd", bf16)
     return out, *(p if p is None else p[0] for p in planes), dx, dcenter
 
 
@@ -911,81 +954,73 @@ def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
 # autograd Functions: the forward and backward of each wrapper
 # ---------------------------------------------------------------------------
 
-def _bf16_forward(name: str, device: torch.device, plain, cuda):
-    """A bf16 call: the plain version on the CPU (through autograd in grad
-    mode), the bf16 kernel on the card, which has no backward."""
-    if device.type == "cpu":
-        return plain()
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
-    if torch.is_grad_enabled():
-        raise RuntimeError(
-            f"{name}: the bf16 kernels have no backward; call them under "
-            f"torch.no_grad(), or use compute_dtype='float32' to train")
-    return cuda()
-
-
 def _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
-                 norm_factor):
+                 norm_factor, compute_dtype):
     if a.device.type == "cpu":
         return gcl_messages_plain(a, b, d2c, d2i, adj, we, w2, b2, watt,
-                                  batt, attention, norm_factor)
+                                  batt, attention, norm_factor, compute_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"gcl_messages: unsupported device {a.device}")
     return _gcl_messages_cuda(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
-                              attention, norm_factor)
+                              attention, norm_factor, _is_bf16(compute_dtype))
 
 
 class _GclMessages(torch.autograd.Function):
-    """``gcl_messages`` with its backward.  Saves only its inputs; the
-    backward recomputes the chain (the CUDA kernels on the card, the plain
-    backward on the CPU)."""
+    """``gcl_messages`` with its backward, in either compute dtype.  Saves
+    only its inputs; the backward recomputes the chain (the CUDA kernels
+    on the card, the plain backward on the CPU)."""
 
     @staticmethod
     def forward(ctx, a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
-                norm_factor):
+                norm_factor, compute_dtype):
         ctx.save_for_backward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt)
-        ctx.opts = (attention, norm_factor)
+        ctx.opts = (attention, norm_factor, compute_dtype)
         return _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
-                            attention, norm_factor)
+                            *ctx.opts)
 
     @staticmethod
     def backward(ctx, gout):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:10]
+        attention, norm_factor, compute_dtype = ctx.opts
         if saved[0].device.type == "cpu":
             grads = gcl_messages_backward_plain(gout, *saved, *ctx.opts)
         else:
-            grads = _gcl_messages_backward_cuda(gout, *saved, *ctx.opts,
-                                                needs)
+            grads = _gcl_messages_backward_cuda(
+                gout, *saved, attention, norm_factor, needs,
+                _is_bf16(compute_dtype))
         return (*(g if want else None for g, want in zip(grads, needs)),
-                None, None)
+                None, None, None)
 
 
 def _vec_forward(opts, d2c, d2i, adj, x, center, sets):
-    tanh, coords_range, norm_constant, cross, norm_factor, n_rows = opts
+    tanh, coords_range, norm_constant, cross, norm_factor, n_rows, \
+        compute_dtype = opts
     a = sets[0][0]
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"edge_vector_reduce: unsupported device {a.device}")
+    cpu = a.device.type == "cpu"
+    dtype = dict(compute_dtype=compute_dtype) if cpu else dict(
+        bf16=_is_bf16(compute_dtype))
     if len(sets) == 1:
-        fn = (edge_vector_reduce_plain if a.device.type == "cpu"
-              else _edge_vector_reduce_cuda)
+        fn = edge_vector_reduce_plain if cpu else _edge_vector_reduce_cuda
         a, b, we, w2, b2, wout = sets[0]
         return fn(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, tanh,
-                  coords_range, norm_constant, cross, norm_factor, n_rows)
-    fn = (edge_vector_reduce_pair_plain if a.device.type == "cpu"
+                  coords_range, norm_constant, cross, norm_factor, n_rows,
+                  **dtype)
+    fn = (edge_vector_reduce_pair_plain if cpu
           else _edge_vector_reduce_pair_cuda)
     a, b, we, w2, b2, wout = zip(*sets)
     return fn(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, tanh,
-              coords_range, norm_constant, norm_factor, n_rows)
+              coords_range, norm_constant, norm_factor, n_rows, **dtype)
 
 
 class _EdgeVectorReduce(torch.autograd.Function):
     """``edge_vector_reduce`` (one weight set) and ``_pair`` (two) with
     their backward.  Arguments: the options (tanh, coords_range,
-    norm_constant, cross, norm_factor, n_rows), the shared d2c, d2i, adj,
-    x, center, then six tensors per set (a, b, we, w2, b2, wout).  Saves
-    only its inputs."""
+    norm_constant, cross, norm_factor, n_rows, compute_dtype), the shared
+    d2c, d2i, adj, x, center, then six tensors per set (a, b, we, w2, b2,
+    wout).  Saves only its inputs."""
 
     @staticmethod
     def forward(ctx, opts, d2c, d2i, adj, x, center, *flat):
@@ -998,8 +1033,8 @@ class _EdgeVectorReduce(torch.autograd.Function):
     def backward(ctx, gout):
         d2c, d2i, adj, x, center, *flat = ctx.saved_tensors
         sets = [flat[i:i + 6] for i in range(0, len(flat), 6)]
-        tanh, coords_range, norm_constant, cross, norm_factor, n_rows = \
-            ctx.opts
+        tanh, coords_range, norm_constant, cross, norm_factor, n_rows, \
+            compute_dtype = ctx.opts
         needs = ctx.needs_input_grad
         if d2c.device.type == "cpu":
             per_set, shared = [], None
@@ -1008,7 +1043,7 @@ class _EdgeVectorReduce(torch.autograd.Function):
                     gout, a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
                     tanh, coords_range, norm_constant,
                     bool(s) if len(sets) == 2 else cross, norm_factor,
-                    n_rows)
+                    n_rows, compute_dtype)
                 per_set.append((g[0], g[1], g[7], g[8], g[9], g[10]))
                 parts = (g[2], g[3], g[5], g[6])
                 shared = parts if shared is None else tuple(
@@ -1018,7 +1053,8 @@ class _EdgeVectorReduce(torch.autograd.Function):
             per_set, dd2c, dd2i, dx, dcenter = \
                 _edge_vector_reduce_backward_cuda(
                     gout, sets, d2c, d2i, adj, x, center, tanh, coords_range,
-                    norm_constant, cross, norm_factor, n_rows, needs[1:3])
+                    norm_constant, cross, norm_factor, n_rows, needs[1:3],
+                    _is_bf16(compute_dtype))
         flat_grads = [g for s in per_set for g in s]
         out = [None, dd2c, dd2i, None, dx, dcenter, *flat_grads]
         return tuple(g if want else None for g, want in zip(out, needs))
@@ -1034,19 +1070,13 @@ def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
     """a, b: [B, N, H] node projections (edge_dst bias folded into b);
     d2c/d2i/adj: [B, N, N]; we: [2, H]; w2: [H, H]; b2: [H]; watt: [H, 1];
     batt: [1] or None.  Returns [B, N, H] float32; differentiable with
-    respect to every argument but adj (in bf16 on the CPU only)."""
-    if _is_bf16(compute_dtype):
-        args = (a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
-                norm_factor)
-        return _bf16_forward(
-            "gcl_messages", a.device,
-            lambda: gcl_messages_plain(*args, compute_dtype),
-            lambda: _gcl_messages_cuda(*args, bf16=True))
+    respect to every argument but adj, in either compute dtype."""
+    _is_bf16(compute_dtype)
+    args = (a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
+            norm_factor, compute_dtype)
     if torch.is_grad_enabled():
-        return _GclMessages.apply(a, b, d2c, d2i, adj, we, w2, b2, watt,
-                                  batt, attention, norm_factor)
-    return _gcl_forward(a, b, d2c, d2i, adj, we, w2, b2, watt, batt,
-                        attention, norm_factor)
+        return _GclMessages.apply(*args)
+    return _gcl_forward(*args)
 
 
 def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
@@ -1059,13 +1089,9 @@ def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
 
     x: [B, N, 3]; center: [B, 1, 3] (joint COM, used when cross=True);
     n_rows: only rows < n_rows are computed, the rest are zero."""
-    opts = (tanh, coords_range, norm_constant, cross, norm_factor, n_rows)
-    if _is_bf16(compute_dtype):
-        args = (a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, *opts)
-        return _bf16_forward(
-            "edge_vector_reduce", a.device,
-            lambda: edge_vector_reduce_plain(*args, compute_dtype),
-            lambda: _edge_vector_reduce_cuda(*args, bf16=True))
+    _is_bf16(compute_dtype)
+    opts = (tanh, coords_range, norm_constant, cross, norm_factor, n_rows,
+            compute_dtype)
     if torch.is_grad_enabled():
         return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center, a, b,
                                        we, w2, b2, wout)
@@ -1093,14 +1119,9 @@ def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
     for key, pair in dict(a=a, b=b, we=we, w2=w2, b2=b2, wout=wout).items():
         if len(pair) != 2:
             raise ValueError(f"{name}: {key} must be a pair of tensors")
-    if _is_bf16(compute_dtype):
-        args = (a, b, d2c, d2i, adj, x, center, we, w2, b2, wout, tanh,
-                coords_range, norm_constant, norm_factor, n_rows)
-        return _bf16_forward(
-            name, a[0].device,
-            lambda: edge_vector_reduce_pair_plain(*args, compute_dtype),
-            lambda: _edge_vector_reduce_pair_cuda(*args, bf16=True))
-    opts = (tanh, coords_range, norm_constant, True, norm_factor, n_rows)
+    _is_bf16(compute_dtype)
+    opts = (tanh, coords_range, norm_constant, True, norm_factor, n_rows,
+            compute_dtype)
     sets = [(a[s], b[s], we[s], w2[s], b2[s], wout[s]) for s in (0, 1)]
     if torch.is_grad_enabled():
         return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center,

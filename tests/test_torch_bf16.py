@@ -27,7 +27,7 @@ through XLA.  Held here, on the same seeded inputs and weights:
   direction maths and keeps fp32 inside a fusion where torch rounds each
   operation; seen: 8e-5 apart, where fp32 lies 4e-3 away.  Tolerance rtol
   1e-3, atol 2e-4 (JAX's own bf16 kernel tests use rtol 2e-2, atol 2e-3);
-- the CPU's plain bf16 path differentiates; the packing of W2 for the bf16
+- the CPU's bf16 path differentiates; the packing of W2 for the bf16
   kernel's ``wgmma`` (an index model of the swizzled layout) and a mirror
   of its rows per block against the shared-memory sums its source states.
 
@@ -156,8 +156,11 @@ def test_edge_vector_reduce_pair_bf16_matches_two_pallas_calls():
 
 
 def test_bf16_plain_differentiates_on_the_cpu():
-    """No bf16 backward kernel exists; on the CPU the plain bf16 version
-    goes through autograd (the rounding passes the gradient on)."""
+    """On the CPU a bf16 call in grad mode goes through the wrapper's
+    autograd Function, whose backward is the plain bf16 backward (the
+    written-out VJP of the bf16 forward; on the card the bf16 backward
+    kernel); tests/test_torch_bf16_backward.py holds it to autograd and
+    to JAX."""
     d = kernel_inputs(4)
     args = torch_args(d, GCL_KEYS)
     a = args[0].clone().requires_grad_(True)

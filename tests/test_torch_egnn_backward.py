@@ -328,10 +328,11 @@ def test_gcl_function_returns_none_where_not_asked(wanted):
     with torch.enable_grad():
         out = K.gcl_messages(*args)
     grads = out.grad_fn.apply(torch.ones_like(out))
-    assert len(grads) == 12
+    # the tensors, then attention, norm_factor and compute_dtype
+    assert len(grads) == 13
     for k, g in zip(GCL_KEYS, grads):
         assert (g is not None) == (k in wanted), k
-    assert grads[10] is None and grads[11] is None
+    assert all(g is None for g in grads[10:])
 
 
 @pytest.mark.parametrize("wanted", [("x", "center"), ("w2",),

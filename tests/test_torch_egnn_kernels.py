@@ -151,7 +151,9 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     assert K.LAUNCHES == {"gcl_messages": 0, "edge_vector_reduce": 0,
                           "gcl_messages_bwd": 0, "edge_vector_reduce_bwd": 0,
                           "gcl_messages_bf16": 0,
-                          "edge_vector_reduce_bf16": 0}
+                          "edge_vector_reduce_bf16": 0,
+                          "gcl_messages_bwd_bf16": 0,
+                          "edge_vector_reduce_bwd_bf16": 0}
 
 
 def test_cpu_wrappers_in_grad_mode_route_backward_through_the_plain_backward(
