@@ -198,7 +198,7 @@ Phases, each of which fails the run on any fault or mismatch:
    rank;
 25. bf16train: training under EGNNConfig.compute_dtype = "bfloat16".
    (a) both bf16 backward kernels (csrc/egnn_edge_bwd.cu,
-   edge_chain_bwd_mma<H, VEC, true>) against the plain bf16 backward in
+   edge_chain_bwd_wgmma<H, VEC>) against the plain bf16 backward in
    float64 on the card (gate BF16_BWD_L2 in relative L2 norm per
    gradient, or twice the distance of the plain bf16 backward in fp32
    where that is further; the weights' gradients bf16 values), on the
@@ -498,7 +498,7 @@ DP_POCKET, DP_T = 220, 60
 DP_PARAM_RTOL = 1e-4
 DP_JOIN_TIMEOUT = 300.0
 # bf16train phase: training under EGNNConfig.compute_dtype = "bfloat16".
-# (a) The bf16 backward kernels (edge_chain_bwd_mma<H, VEC, true>) against
+# (a) The bf16 backward kernels (edge_chain_bwd_wgmma<H, VEC>) against
 # the plain bf16 backward in float64 on the card.  Both round the same
 # values to bf16, but two programs' fp32 sums and transcendentals (the
 # kernel's fast silu, its recomputed u summed in another order than the
@@ -1002,34 +1002,54 @@ def phase_cycles(torch, K, model, pocket, sizes):
                                device=model.device,
                                generator=torch.Generator(device=model.device)
                                .manual_seed(SEED)) * 1e-2
-            call = bwd_call(K, name, args, kw, gout)
-            call()
-            K.read_bwd_profile()
-            call()
-            c = K.read_bwd_profile()
-            blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
-            rest = c["pass"] - c["loops"] - c["dw2"]
-            log(f"[phases] {label} {name} backward {list(a0.shape)}: "
-                f"{c['blocks']} blocks, {c['passes']} passes; cycles per "
-                f"block outside the passes (set-up, list, last writes) "
-                f"{(c['block'] - c['pass']) / blocks:.0f}; per pass: the "
-                f"chunk loops of (3) and (6) together "
-                f"{c['loops'] / passes:.0f}, (5) dW2 {c['dw2'] / passes:.0f}"
-                f", epilogues and sums {rest / passes:.0f}")
-            # device time per call of each kernel the call launches
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    call()
-                torch.cuda.synchronize()
-            times = sorted(((getattr(ev, "self_device_time_total", 0)
-                             or getattr(ev, "self_cuda_time_total", 0),
-                             ev.key) for ev in prof.key_averages()),
-                           reverse=True)
-            log(f"[phases] {label} {name} backward, device us per call: "
-                + "; ".join(f"{k[:60]} {us / 5:.1f}" for us, k in times
-                            if us > 0))
+            for bf16 in (False, True):
+                log(f"[phases] {label} {name} backward"
+                    f"{' bf16' if bf16 else ''} {list(a0.shape)}: "
+                    + describe_bwd_cycles(torch, K, bwd_call(
+                        K, name, args, kw, gout, bf16), bf16))
     K.PROFILE_BUILD = False
+
+
+def describe_bwd_cycles(torch, K, call, bf16):
+    """Where the blocks of one backward call spend their cycles (the
+    build with -DEGNN_PROFILE, thread 0 of each block counting), and the
+    device us of each kernel the call launches.  fp32
+    (edge_chain_bwd_mma): the chunk loops of products (3) and (6), (5),
+    the rest; bf16 (edge_chain_bwd_wgmma): the s' chain, product (3) and
+    its epilogue, products (6) and (5), (6)'s epilogue, the sums."""
+    call()
+    K.read_bwd_profile()
+    call()
+    c = K.read_bwd_profile()
+    blocks, passes = max(c["blocks"], 1), max(c["passes"], 1)
+    text = (f"{c['blocks']} blocks, {c['passes']} passes; cycles per block "
+            f"outside the passes (set-up, list, last writes) "
+            f"{(c['block'] - c['pass']) / blocks:.0f}; per pass: ")
+    if bf16:
+        rest = (c["pass"] - c["chain"] - c["loops"] - c["dw2"] - c["ds"]
+                - c["epi3"] - c["epi6"])
+        text += (f"the s' chain {c['chain'] / passes:.0f}, (3) "
+                 f"{c['loops'] / passes:.0f}, its epilogue "
+                 f"{c['epi3'] / passes:.0f}, (6) {c['ds'] / passes:.0f}, "
+                 f"(5) dW2 {c['dw2'] / passes:.0f}, (6)'s epilogue "
+                 f"{c['epi6'] / passes:.0f}, the sums (7) and the rest "
+                 f"{rest / passes:.0f}")
+    else:
+        rest = c["pass"] - c["loops"] - c["dw2"]
+        text += (f"the chunk loops of (3) and (6) together "
+                 f"{c['loops'] / passes:.0f}, (5) dW2 "
+                 f"{c['dw2'] / passes:.0f}, epilogues and sums "
+                 f"{rest / passes:.0f}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    times = sorted(((getattr(ev, "self_device_time_total", 0)
+                     or getattr(ev, "self_cuda_time_total", 0), ev.key)
+                    for ev in prof.key_averages()), reverse=True)
+    return text + "; device us per call: " + "; ".join(
+        f"{k[:60]} {us / 5:.1f}" for us, k in times if us > 0)
 
 
 def fixed_noise(torch, model, sizes, steps):
@@ -5063,6 +5083,29 @@ def bf16_bwd_bound(name, args, kw):
                                        else "bytes")
 
 
+def bwd_sfu_floor_ms(torch, name, args, kw):
+    """The special-function floor of one bf16 backward call: two sigmoids
+    per (edge, k), of u1 and of u, each an ex2 and a reciprocal on the
+    special-function units (16 results per SM per clock), per weight set,
+    over the edges with a nonzero adjacency among the rows computed, at
+    the card's largest SM clock (the forward's ``sfu_floor_ms`` in
+    scripts/forward_build_ab.py counts the same per edge)."""
+    if not hasattr(bwd_sfu_floor_ms, "clock_hz"):
+        bwd_sfu_floor_ms.clock_hz = 1e6 * float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+    pair = name == "edge_vector_reduce_pair"
+    a, adj = (args[0][0] if pair else args[0]), args[4]
+    n, h = a.shape[1], a.shape[2]
+    rows = kw.get("n_rows")
+    rows = n if rows is None else max(0, min(n, rows))
+    edges = int((adj[:, :rows] != 0).sum())
+    ops = edges * 2 * 2 * h * (2 if pair else 1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * ops / (16 * n_sm * bwd_sfu_floor_ms.clock_hz)
+
+
 @contextlib.contextmanager
 def dropped_rounding(K, point):
     """The plain bf16 backward with one of BF16_POINTS dropped."""
@@ -5206,8 +5249,18 @@ def check_bf16_backward(torch, K, name, args, kw, gout, reps, points=False):
             gout, *detached, **kw), 2, warmup=1,
             rounds=3 if reps >= 10 else 1)
         res["bound_ms"], res["bound_by"] = bf16_bwd_bound(name, args, kw)
+        res["sfu_floor_ms"] = bwd_sfu_floor_ms(torch, name, args, kw)
         res["blocks"], res["rows_per_block"] = K.bwd_launch_grid(
-            name, *shape, kw.get("n_rows"))
+            name, *shape, kw.get("n_rows"), "bfloat16")
+        rows = shape[1] if kw.get("n_rows") is None else min(
+            shape[1], max(0, kw["n_rows"]))
+        mirror = K.bwd_rows_per_block(shape[0], shape[1], shape[2], rows,
+                                      2 if pair else 1, pair)
+        if res["rows_per_block"] != mirror:
+            raise AssertionError(
+                f"{name} bf16 backward {shape}: the library takes "
+                f"{res['rows_per_block']} rows per block, its mirror "
+                f"bwd_rows_per_block {mirror}")
     return res
 
 
@@ -5229,8 +5282,10 @@ def describe_bf16_bwd(res):
     if "ms" in res:
         text += (f"; bf16 backward {res['ms']:.4f} ms per call (2 "
                  f"launches), fp32 {res['fp32_ms']:.4f} ms, plain bf16 "
-                 f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-                 f"({res['bound_by']}; the recompute at bf16's "
+                 f"{res['plain_ms']:.4f} ms, special-function floor "
+                 f"{res['sfu_floor_ms']:.4f} ms, bound "
+                 f"{res['bound_ms']:.4f} ms ({res['bound_by']}; the "
+                 f"recompute at bf16's "
                  f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, the rest at TF32's "
                  f"{PEAK_TF32_FLOPS / 1e12:.0f}); grid {res['blocks']} "
                  f"blocks of {res['rows_per_block']} rows")
@@ -5532,16 +5587,17 @@ def main() -> int:
                       f"H={int(m[2])}")
         elif kernel and ("registers" in line or "spill" in line):
             log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
-    # and per instantiation edge_chain_bwd_mma<H, VEC, BF16> of the backward
+    # and per instantiation of the backward: edge_chain_bwd_mma<H, VEC>
+    # (fp32) and edge_chain_bwd_wgmma<H, VEC> (bf16)
     kernel = None
     bwd_ptxas = {k: {} for k in (*BWD_KERNELS, *BF16_BWD_KERNELS)}
     for line in bwd_so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function .*edge_chain_bwd_(mma|reduce)"
-                      r"(?:ILi(\d+)ELb([01])ELb([01])E)?", line)
+        m = re.search(r"Compiling entry function .*edge_chain_bwd_"
+                      r"(w?gmma|mma|reduce)(?:ILi(\d+)ELb([01])E)?", line)
         if m:
             kernel = ("backward reduce" if m[1] == "reduce" else
                       f"{'edge_vector_reduce' if m[3] == '1' else 'gcl_messages'}"
-                      f"_bwd{'_bf16' if m[4] == '1' else ''} H={int(m[2])}")
+                      f"_bwd{'_bf16' if m[1] == 'wgmma' else ''} H={int(m[2])}")
             continue
         if not kernel or not ("registers" in line or "spill" in line):
             continue
@@ -5753,7 +5809,8 @@ def main() -> int:
         main_res = at[88]
         table.append(dict(
             name=name, route="cuda", source=BWD_SOURCE,
-            replaces=KERNELS[forward], launches=train_launches[name],
+            kernel="edge_chain_bwd_mma", replaces=KERNELS[forward],
+            launches=train_launches[name],
             note="the backward of the forward kernel's function; the TPU "
             "kernel has no VJP (JAX differentiates its dense path)",
             max_abs_err=max(r["max_abs_err"] for r in at.values()),
@@ -5796,7 +5853,7 @@ def main() -> int:
         main_res = at[BF16_BWD_MAIN]
         table.append(dict(
             name=name, route="cuda", source=BWD_SOURCE,
-            replaces=KERNELS[forward],
+            kernel="edge_chain_bwd_wgmma", replaces=KERNELS[forward],
             launches=bf16train["steps"]["bfloat16"]["launches"][name],
             note="the backward of the bf16 forward (mxu_dtype = bfloat16): "
             "cotangents rounded where the forward rounds; the TPU kernel "
@@ -5808,11 +5865,12 @@ def main() -> int:
             "recompute, tf32 495 TFLOP/s for the rest, 3.35 TB/s",
             shape=main_res["shape"], launches_per_call=2,
             fp32_ms=main_res["fp32_ms"], gate=BF16_BWD_L2,
+            sfu_floor_ms=main_res["sfu_floor_ms"],
             seed_shares=main_res["seed_shares"],
             shapes={k: {c: r[c] for c in (
                 "shape", "max_abs_err", "gate_share", "fp32_gate_share",
                 "plain_share", "points", "ms", "fp32_ms", "plain_ms", "bound_ms",
-                "bound_by", "blocks")} for k, r in at.items()},
+                "bound_by", "sfu_floor_ms", "blocks")} for k, r in at.items()},
             ptxas=bwd_ptxas[name]))
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -1,8 +1,9 @@
 // Warpgroup matrix multiply (wgmma) for the bf16 edge-chain kernels of
-// egnn_edge.cu, sm_90a only: the shared-memory matrix descriptor of W2 in
-// the 128-byte-swizzled K-major layout, the fences, and
-// wgmma.mma_async m64nNk16 bf16 with fp32 accumulators, A from registers
-// and B from shared memory, for N = 128, 192, 256.
+// egnn_edge.cu and their backward (egnn_edge_bwd.cu), sm_90a only: the
+// shared-memory matrix descriptors of the 128-byte-swizzled K-major and
+// MN-major layouts, the fences, and wgmma.mma_async m64nNk16 bf16 with
+// fp32 accumulators, A from registers and B from shared memory for N =
+// 128, 192, 256, and both from shared memory for N = 32, 64, 96, 128.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -195,5 +196,138 @@ __device__ __forceinline__ void wgmma_bf16<256>(
           "r"(scale_d));
 }
 
+
+// The descriptor of an MN-major tile in the 128-byte swizzle (a 16-bit
+// operand whose M or N index is the contiguous one): rows (the K index) of
+// 128 bytes, 64 values of M or N each, whose eight 16-byte groups are
+// stored at group ^ (row % 8); 8-row groups 1024 bytes apart (the stride
+// offset, bits 32-45), 64-wide blocks of M or N `lbo` bytes apart (the
+// leading offset, bits 16-29).  As for the K-major tile, the swizzle is
+// taken from the address bits: the 8-row groups start on 1024-byte
+// boundaries, and a start inside a row (a tile narrower than 64 that does
+// not start the row) reads the row from there.
+__device__ __forceinline__ uint64_t wgmma_desc_mn128(uint32_t smem_address,
+                                                     uint32_t lbo) {
+    return (uint64_t)((smem_address & 0x3ffff) >> 4)
+           | ((uint64_t)((lbo >> 4) & 0x3fff) << 16)
+           | ((uint64_t)(1024 >> 4) << 32)
+           | ((uint64_t)1 << 62);
+}
+
+// D (64 x N, fp32) [+]= A (64 x 16) * B (16 x N), both bf16 in shared
+// memory (descriptors da, db), asynchronous until wgmma_wait.  TA / TB: 0
+// K-major, 1 MN-major (the transpose, legal for 16-bit types).  D is the
+// N/8 accumulator tiles d[OFF..OFF+N/8-1] in the layout of wgmma_bf16.
+
+template <int OFF, int TA, int TB, int T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[T][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    static_assert(OFF + 4 <= T, "accumulator tiles");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int OFF, int TA, int TB, int T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[T][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    static_assert(OFF + 8 <= T, "accumulator tiles");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+          "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+          "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+          "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int OFF, int TA, int TB, int T>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[T][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    static_assert(OFF + 12 <= T, "accumulator tiles");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+          "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+          "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+          "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3]),
+          "+f"(d[OFF + 8][0]), "+f"(d[OFF + 8][1]), "+f"(d[OFF + 8][2]), "+f"(d[OFF + 8][3]),
+          "+f"(d[OFF + 9][0]), "+f"(d[OFF + 9][1]), "+f"(d[OFF + 9][2]), "+f"(d[OFF + 9][3]),
+          "+f"(d[OFF + 10][0]), "+f"(d[OFF + 10][1]), "+f"(d[OFF + 10][2]), "+f"(d[OFF + 10][3]),
+          "+f"(d[OFF + 11][0]), "+f"(d[OFF + 11][1]), "+f"(d[OFF + 11][2]), "+f"(d[OFF + 11][3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int OFF, int TA, int TB, int T>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[T][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    static_assert(OFF + 16 <= T, "accumulator tiles");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[OFF + 0][0]), "+f"(d[OFF + 0][1]), "+f"(d[OFF + 0][2]), "+f"(d[OFF + 0][3]),
+          "+f"(d[OFF + 1][0]), "+f"(d[OFF + 1][1]), "+f"(d[OFF + 1][2]), "+f"(d[OFF + 1][3]),
+          "+f"(d[OFF + 2][0]), "+f"(d[OFF + 2][1]), "+f"(d[OFF + 2][2]), "+f"(d[OFF + 2][3]),
+          "+f"(d[OFF + 3][0]), "+f"(d[OFF + 3][1]), "+f"(d[OFF + 3][2]), "+f"(d[OFF + 3][3]),
+          "+f"(d[OFF + 4][0]), "+f"(d[OFF + 4][1]), "+f"(d[OFF + 4][2]), "+f"(d[OFF + 4][3]),
+          "+f"(d[OFF + 5][0]), "+f"(d[OFF + 5][1]), "+f"(d[OFF + 5][2]), "+f"(d[OFF + 5][3]),
+          "+f"(d[OFF + 6][0]), "+f"(d[OFF + 6][1]), "+f"(d[OFF + 6][2]), "+f"(d[OFF + 6][3]),
+          "+f"(d[OFF + 7][0]), "+f"(d[OFF + 7][1]), "+f"(d[OFF + 7][2]), "+f"(d[OFF + 7][3]),
+          "+f"(d[OFF + 8][0]), "+f"(d[OFF + 8][1]), "+f"(d[OFF + 8][2]), "+f"(d[OFF + 8][3]),
+          "+f"(d[OFF + 9][0]), "+f"(d[OFF + 9][1]), "+f"(d[OFF + 9][2]), "+f"(d[OFF + 9][3]),
+          "+f"(d[OFF + 10][0]), "+f"(d[OFF + 10][1]), "+f"(d[OFF + 10][2]), "+f"(d[OFF + 10][3]),
+          "+f"(d[OFF + 11][0]), "+f"(d[OFF + 11][1]), "+f"(d[OFF + 11][2]), "+f"(d[OFF + 11][3]),
+          "+f"(d[OFF + 12][0]), "+f"(d[OFF + 12][1]), "+f"(d[OFF + 12][2]), "+f"(d[OFF + 12][3]),
+          "+f"(d[OFF + 13][0]), "+f"(d[OFF + 13][1]), "+f"(d[OFF + 13][2]), "+f"(d[OFF + 13][3]),
+          "+f"(d[OFF + 14][0]), "+f"(d[OFF + 14][1]), "+f"(d[OFF + 14][2]), "+f"(d[OFF + 14][3]),
+          "+f"(d[OFF + 15][0]), "+f"(d[OFF + 15][1]), "+f"(d[OFF + 15][2]), "+f"(d[OFF + 15][3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int N, int OFF, int TA, int TB, int T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[T][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+    if constexpr (N == 32) wgmma_ss_n32<OFF, TA, TB>(d, da, db, scale_d);
+    else if constexpr (N == 64) wgmma_ss_n64<OFF, TA, TB>(d, da, db, scale_d);
+    else if constexpr (N == 96) wgmma_ss_n96<OFF, TA, TB>(d, da, db, scale_d);
+    else wgmma_ss_n128<OFF, TA, TB>(d, da, db, scale_d);
+}
 
 }  // namespace

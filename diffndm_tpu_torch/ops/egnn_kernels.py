@@ -35,20 +35,22 @@ VJP of that arithmetic under the cast rule of ``jax.vjp`` and torch
 autograd: a cotangent is rounded to bf16 where the forward rounded an
 operand (ds = du W2'^T, the gradient of bf16(m) in the gate or phi dot),
 and dW2 and dwatt / dwout are summed in fp32 over the call and rounded
-once.  On the card it is the bf16 variant of the backward kernel (counted
-under ``*_bwd_bf16``), on the CPU the plain backward with
+once.  On the card it is the bf16 backward kernel (``wgmma`` for its
+three products, W2 as ``pack_w2_bf16`` lays it out; counted under
+``*_bwd_bf16``), on the CPU the plain backward with
 ``compute_dtype="bfloat16"``.
 
 In grad mode each wrapper goes through a ``torch.autograd.Function``
 (``_GclMessages``, ``_EdgeVectorReduce``) that saves only its inputs and
 whose backward recomputes the chain: on the card the hand-written kernel
-of ``csrc/egnn_edge_bwd.cu`` (one template with an epilogue for each
-wrapper; two launches per backward, counted under ``gcl_messages_bwd`` /
-``edge_vector_reduce_bwd``; its three products run on the tensor cores,
-taking W2 and W2^T packed as ``pack_w2`` lays them out), on the CPU the
-plain backward (``*_backward_plain``), which writes the same formula out
-in PyTorch.  The JAX package's Pallas kernels have no VJP; these give
-the gradient that XLA autodiff gives of its dense path.
+of ``csrc/egnn_edge_bwd.cu`` (a template per compute dtype, each with an
+epilogue for each wrapper; two launches per backward, counted under
+``gcl_messages_bwd`` / ``edge_vector_reduce_bwd``; its three products run
+on the tensor cores, in fp32 taking W2 and W2^T packed as ``pack_w2`` lays
+them out), on the CPU the plain backward (``*_backward_plain``), which
+writes the same formula out in PyTorch.  The JAX package's Pallas kernels
+have no VJP; these give the gradient that XLA autodiff gives of its dense
+path.
 
 The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface under ``build/`` at the
@@ -153,8 +155,12 @@ PROFILE_BUILD = False
 PROFILE_FIELDS = ("setup", "wait", "request", "mma", "loop", "", "passes",
                   "blocks")
 # the backward's spans (both epilogues): the whole block, its passes, the
-# chunk loops of (3) u = s W2 and (6) ds = du W2^T, (5) dW2 = s^T du
-PROFILE_BWD_FIELDS = ("block", "pass", "loops", "dw2", "passes", "blocks")
+# chunk loops of (3) u = s W2 and (6) ds = du W2^T (fp32) or product (3)
+# alone (bf16), (5) dW2 = s^T du, the counts of passes and blocks, and in
+# the bf16 kernel the s' chain, product (6), the epilogue of (3) (up to
+# du's parts) and that of (6) (up to dz)
+PROFILE_BWD_FIELDS = ("block", "pass", "loops", "dw2", "passes", "blocks",
+                      "chain", "ds", "epi3", "epi6")
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,7 +187,7 @@ def _library() -> ctypes.CDLL:
 def _bwd_load(profile: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library(profile, BWD_SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.egnn_bwd_layout.argtypes = [i] * 6 + [p]
+    lib.egnn_bwd_layout.argtypes = [i] * 7 + [p]
     lib.egnn_bwd_layout.restype = i
     lib.egnn_bwd_edges.argtypes = [p] * 6
     lib.egnn_bwd_edges.restype = i
@@ -382,9 +388,7 @@ def _packed(w2: torch.Tensor, layout: str) -> torch.Tensor:
         return hit[2]
     w = w2.detach()
     split = {"w2": pack_w2, "w2t": lambda v: pack_w2(v.t()),
-             "bf16": pack_w2_bf16,
-             "w2_bf16": lambda v: pack_w2(bf16_round(v)),
-             "w2t_bf16": lambda v: pack_w2(bf16_round(v).t())}[layout](w)
+             "bf16": pack_w2_bf16}[layout](w)
     _SPLIT_CACHE[key] = (weakref.ref(w2), w2._version, split)
     _SPLIT_CACHE.move_to_end(key)
     while len(_SPLIT_CACHE) > _SPLIT_CACHE_SIZE:
@@ -392,18 +396,15 @@ def _packed(w2: torch.Tensor, layout: str) -> torch.Tensor:
     return split
 
 
-def split_w2(w2: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """``pack_w2(w2)``, cached per weight tensor (see ``_packed``); with
-    ``bf16``, of ``bf16_round(w2)`` (exact in TF32: the split's small
-    parts are 0), the B operand of the bf16 backward's recompute."""
-    return _packed(w2, "w2_bf16" if bf16 else "w2")
+def split_w2(w2: torch.Tensor) -> torch.Tensor:
+    """``pack_w2(w2)``, cached per weight tensor (see ``_packed``)."""
+    return _packed(w2, "w2")
 
 
-def split_w2t(w2: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """``pack_w2(w2.t())``, the B operand of du @ W2^T in the backward,
-    cached per weight tensor W2 (see ``_packed``); with ``bf16``, of the
-    transpose of ``bf16_round(w2)``."""
-    return _packed(w2, "w2t_bf16" if bf16 else "w2t")
+def split_w2t(w2: torch.Tensor) -> torch.Tensor:
+    """``pack_w2(w2.t())``, the B operand of du @ W2^T in the fp32
+    backward, cached per weight tensor W2 (see ``_packed``)."""
+    return _packed(w2, "w2t")
 
 
 def pack_w2_bf16_cached(w2: torch.Tensor) -> torch.Tensor:
@@ -820,13 +821,14 @@ def _edge_vector_reduce_pair_cuda(a, b, d2c, d2i, adj, x, center, we, w2, b2,
 
 
 def _bwd_layout(bsz: int, n: int, h: int, rows: int, n_sets: int,
-                vec: bool) -> tuple:
+                vec: bool, bf16: bool = False) -> tuple:
     """(rows per block, blocks per batch element and set, floats per
     block's partial record) of a backward launch at these sizes (``vec``:
-    of ``edge_vector_reduce``, else of ``gcl_messages``)."""
+    of ``edge_vector_reduce``, else of ``gcl_messages``; ``bf16``: of the
+    bf16 backward)."""
     out = (ctypes.c_int * 3)()
     err = _bwd_library().egnn_bwd_layout(bsz, n, h, rows, n_sets, int(vec),
-                                         out)
+                                         int(bf16), out)
     if err != 0:
         raise ValueError(f"backward kernels: unsupported sizes B={bsz} "
                          f"N={n} H={h} rows={rows}")
@@ -834,17 +836,63 @@ def _bwd_layout(bsz: int, n: int, h: int, rows: int, n_sets: int,
 
 
 def bwd_launch_grid(name: str, bsz: int, n: int, h: int,
-                    n_rows: Optional[int] = None) -> tuple:
+                    n_rows: Optional[int] = None,
+                    compute_dtype: str = "float32") -> tuple:
     """(blocks, rows per block) of the first of the two launches that the
-    backward of wrapper ``name`` makes at these sizes.  The bf16 backward
-    takes the fp32 one's shared memory and grid."""
+    backward of wrapper ``name`` makes at these sizes, in the compute
+    dtype's kernel (``bwd_rows_per_block`` mirrors the choice)."""
     rows = _clamp_rows(n, n_rows)
     if rows == 0:
         return 0, 0
     n_sets = 2 if name == "edge_vector_reduce_pair" else 1
     per_block, per_batch, _ = _bwd_layout(bsz, n, h, rows, n_sets,
-                                          name != "gcl_messages")
+                                          name != "gcl_messages",
+                                          _is_bf16(compute_dtype))
     return per_batch * bsz * n_sets, per_block
+
+
+# the bf16 backward's shared memory (edge_chain_bwd_wgmma in
+# csrc/egnn_edge_bwd.cu), mirrored: 1024 bytes of alignment, W2' whole (a
+# ring of two 64-k slabs at H = 256), s' and du's three bf16 parts of a
+# 64-edge pass, two barriers, fp32 arrays (at H = 128 the block's dW2,
+# four weight vectors, the warpgroups' row dots, the pass's edges); per
+# owned row a and da, and gcl's output gradient row or the vector kernel's
+# gout and dx rows; the list of R * N candidate pairs
+_BWD_SMEM_LIMIT, _BWD_R_MAX, _BWD_SMS, _BWD_PE, _DU_PARTS = (232448, 16, 132,
+                                                              64, 3)
+
+
+def bwd_bf16_smem_bytes(h: int, vec: bool, rows: int, n: int) -> int:
+    """The bytes of shared memory a bf16 backward block of ``rows`` rows
+    takes at these sizes."""
+    slab = 128 * h
+    held = 2 if h == 256 else h // 64
+    floats = (h * h if h == 128 else 0) + 4 * h + 4 * _BWD_PE + 3 * _BWD_PE \
+        + (9 * _BWD_PE if vec else 0) + 4 * _BWD_PE
+    fixed = (1024 + held * slab + (1 + _DU_PARTS) * (h // 64) * 128 * _BWD_PE
+             + 16 + 4 * floats)
+    return fixed + 4 * rows * (2 * h + (8 if vec else h) + n)
+
+
+def bwd_rows_per_block(bsz: int, n: int, h: int, rows: int, n_sets: int,
+                       vec: bool) -> int:
+    """The bf16 backward's rows per block: about one block per SM, at
+    most 16 rows, fewer where shared memory would not hold them (0 where
+    not one row fits)."""
+    r = max(1, min(-(-bsz * rows * n_sets // _BWD_SMS), _BWD_R_MAX, rows))
+    while r > 1 and bwd_bf16_smem_bytes(h, vec, r, n) > _BWD_SMEM_LIMIT:
+        r -= 1
+    return r if bwd_bf16_smem_bytes(h, vec, r, n) <= _BWD_SMEM_LIMIT else 0
+
+
+def _bwd_packed(w2: torch.Tensor, bf16: bool) -> tuple:
+    """(W2, W2^T) as the backward kernel reads them: fp32 both split and
+    packed for its ring (``split_w2``, ``split_w2t``); bf16 W2 as the bf16
+    forward reads it (``pack_w2_bf16_cached``), and no transpose: the
+    kernel reads the same copy transposed."""
+    if bf16:
+        return pack_w2_bf16_cached(w2), None
+    return split_w2(w2), split_w2t(w2)
 
 
 def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
@@ -853,14 +901,15 @@ def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
     """Two launches: every block's edges, then the fixed-order sums of
     the blocks' partial records.  Gradients in argument order, None where
     ``needs`` says none is wanted (d2c and d2i are then not written).
-    ``bf16``: the backward of the bf16 forward (W2 packed rounded)."""
+    ``bf16``: the backward of the bf16 forward (W2 as ``pack_w2_bf16``
+    lays it out, the bf16 forward's cached tensor)."""
     bsz, n, h = a.shape
     dev = a.device
     if gout.dtype != torch.float32 or gout.device != dev:
         raise ValueError("gcl_messages backward: the output gradient must "
                          "be float32 on the inputs' device")
     lib = _bwd_library()
-    _, per_batch, rec = _bwd_layout(bsz, n, h, n, 1, False)
+    _, per_batch, rec = _bwd_layout(bsz, n, h, n, 1, False, bf16)
     part = torch.empty(bsz * per_batch * rec, dtype=torch.float32,
                        device=dev)
     gout = gout.contiguous()
@@ -874,9 +923,9 @@ def _gcl_messages_backward_cuda(gout, a, b, d2c, d2i, adj, we, w2, b2, watt,
     ints = (ctypes.c_int * 9)(bsz, n, h, n, 1, 0, int(bool(attention)), 0,
                               int(bf16))
     floats = (ctypes.c_float * 3)(0.0, 0.0, float(norm_factor))
-    # W2 and W2^T split and packed for the ring, held until both launches
-    # are queued
-    w2p, w2tp = split_w2(w2, bf16), split_w2t(w2, bf16)
+    # W2 packed (fp32: W2 and W2^T split for the ring), held until both
+    # launches are queued
+    w2p, w2tp = _bwd_packed(w2, bf16)
     _launch("gcl_messages backward", dev, lib.egnn_bwd_edges,
             _ptrs(a, b, we, w2p, w2tp, b2, watt, da, dd2c, dd2i),
             _ptrs(*[None] * 10),
@@ -916,15 +965,15 @@ def _edge_vector_reduce_backward_cuda(gout, sets, d2c, d2i, adj, x, center,
         out = [[torch.zeros_like(t) for t in s] for s in sets]
         return out, *(p if p is None else p[0] for p in planes), dx, dcenter
     lib = _bwd_library()
-    _, per_batch, rec = _bwd_layout(bsz, n, h, rows, n_sets, True)
+    _, per_batch, rec = _bwd_layout(bsz, n, h, rows, n_sets, True, bf16)
     part = torch.empty(n_sets * bsz * per_batch * rec, dtype=torch.float32,
                        device=dev)
     # the reduce writes every gradient but da, whose rows >= n_rows stay 0
     out = [[(torch.empty_like if i or rows == n else torch.zeros_like)(t)
             for i, t in enumerate(s)] for s in sets]
-    # W2 and W2^T of each set split and packed for the ring, held until
-    # both launches are queued
-    packed = [(split_w2(st[3], bf16), split_w2t(st[3], bf16)) for st in sets]
+    # W2 of each set packed (fp32: W2 and W2^T split for the ring), held
+    # until both launches are queued
+    packed = [_bwd_packed(st[3], bf16) for st in sets]
     gout = gout.contiguous()
     set_ptrs = [_ptrs(a, b, we, *packed[s], b2, wout, out[s][0],
                       *(p if p is None else p[s] for p in planes))
