@@ -216,13 +216,27 @@ Phases, each of which fails the run on any fault or mismatch:
    optimizer fed the CPU's gradients), then 8 micro-steps of a bf16 and an
    fp32 Trainer on [dp] (a)'s 128 training pairs: losses side by side, ms
    per micro-step, peak memory, launches per micro-step (5 + 5 forward,
-   10 + 10 backward, all in the run's compute dtype).
+   10 + 10 backward, all in the run's compute dtype);
+26. fanout-tap: v3b's EMA weights on phase 18's crop of the synthetic
+   receptor, the facade's band at row tile 8 capped at 128
+   (DIFFNDM_BAND_APPROX): (a) a fixed-noise guided trajectory with
+   SampleConfig.fanout_row_tile = 16 (SPSA, ATP and the hybrid firing) on
+   the card against the plain path on the CPU, under the guided path
+   gate; SPSA + ATP at their defaults, 16 rows, T = 40, the field at 16
+   and unset: (b) launches equal to count_forwards' and the fan-out
+   forwards run with their own band, (c) under the capped band the two
+   score other populations, (d) under the exact band they are bit-equal;
+   ms per forward of the trajectory and of a 320-row fan-out at tile 8
+   and 16; (e) the SDF frame tap every 100 steps of an unguided T = 500
+   batch: its files (try_0 .. try_400), launches, its host time per
+   written frame and per step without one; (f) the guided-phase profile's
+   report (DIFFNDM_GUIDED_PROFILE=1) of the capped run with the field.
 
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
 phases 1 and 21, ``--only etl`` phases 1 and 22, ``--only modes``
 phases 1 and 23, ``--only dp`` phases 1 and 24, ``--only bf16train``
-phases 1 and 25, ``--only workers``
+phases 1 and 25, ``--only fanout`` phases 1 and 26, ``--only workers``
 phase 1 and phase 6's oracle-worker batches, and ``--only phases``
 prints, from a build of the
 kernels with cycle counters, where a block's time goes in the forward
@@ -234,7 +248,7 @@ each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then phase 11 with its floors and the same
 spread for it.  ``--only
 train`` runs phases 1, 2 and 14.
-None of the twelve prints a result line.
+None of the thirteen prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -548,6 +562,25 @@ BF16_POINT_MIN, BF16_BWD_SEEDS = 0.75, 8
 BF16_BWD_MAIN = "88"          # the training shape the kernels line reads
 BF16_TRAIN_RTOL, BF16_TRAIN_NORM, BF16_TRAIN_L2 = 1e-3, 3e-2, 0.2
 BF16_TRAIN_STEPS = 8
+# fanout-tap phase: the guidance fan-out's own row tile
+# (SampleConfig.fanout_row_tile) and the trajectory frame tap on v3b's EMA
+# weights at full width, on [modes] (d)'s crop of the synthetic receptor,
+# with the facade's band at row tile FANOUT_TILE, capped at BAND_APPROX_W
+# (DIFFNDM_BAND_APPROX, as the JAX bench's guided section runs it).  (a) a
+# fixed-noise guided trajectory card vs CPU under the guided path gate, at
+# FANOUT_CHECK_SIZES on the crop's FANOUT_CHECK_ATOMS atoms nearest its
+# centre (the CPU's plain chain is dense over N^2 pairs: 2.3 s per
+# row-forward at N = 372 on the card's host), T = FANOUT_CHECK_T with every
+# event firing; (b)-(d) SPSA + ATP at B = N_SAMPLES, T = FANOUT_T, SPSA
+# from FANOUT_SPSA_START (ATP's defaults), the field FANOUT_ROW against
+# unset; (e) the SDF tap every TAP_EVERY steps of an unguided T_MAIN batch;
+# the forwards timed per call over MODES_REPS calls
+FANOUT_TILE, FANOUT_ROW, FANOUT_T, FANOUT_SPSA_START = 8, 16, 12, 10
+FANOUT_CHECK_SIZES, FANOUT_CHECK_T, FANOUT_CHECK_ATOMS = (20,), 3, 192
+FANOUT_CHECK = dict(spsa=dict(num_probes=2, start_step=1, every=1,
+                              zeta0=5.0),
+                    atp=dict(num_groups=3, start_step=0, every=1))
+TAP_EVERY = 100
 GCL_ARGS = ("a", "b", "d2c", "d2i", "adj", "we", "w2", "b2", "watt", "batt")
 VEC_ARGS = ("a", "b", "d2c", "d2i", "adj", "x", "center", "we", "w2", "b2",
             "wout")
@@ -5525,6 +5558,322 @@ def bf16train_phase(torch, K, ds, train_ds, batches, tmp):
     return dict(kernels=kernels, path=path, steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# [fanout-tap]: the guidance fan-out's own row tile, the frame tap, the
+# guided-phase profile
+# ---------------------------------------------------------------------------
+
+def fanout_model(make_model, cfg, pocket, approx):
+    """v3b on the card (or the CPU) with the facade's band for the crop:
+    capped at BAND_APPROX_W with ``approx`` (the denoiser runs the band),
+    else its exact window (the denoiser runs dense)."""
+    saved = os.environ.pop("DIFFNDM_BAND_APPROX", None)
+    try:
+        if approx:
+            os.environ["DIFFNDM_BAND_APPROX"] = str(BAND_APPROX_W)
+        model = make_model(pocket.x.device.type, cfg)
+        window = model.enable_banding(pocket, row_tile=FANOUT_TILE)
+    finally:
+        os.environ.pop("DIFFNDM_BAND_APPROX", None)
+        if saved is not None:
+            os.environ["DIFFNDM_BAND_APPROX"] = saved
+    return model, window
+
+
+def fanout_path_check(torch, make_model, pocket_cuda):
+    """(a) A fixed-noise guided trajectory with the fan-out at tile
+    FANOUT_ROW under the capped band, on the card and on the CPU: the same
+    rows survive, with the same atom types, at the same coordinates."""
+    from diffndm_tpu_torch.config import (ATPConfig, SampleConfig,
+                                          SPSAConfig)
+    from diffndm_tpu_torch.diffusion.sampler import guidance_events
+
+    cfg = SampleConfig(pocket_pad_multiple=16, fanout_row_tile=FANOUT_ROW,
+                       spsa=SPSAConfig(enabled=True, **FANOUT_CHECK["spsa"]),
+                       atp=ATPConfig(enabled=True, **FANOUT_CHECK["atp"]))
+    events = guidance_events(cfg, FANOUT_CHECK_T)
+    assert events == dict(atp=[0], spsa=[1, 0], hybrid=[1]), events
+    sizes = np.array(FANOUT_CHECK_SIZES)
+    b = len(sizes)
+    out, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        pocket = pocket_ball(torch, pocket_cuda, b, FANOUT_CHECK_ATOMS,
+                             device)
+        model, _ = fanout_model(make_model, cfg, pocket, True)
+        eg = model.dynamics.cfg
+        noise = event_noise(torch, model, sizes, FANOUT_CHECK_T)
+        t0 = time.perf_counter()
+        res = model.sample_given_pocket(pocket, sizes,
+                                        timesteps=FANOUT_CHECK_T, noise=noise)
+        seconds[device] = time.perf_counter() - t0
+        out[device] = [v.cpu() for v in (res.ligand.x, res.ligand.h,
+                                         res.ligand.mask, res.row_src)]
+    (xg, hg, mg, rg), (xc, hc, mc, rc) = out["cuda"], out["cpu"]
+    same_rows = bool(torch.equal(rg, rc) and torch.equal(mg, mc))
+    err = float((xg - xc).abs().max()) if same_rows else float("inf")
+    m = mc > 0.5
+    same_types = same_rows and bool(
+        torch.equal(hg.argmax(-1)[m], hc.argmax(-1)[m]))
+    log(f"[fanout-tap] (a) fixed noise, T={FANOUT_CHECK_T}, B={b}, "
+        f"{FANOUT_CHECK_ATOMS} pocket atoms, events "
+        f"{events}, band window {eg.band_window} at tile {eg.row_tile}, the "
+        f"fan-out's {eg.band_window + FANOUT_ROW - eg.row_tile} at tile "
+        f"{FANOUT_ROW}: surviving rows cuda {rg.tolist()} cpu "
+        f"{rc.tolist()}; max |x_cuda - x_cpu| = {err:.3e} A (atol "
+        f"{PATH_COORD_ATOL}); atom types identical: {same_types}; seconds "
+        f"cuda {seconds['cuda']:.2f}, cpu {seconds['cpu']:.2f}")
+    if not (eg.band_window == BAND_APPROX_W and same_rows and same_types
+            and err <= PATH_COORD_ATOL and bool(torch.isfinite(xg).all())):
+        raise AssertionError("[fanout-tap] (a): the kernel path disagrees "
+                             "with the plain path")
+    return dict(err=err, seconds=seconds)
+
+
+def pocket_ball(torch, pocket, b, n, device):
+    """b rows of a batch of one pocket, cut to its n real atoms nearest its
+    centre (in their order), on a device."""
+    from diffndm_tpu_torch.structs import NodeBatch
+
+    x, m = pocket.x[0].cpu().numpy(), pocket.mask[0].cpu().numpy() > 0.5
+    d = np.linalg.norm(x - x[m].mean(0), axis=1)
+    keep = np.sort(np.argsort(np.where(m, d, np.inf), kind="stable")[:n])
+    assert m[keep].all()
+    idx = torch.from_numpy(keep).to(pocket.x.device)
+    return NodeBatch(*(v[:1, idx].repeat_interleave(b, 0).to(device)
+                       for v in pocket))
+
+
+class ScoredPopulations:
+    """The coordinates an oracle scores, in call order, while the block
+    runs (the fan-out's x0 lookaheads and candidates)."""
+
+    def __init__(self, oracle):
+        self.oracle, self.seen = oracle, []
+
+    def __enter__(self):
+        score = self.oracle.score_batch_types
+
+        def recording(coords, types, mask, weights):
+            self.seen.append(np.array(coords, np.float32))
+            return score(coords, types, mask, weights)
+
+        self.oracle.score_batch_types = recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        del self.oracle.score_batch_types
+
+
+def fanout_runs(torch, K, make_model, pocket, sizes, approx):
+    """(b)-(d): SPSA + ATP at B = N_SAMPLES, T = FANOUT_T (SPSA from step
+    FANOUT_SPSA_START) with the field at
+    FANOUT_ROW and unset, on the capped band (``approx``) or the exact
+    one; the first run profiled (DIFFNDM_GUIDED_PROFILE=1).  Returns per
+    label the result, seconds, launches, fan-out forwards and the scored
+    populations, and the profile's report."""
+    import contextlib
+    import io
+
+    from diffndm_tpu_torch.config import (ATPConfig, SampleConfig,
+                                          SPSAConfig)
+
+    runs, report = {}, None
+    for fanout in (FANOUT_ROW, None):
+        cfg = SampleConfig(pocket_pad_multiple=16, fanout_row_tile=fanout,
+                           spsa=SPSAConfig(enabled=True,
+                                           start_step=FANOUT_SPSA_START),
+                           atp=ATPConfig(enabled=True))
+        model, window = fanout_model(make_model, cfg, pocket, approx)
+        banded = []
+        hook = model.dynamics.register_forward_pre_hook(
+            lambda mod, args, kw: banded.append(kw.get("band") is not None),
+            with_kwargs=True)
+        profile = approx and fanout is not None
+        text = io.StringIO()
+        K.reset_launches()
+        try:
+            if profile:
+                os.environ["DIFFNDM_GUIDED_PROFILE"] = "1"
+            with ScoredPopulations(model.ensure_oracle()) as seen, \
+                    contextlib.redirect_stdout(text):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g = torch.Generator(device=model.device).manual_seed(SEED)
+                res = model.sample_given_pocket(pocket, sizes,
+                                                timesteps=FANOUT_T,
+                                                generator=g)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            os.environ.pop("DIFFNDM_GUIDED_PROFILE", None)
+            hook.remove()
+        if profile:
+            report = text.getvalue()
+        runs[fanout] = dict(res=res, seconds=seconds, window=window,
+                            launches=forward_launches(K), seen=seen,
+                            forwards=len(banded), banded=sum(banded),
+                            model=model, cfg=cfg)
+    return runs, report
+
+
+def fanout_forward_ms(torch, model, pocket, sizes, fan_rows):
+    """ms per denoiser forward on the capped band: the trajectory's (B
+    rows, tile FANOUT_TILE) and a fan-out of ``fan_rows`` rows at the
+    denoiser's tile and at FANOUT_ROW (window widened alike)."""
+    state = first_state(torch, model, pocket, sizes)
+    reps = -(-fan_rows // state[0].shape[0])
+    fan = [torch.cat([v] * reps)[:fan_rows] for v in state]
+    eg = model.dynamics.cfg
+    wide = (FANOUT_ROW, eg.band_window + FANOUT_ROW - eg.row_tile)
+    return dict(
+        trajectory=forward_ms(torch, lambda: model.dynamics(*state)),
+        fanout_tile8=forward_ms(torch, lambda: model.dynamics(*fan)),
+        fanout_tile16=forward_ms(torch, lambda: model.dynamics(
+            *fan, band=wide)))
+
+
+def tap_run(torch, K, make_model, pocket, sizes, tmp):
+    """(e) The SDF frame tap every TAP_EVERY steps of an unguided T_MAIN
+    batch: the files, the launches, the tap's host time per written frame
+    and per step without one."""
+    from diffndm_tpu_torch.chem.io import read_sdf
+    from diffndm_tpu_torch.diffusion.sampler import make_sdf_frame_tap
+
+    model = make_model("cuda")
+    out_dir = os.path.join(tmp, "frames")
+    tap = make_sdf_frame_tap(out_dir, model.dataset_info, model.core,
+                             every=TAP_EVERY)
+    cost = {True: [], False: []}
+
+    def timed(s, *args):
+        t0 = time.perf_counter()
+        tap(s, *args)
+        cost[s % TAP_EVERY == 0].append(time.perf_counter() - t0)
+
+    model.sampler.set_frame_tap(timed)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=model.device).manual_seed(SEED)
+    model.sample_given_pocket(pocket, sizes, timesteps=T_MAIN, generator=g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    model.sampler.set_frame_tap(None)
+    names = sorted(os.listdir(out_dir), key=lambda n: int(n[4:-4]))
+    want = [f"try_{s}.sdf" for s in range(0, T_MAIN, TAP_EVERY)]
+    records = [len(read_sdf(os.path.join(out_dir, n))) for n in names]
+    return dict(names=names, want=want, records=records, seconds=seconds,
+                launches=forward_launches(K),
+                frame_ms=1e3 * float(np.mean(cost[True])),
+                step_us=1e6 * float(np.mean(cost[False])),
+                frames=len(cost[True]), steps=len(cost[False]))
+
+
+def fanout_tap_phase(torch, K, make_model, ds):
+    """[fanout-tap]: (a)-(f) (see the module's docstring)."""
+    from diffndm_tpu_torch.diffusion.sampler import (count_forwards,
+                                                     guidance_events)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb, sdf, n_rec = joint_receptor(ds, tmp)
+        base = make_model("cuda")
+        pocket = base.pocket_from_pdb(pdb, sdf, N_SAMPLES)
+        sizes = base.sample_ligand_sizes(pocket,
+                                         torch.Generator().manual_seed(SEED))
+        n_real = int(pocket.mask[0].sum())
+        check = fanout_path_check(torch, make_model, pocket)
+        capped, report = fanout_runs(torch, K, make_model, pocket, sizes,
+                                     True)
+        exact, _ = fanout_runs(torch, K, make_model, pocket, sizes, False)
+        tap = tap_run(torch, K, make_model, pocket, sizes, tmp)
+    run = capped[FANOUT_ROW]
+    cfg, model = run["cfg"], run["model"]
+    n_layers = model.cfg.egnn.n_layers
+    forwards = count_forwards(cfg, FANOUT_T)
+    events = guidance_events(cfg, FANOUT_T)
+    want = {k: forwards * n_layers for k in KERNELS}
+    fan_rows = 2 * cfg.spsa.num_probes * N_SAMPLES
+    ms = fanout_forward_ms(torch, model, pocket, sizes, fan_rows)
+    seen16, seen0 = run["seen"], capped[None]["seen"]
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(seen16, seen0))
+    res16, res0 = run["res"].ligand.x, capped[None]["res"].ligand.x
+    moved_x = float((res16 - res0).abs().max())
+    exact_equal = all(bool(torch.equal(u, v)) for u, v in zip(
+        exact[FANOUT_ROW]["res"].ligand, exact[None]["res"].ligand))
+    log(f"[fanout-tap] v3b on the crop ({n_real} atoms of the {n_rec}-atom "
+        f"receptor, [B, N] = [{N_SAMPLES}, {pocket.x.shape[1]} + ligand]), "
+        f"SPSA k={cfg.spsa.num_probes} + ATP G={cfg.atp.num_groups}, "
+        f"T={FANOUT_T}: events {dict((k, len(v)) for k, v in events.items())}"
+        f", {forwards} forwards per run")
+    for label, runs in (("capped", capped), ("exact", exact)):
+        for fanout, r in runs.items():
+            log(f"[fanout-tap] {label} band (facade window {r['window']}, the "
+                f"denoiser's {r['model'].dynamics.cfg.band_window}), "
+                f"fanout_row_tile={fanout}: {r['seconds']:.3f} s, "
+                f"launches {r['launches']}, denoiser forwards {r['forwards']} "
+                f"({r['banded']} with the fan-out's own band)")
+    log(f"[fanout-tap] (b) launches per kernel {run['launches']} == "
+        f"count_forwards {forwards} x {n_layers} layers: "
+        f"{run['launches'] == want}")
+    log(f"[fanout-tap] (c) capped band, fanout_row_tile={FANOUT_ROW} against "
+        f"unset: the scored populations lie up to {moved:.3e} A apart, the "
+        f"ligands {moved_x:.3e} A")
+    log(f"[fanout-tap] (d) exact band: fanout_row_tile={FANOUT_ROW} and unset "
+        f"bit-equal: {exact_equal}")
+    log(f"[fanout-tap] ms per forward (capped band, host clock over "
+        f"{MODES_REPS} calls): trajectory [{N_SAMPLES} rows] "
+        f"{ms['trajectory']:.3f}, fan-out [{fan_rows} rows] at tile "
+        f"{FANOUT_TILE} {ms['fanout_tile8']:.3f}, at tile {FANOUT_ROW} "
+        f"{ms['fanout_tile16']:.3f}")
+    log(f"[fanout-tap] (e) unguided T={T_MAIN}, tap every {TAP_EVERY}: files "
+        f"{tap['names']} ({tap['records']} records), {tap['seconds']:.3f} s, "
+        f"launches {tap['launches']}; the tap's host time "
+        f"{tap['frame_ms']:.3f} ms per written frame ({tap['frames']}), "
+        f"{tap['step_us']:.2f} us per step without one ({tap['steps']})")
+    log("[fanout-tap] (f) " + report.strip().replace("\n", "\n[fanout-tap] "))
+    want_tap = {k: (T_MAIN + 1) * n_layers for k in KERNELS}
+    fan_forwards = forwards - FANOUT_T - 1
+    if not (all(r["launches"] == want and r["forwards"] == forwards
+                for runs in (capped, exact) for r in runs.values())
+            and run["banded"] == fan_forwards
+            and capped[None]["banded"] == 0
+            and run["model"].dynamics.cfg.band_window == BAND_APPROX_W
+            and exact[None]["model"].dynamics.cfg.band_window is None):
+        raise AssertionError("[fanout-tap] (b): launches or forwards unlike "
+                             "the config's count")
+    if not moved > 10 * PATH_COORD_ATOL:
+        raise AssertionError("[fanout-tap] (c): the fan-out's tile moved "
+                             "nothing under the capped band")
+    if not exact_equal:
+        raise AssertionError("[fanout-tap] (d): the fan-out's tile changed "
+                             "the result under the exact band")
+    if not (tap["names"] == tap["want"] and tap["launches"] == want_tap
+            and tap["records"] == [N_SAMPLES] * len(tap["want"])):
+        raise AssertionError("[fanout-tap] (e): the tap's files or the "
+                             "launches are wrong")
+    phases = set(re.findall(r"^  (\S+)\s+[0-9.]+  x\d+$", report, re.M))
+    need = {"segment", "decode", "spsa.probe", "spsa.fetch", "spsa.score",
+            "spsa.apply", "atp.cand", "atp.fetch", "atp.score",
+            "atp.select", "hyb.branch", "hyb.look", "hyb.fetch", "hyb.score",
+            "hyb.select"}
+    if report.count("guided-phase profile") != 1 or not need <= phases:
+        raise AssertionError(f"[fanout-tap] (f): the profile's report "
+                             f"lacks {sorted(need - phases)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[fanout-tap] done in {seconds:.1f} s")
+    return dict(launches=run["launches"], forwards=forwards,
+                fan_forwards=fan_forwards, path_err=check["err"],
+                moved=moved, moved_x=moved_x, exact_equal=exact_equal,
+                ms=ms, tap={k: tap[k] for k in ("frame_ms", "step_us",
+                                                "seconds", "launches")},
+                seconds={f"{label}_{f}": r["seconds"]
+                         for label, runs in (("capped", capped),
+                                             ("exact", exact))
+                         for f, r in runs.items()})
+
+
+
 def main() -> int:
     import torch
 
@@ -5532,7 +5881,8 @@ def main() -> int:
     parser.add_argument("--only", choices=["kernels", "phases", "quality",
                                            "train", "vina", "joint",
                                            "variants", "etl", "modes",
-                                           "dp", "workers", "bf16train"],
+                                           "dp", "workers", "bf16train",
+                                           "fanout"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
@@ -5544,7 +5894,8 @@ def main() -> int:
                         "alone, run the etl phase alone, run the modes "
                         "phase alone, run the data-parallel phase alone, "
                         "time a guided batch with the oracle's workers and "
-                        "with one, or run the bf16 training phase alone")
+                        "with one, run the bf16 training phase alone, or "
+                        "run the fanout-tap phase alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -5666,6 +6017,10 @@ def main() -> int:
             bf16train_phase(torch, K, ds, train_ds, batches, tmp)
         log("[bf16train] done (--only bf16train: no result)")
         return 0
+    if opts.only == "fanout":
+        fanout_tap_phase(torch, K, make_model, ds)
+        log("[fanout-tap] done (--only fanout: no result)")
+        return 0
     if opts.only == "workers":
         guided_workers_phase(torch, make_model, guided_cfg, pockets[0],
                              sizes[0], oracle_workers())
@@ -5752,6 +6107,7 @@ def main() -> int:
     dp_ranks = dp["runs"]["gloo"]
     with tempfile.TemporaryDirectory() as tmp:
         bf16train = bf16train_phase(torch, K, ds, train_ds, batches, tmp)
+    fanout_tap = fanout_tap_phase(torch, K, make_model, ds)
 
     table = [dict(name=name, route="cuda", source=SOURCE, replaces=src,
                   launches=launches[name],
@@ -5800,6 +6156,7 @@ def main() -> int:
                   dp_train_launches_per_rank=dp_ranks["train_launches"][name],
                   dp_sample_launches_per_rank=dp_ranks["sample_launches"][
                       name],
+                  fanout_tap_launches=fanout_tap["launches"][name],
                   configs={cfg: {k: checks[name][k] for k in (
                       *CALL_KEYS, "joint_first") if k in checks[name]}
                            for cfg, checks in config_checks.items()})

@@ -1,10 +1,14 @@
 """Bond perception from 3D coordinates (numpy host code).
 
-Connectivity by OpenBabel's ConnectTheDots rule (bond when the distance
-is below rcov_i + rcov_j + 0.45 A and above 0.4 A; over-coordinated atoms
-drop their longest bonds), kekulization of aromatic rings by a
-deterministic maximum matching, then greedy valence-checked upgrades to
-double and triple bonds, closest pairs first.
+The default: connectivity by OpenBabel's ConnectTheDots rule (bond when
+the distance is below rcov_i + rcov_j + 0.45 A and above 0.4 A;
+over-coordinated atoms drop their longest bonds), kekulization of
+aromatic rings by a deterministic maximum matching, then greedy
+valence-checked upgrades to double and triple bonds, closest pairs first.
+
+``use_edm=True``: the blind distance table of the EDM bond rule
+(``bond_order_matrix``), each pair's order the highest whose tabulated
+length plus its margin exceeds the distance, with no valence check.
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ import numpy as np
 from diffndm_tpu_torch.chem.matching import max_matching
 from diffndm_tpu_torch.chem.mol import Molecule
 from diffndm_tpu_torch.chem.rings import find_rings
-from diffndm_tpu_torch.constants import (ALLOWED_BONDS, MARGIN2, MARGIN3,
-                                         OB_COVALENT_RADII, OB_MAX_BONDS)
+from diffndm_tpu_torch.constants import (ALLOWED_BONDS, MARGIN1, MARGIN2,
+                                         MARGIN3, OB_COVALENT_RADII,
+                                         OB_MAX_BONDS)
 
 
 def _max_valence(sym: str) -> int:
@@ -25,9 +30,39 @@ def _max_valence(sym: str) -> int:
     return max(v) if isinstance(v, tuple) else v
 
 
+def bond_order_matrix(coords: np.ndarray, type_idx: np.ndarray,
+                      dataset_info: dict) -> np.ndarray:
+    """[n, n] int8 bond orders by the EDM table rule: 1, 2 or 3 where the
+    distance (pm) lies below the tabulated single, double or triple length
+    plus MARGIN1, MARGIN2 or MARGIN3, the highest order winning; 0 on the
+    diagonal and where no length is tabulated."""
+    n = len(coords)
+    if n == 0:
+        return np.zeros((0, 0), dtype=np.int8)
+    coords = np.asarray(coords)
+    d = np.linalg.norm(coords[:, None, :] - coords[None, :, :], axis=-1)
+    d = d * 100.0
+    t = np.asarray(type_idx)
+    order = np.zeros((n, n), dtype=np.int8)
+    for k, margin in ((1, MARGIN1), (2, MARGIN2), (3, MARGIN3)):
+        b = np.asarray(dataset_info[f"bonds{k}"])[t[:, None], t[None, :]]
+        order[(d < b + margin) & (b > 0)] = k
+    np.fill_diagonal(order, 0)
+    return order
+
+
 def build_molecule(coords: np.ndarray, type_idx: np.ndarray,
-                   dataset_info: dict) -> Molecule:
-    """Point cloud (Angstroms, atom type indices) -> Molecule."""
+                   dataset_info: dict, use_edm: bool = False) -> Molecule:
+    """Point cloud (Angstroms, atom type indices) -> Molecule, by bond
+    perception, or by the EDM table rule with ``use_edm``."""
+    if use_edm:
+        order = bond_order_matrix(coords, type_idx, dataset_info)
+        decoder = dataset_info["atom_decoder"]
+        iu = np.triu_indices(len(coords), k=1)
+        return Molecule([decoder[int(i)] for i in type_idx],
+                        [(int(i), int(j), int(order[i, j]))
+                         for i, j in zip(*iu) if order[i, j] > 0],
+                        coords=np.asarray(coords, np.float64))
     n = len(coords)
     decoder = dataset_info["atom_decoder"]
     symbols = [decoder[int(i)] for i in type_idx]

@@ -1,4 +1,4 @@
-"""Molecule files as SDF (V2000): writing, and a minimal reader."""
+"""Molecule files: SDF (V2000), writing and a minimal reader; XYZ."""
 
 from __future__ import annotations
 
@@ -72,3 +72,25 @@ def read_sdf(path: str) -> List[Molecule]:
         mols.append(Molecule(symbols, bonds,
                              coords=np.array(coords, np.float64)))
     return mols
+
+
+def write_xyz(path: str, coords: np.ndarray, symbols: Sequence[str]) -> None:
+    """An XYZ file: the atom count, an empty comment line, then one
+    ``symbol x y z`` line per atom (Angstroms, 9 decimals)."""
+    with open(path, "w") as f:
+        f.write(f"{len(symbols)}\n\n")
+        for (x, y, z), s in zip(coords, symbols):
+            f.write(f"{s} {x:.9f} {y:.9f} {z:.9f}\n")
+
+
+def read_xyz(path: str):
+    """(coords [n, 3] float64, symbols) of an XYZ file."""
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    n = int(lines[0])
+    symbols, coords = [], []
+    for line in lines[2:2 + n]:
+        parts = line.split()
+        symbols.append(parts[0])
+        coords.append([float(v) for v in parts[1:4]])
+    return np.array(coords), symbols

@@ -201,6 +201,11 @@ class SampleConfig:
     relax_iter: int = 0
     largest_frag: bool = False
     noise_scale: float = 1.0
+    # the band tile of the guidance fan-out forwards (SPSA's probe batch,
+    # the prunes' branches and lookaheads), under a band with the window
+    # widened by the tiles' difference where the tile grows; the steps
+    # keep the denoiser's row_tile.  None = the denoiser's
+    fanout_row_tile: Optional[int] = None
     lig_pad_multiple: int = 8
     pocket_pad_multiple: int = 64
 

@@ -24,6 +24,13 @@ candidates (settings from ``cfg.atp``); every per-row quantity the loop
 carries (fixed mask, clean fragment, initial pocket centre, origin row)
 is gathered by the selection.
 
+The hooks' fan-out forwards (SPSA's probe batch, ATP's branches and
+lookaheads) run with ``SampleConfig.fanout_row_tile`` as their band tile
+where it is set (``sampler.fanout_eps``), as the JAX package's
+host-orchestrated inpainting loop runs them.  ``DIFFNDM_GUIDED_PROFILE=1``
+times the hooks' phases (``spsa.*``, ``atp.*``, the phases that loop
+times) and prints them once per call.
+
 Noise: every draw comes from ``generator`` unless ``InpaintNoise`` fixes
 it, entry by entry (the replay tests feed the draws of the JAX package's
 key schedule).  ``noise_scale`` scales the reverse steps and the ATP
@@ -39,12 +46,13 @@ import torch
 
 from diffndm_tpu_torch.config import SampleConfig
 from diffndm_tpu_torch.diffusion.core import CondDiffusion
-from diffndm_tpu_torch.diffusion.sampler import SampleResult
+from diffndm_tpu_torch.diffusion.sampler import SampleResult, fanout_eps
 from diffndm_tpu_torch.guidance.atp import atp_prune
 from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.guidance.spsa import spsa_update
 from diffndm_tpu_torch.ops.segment import masked_mean
 from diffndm_tpu_torch.structs import NodeBatch
+from diffndm_tpu_torch.utils.profiling import PhaseProfiler
 
 
 def _fixed_mean(x, fixed):
@@ -208,6 +216,8 @@ class InpaintSampler:
             pm, noise=fixed_noise("init"), generator=generator)
 
         events = inpaint_events(cfg, timesteps, svdd, spsa)
+        fan_eps = fanout_eps(self.dynamics, cfg, self._eps)
+        prof = PhaseProfiler.from_env(device)
         row_src = torch.arange(b, device=device)
         for s in range(timesteps - 1, -1, -1):
             s_norm = torch.full((b,), float(s), device=device) / timesteps
@@ -223,9 +233,10 @@ class InpaintSampler:
                     zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
                                  / np.float32(icfg.spsa_zeta_denom))
                     z_unknown, xh_p = spsa_update(
-                        core, self._eps, self.oracle, z, xh_p, lm, pm,
+                        core, fan_eps, self.oracle, z, xh_p, lm, pm,
                         t_norm, zeta, cfg.spsa,
-                        noise=fixed_noise("spsa", s), generator=generator)
+                        noise=fixed_noise("spsa", s), generator=generator,
+                        prof=prof)
                 renoise = u < resamplings - 1
                 z, xh_p = repaint_combine(
                     core, z_unknown, xh_p, lm, pm, fixed, l_x, l_h, com_p0,
@@ -236,9 +247,10 @@ class InpaintSampler:
                     generator=generator)
             if s in events["atp"]:
                 z, xh_p, lm, pm, sel = atp_prune(
-                    core, self._eps, self.oracle, z, xh_p, lm, pm, s_norm,
+                    core, fan_eps, self.oracle, z, xh_p, lm, pm, s_norm,
                     t_norm, s, cfg.atp, noise=fixed_noise("atp", s),
-                    generator=generator, noise_scale=cfg.noise_scale)
+                    generator=generator, noise_scale=cfg.noise_scale,
+                    prof=prof)
                 rs = sel % b
                 fixed, l_x, l_h, com_p0 = (fixed[rs], l_x[rs], l_h[rs],
                                            com_p0[rs])
@@ -250,6 +262,8 @@ class InpaintSampler:
         com_before = masked_mean(pocket.x, pocket.mask, dim=1,
                                  keepdim=True)[row_src]
         shift = com_before - masked_mean(x_pocket, pm, dim=1, keepdim=True)
+        if prof.enabled:
+            print(prof.report(), flush=True)
         return SampleResult(
             ligand=NodeBatch((x_lig + shift) * lm[..., None], h_lig, lm),
             pocket=NodeBatch((x_pocket + shift) * pm[..., None], h_pocket,

@@ -9,6 +9,15 @@ reverse step (and at the prunes' branch steps); with ``collect_rl`` the
 loop also stacks each step's (z_t, eps) for the REINFORCE update
 ``rl_update`` makes after decoding.
 
+The guidance fan-out forwards (SPSA's probe batch, the prunes' branches
+and lookaheads, the hybrid's) run with ``SampleConfig.fanout_row_tile``
+as their band tile where it is set (``fanout_eps``, the JAX package's
+host-orchestrated loop); the steps and the decode keep the denoiser's own.
+``set_frame_tap`` installs a per-step callback (``make_sdf_frame_tap``
+dumps the trajectory as SDF files).  ``DIFFNDM_GUIDED_PROFILE=1`` prints
+the wall clock of the loop's phases once per call
+(``utils.profiling.PhaseProfiler``).
+
 Data-parallel (``group``, the JAX sampler's mesh): every rank passes the
 global pocket batch and samples its own contiguous rows; the noise is
 taken at the global shape (from ``SamplerNoise`` or, in the same order,
@@ -21,6 +30,7 @@ the JAX package's CLIs pass no mesh."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,6 +46,7 @@ from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
 from diffndm_tpu_torch.parallel.mesh import (DataGroup, all_gather_rows,
                                              all_reduce_flat, shard_rows)
 from diffndm_tpu_torch.structs import NodeBatch, pad_to
+from diffndm_tpu_torch.utils.profiling import PhaseProfiler
 
 # the batch axis of each SamplerNoise table (of one step's entry)
 _NOISE_BATCH_AXIS = dict(init=0, steps=0, decode=0, atp=1, spsa=1)
@@ -99,6 +110,29 @@ def count_forwards(cfg: SampleConfig, timesteps: int) -> int:
             + (per_prune + g_extra * per_spsa) * len(ev["hybrid"]))
 
 
+def fanout_eps(dynamics: torch.nn.Module, cfg: SampleConfig, eps):
+    """The eps function of the guidance fan-out forwards: ``eps`` where
+    ``cfg.fanout_row_tile`` is unset or equals the denoiser's
+    ``row_tile``, else the same weights with the fan-out's tile and, under
+    a band, the window widened by the tiles' difference where the tile
+    grows.  The window is centred per tile, so a wider tile alone would
+    narrow each row's guaranteed half-width (window - tile) / 2; widening
+    the window as much keeps it, and a window exact for the steps stays
+    exact for the fan-out."""
+    tile, base = cfg.fanout_row_tile, dynamics.cfg
+    if not tile or tile == base.row_tile:
+        return eps
+    window = base.band_window
+    if window is not None and tile > base.row_tile:
+        window += tile - base.row_tile
+    band = (tile, window)
+
+    def fn(z_lig, xh_pocket, t, lig_mask, pocket_mask):
+        return dynamics(z_lig, xh_pocket, t, lig_mask, pocket_mask,
+                        band=band)
+    return fn
+
+
 class ConditionalSampler:
     def __init__(self, core: CondDiffusion, dynamics: torch.nn.Module,
                  cfg: SampleConfig, oracle: Optional[RewardOracle] = None,
@@ -113,6 +147,14 @@ class ConditionalSampler:
         self.cfg = cfg
         self.oracle = oracle
         self.group = group
+        self.frame_tap = None
+
+    def set_frame_tap(self, fn) -> None:
+        """fn(s, z_lig, xh_pocket, lig_mask) is called at the end of every
+        reverse step s, after that step's guidance (with the masks of the
+        rows that survived), on the sampler's tensors (e.g.
+        ``make_sdf_frame_tap``); None removes it."""
+        self.frame_tap = fn
 
     def ligand_mask(self, num_nodes_lig, device) -> torch.Tensor:
         """[B, NL] mask; NL is the largest size rounded up to
@@ -218,7 +260,10 @@ class ConditionalSampler:
             noise=fixed("init"), generator=generator)
 
         cfg, oracle = self.cfg, self.oracle
+        fan_eps = fanout_eps(self.dynamics, cfg, self._eps)
+        prof = PhaseProfiler.from_env(device)
         events = guidance_events(cfg, timesteps)
+        event_steps = set(events["atp"]) | set(events["spsa"])
         row_src = torch.arange(b, device=device)
         if group is not None:
             row_src = row_src + rows.start
@@ -232,10 +277,14 @@ class ConditionalSampler:
             t_norm = torch.full((b,), float(s + 1), device=device) / timesteps
             if collect_rl:
                 traj[0][timesteps - 1 - s] = z_lig
+            if s == timesteps - 1 or s + 1 in event_steps:
+                prof.begin("segment")
             z_lig, xh_pocket, lp, eps = core.sample_p_zs_given_zt(
                 s_norm, t_norm, z_lig, xh_pocket, lig_mask, pocket_mask,
                 self._eps, adjust_fn=adjust, noise=fixed("steps", s),
                 generator=generator, noise_scale=cfg.noise_scale)
+            if s == 0 or s in event_steps:
+                prof.end("segment")
             if adjust is not None:
                 lp_sum += lp
             if collect_rl:
@@ -243,11 +292,11 @@ class ConditionalSampler:
 
             if s in events["atp"]:
                 z_lig, xh_pocket, lig_mask, pocket_mask, sel = atp_prune(
-                    core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
+                    core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
                     pocket_mask, s_norm, t_norm, s, cfg.atp,
                     noise=fixed("atp", s), generator=generator,
                     noise_scale=cfg.noise_scale, adjust_fn=adjust,
-                    group=group)
+                    group=group, prof=prof)
                 row_src = self._origin(row_src, sel, b)
 
             if s in events["spsa"]:
@@ -255,35 +304,41 @@ class ConditionalSampler:
                 zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
                              / np.float32(cfg.spsa.zeta_denom))
                 z_lig, xh_pocket = spsa_update(
-                    core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
+                    core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
                     pocket_mask, t_norm, zeta, cfg.spsa,
                     noise=fixed("spsa", s),
-                    generator=generator)
+                    generator=generator, prof=prof)
                 if s in events["hybrid"]:
                     branch, probes = fixed("hybrid") or (None, None)
                     (z_lig, xh_pocket, lig_mask, pocket_mask,
                      sel) = hybrid_spsa_prune(
-                        core, self._eps, oracle, z_lig, xh_pocket, lig_mask,
+                        core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
                         pocket_mask, s_norm, t_norm, s, cfg.atp, cfg.spsa,
                         zeta, noise=branch, spsa_noise=probes,
                         generator=generator, noise_scale=cfg.noise_scale,
-                        adjust_fn=adjust, group=group)
+                        adjust_fn=adjust, group=group, prof=prof)
                     row_src = self._origin(row_src, sel, b)
+            if self.frame_tap is not None:
+                self.frame_tap(s, z_lig, xh_pocket, lig_mask)
 
-        x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
-            z_lig, xh_pocket, lig_mask, pocket_mask, self._eps,
-            noise=fixed("decode"), generator=generator)
+        with prof.phase("decode"):
+            x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
+                z_lig, xh_pocket, lig_mask, pocket_mask, self._eps,
+                noise=fixed("decode"), generator=generator)
 
-        # centre-of-gravity drift projection, then the shift back to the
-        # original pocket frame
-        x_lig, x_pocket = remove_mean_ligand(x_lig, x_pocket, lig_mask,
-                                             pocket_mask)
-        com_before = masked_mean(pocket_all.x, pocket_all.mask, dim=1,
-                                 keepdim=True)[row_src]
-        com_after = masked_mean(x_pocket, pocket_mask, dim=1, keepdim=True)
-        shift = com_before - com_after
-        x_lig = (x_lig + shift) * lig_mask[..., None]
-        x_pocket = (x_pocket + shift) * pocket_mask[..., None]
+            # centre-of-gravity drift projection, then the shift back to
+            # the original pocket frame
+            x_lig, x_pocket = remove_mean_ligand(x_lig, x_pocket, lig_mask,
+                                                 pocket_mask)
+            com_before = masked_mean(pocket_all.x, pocket_all.mask, dim=1,
+                                     keepdim=True)[row_src]
+            com_after = masked_mean(x_pocket, pocket_mask, dim=1,
+                                    keepdim=True)
+            shift = com_before - com_after
+            x_lig = (x_lig + shift) * lig_mask[..., None]
+            x_pocket = (x_pocket + shift) * pocket_mask[..., None]
+        if prof.enabled:
+            print(prof.report(), flush=True)
         out = (x_lig, h_lig, lig_mask, x_pocket, h_pocket, pocket_mask,
                row_src)
         if group is not None:
@@ -325,3 +380,37 @@ class ConditionalSampler:
         loss, grad_norm = adjust_state.reinforce(
             z_stack, eps_stack, lig.mask, reward, cfg.reward_scale)
         return loss, grad_norm, reward
+
+
+def make_sdf_frame_tap(out_dir: str, dataset_info: dict, core: CondDiffusion,
+                       every: int = 100, group: Optional[DataGroup] = None):
+    """A frame tap (``ConditionalSampler.set_frame_tap``) that writes the
+    trajectory's ligands to ``<out_dir>/try_<s>.sdf`` at every step s with
+    s % every == 0: coordinates z[..., :3] times the coordinate norm,
+    types the argmax of the type channels, bonds perceived.  The tensors
+    are copied to the host at those steps only, so that the other steps
+    add no synchronisation.  group: the sampler's data group; every rank
+    calls the tap on its rows, which are all-gathered at a frame, and
+    rank 0 writes the file."""
+    from diffndm_tpu_torch.chem.bonds import build_molecules_batch
+    from diffndm_tpu_torch.chem.io import write_sdf
+
+    if group is None or group.rank == 0:
+        os.makedirs(out_dir, exist_ok=True)
+    nx = core.cfg.norm_values[0]
+
+    def tap(s, z_lig, xh_pocket, lig_mask):
+        s = int(s)
+        if s % every != 0:
+            return
+        if group is not None:
+            z_lig = all_gather_rows(group, z_lig)
+            lig_mask = all_gather_rows(group, lig_mask)
+            if group.rank != 0:
+                return
+        z = z_lig.detach().cpu().numpy()
+        mols = build_molecules_batch(z[..., :3] * nx, z[..., 3:].argmax(-1),
+                                     lig_mask.cpu().numpy(), dataset_info)
+        write_sdf(os.path.join(out_dir, f"try_{s}.sdf"), mols)
+
+    return tap

@@ -44,6 +44,7 @@ from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.guidance.spsa import spsa_update
 from diffndm_tpu_torch.ops.segment import remove_mean_ligand
 from diffndm_tpu_torch.parallel.mesh import DataGroup, all_gather_rows
+from diffndm_tpu_torch.utils.profiling import OFF, PhaseProfiler
 
 
 def _top(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -113,40 +114,56 @@ def _branches(core, eps_fn, z_lig, xh_pocket, lig_mask, pocket_mask, s_norm,
     return z.reshape((n, b) + z.shape[1:]), xh.reshape((n, b) + xh.shape[1:])
 
 
-def _score_and_select(core, eps_fn, oracle, z_groups, xh_groups, lig_mask,
-                      pocket_mask, t_norm, s_step: int, cfg: ATPConfig,
-                      group: Optional[DataGroup] = None):
-    """Lookahead, both rewards, the mixed weighting, selection, gather."""
+def _lookahead(core, eps_fn, z_groups, xh_groups, lig_mask, pocket_mask,
+               t_norm):
+    """The x0 lookahead of the G*B candidates, flattened G-major."""
+    g = z_groups.shape[0]
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])
+    return core.to_x0(flat(z_groups), flat(xh_groups), t_norm.repeat(g),
+                      lig_mask.repeat(g, 1), pocket_mask.repeat(g, 1),
+                      eps_fn)
+
+
+def _score_and_select(core, oracle, z_groups, xh_groups, z0_flat, lig_mask,
+                      pocket_mask, s_step: int, cfg: ATPConfig,
+                      group: Optional[DataGroup] = None,
+                      prof: PhaseProfiler = OFF, tag: str = "atp"):
+    """Both rewards of the candidates and their lookaheads, the mixed
+    weighting, selection, gather (the ``<tag>.fetch / score / select``
+    phases)."""
     g, b = z_groups.shape[:2]
     nd = core.n_dims
     nx = core.cfg.norm_values[0]
     z_flat = z_groups.reshape((g * b,) + z_groups.shape[2:])
     xh_flat = xh_groups.reshape((g * b,) + xh_groups.shape[2:])
-    lm_f = lig_mask.repeat(g, 1)
-    z0_flat = core.to_x0(z_flat, xh_flat, t_norm.repeat(g), lm_f,
-                         pocket_mask.repeat(g, 1), eps_fn)
-    r_z = oracle.svdd_rewards(z_flat[..., :nd] * nx, z_flat[..., nd:], lm_f,
-                              cfg)
-    r_x0 = oracle.svdd_rewards(z0_flat[..., :nd] * nx, z0_flat[..., nd:],
-                               lm_f, cfg)
-    # the weights in float32 arithmetic, as the rewards are
-    s_f, denom = np.float32(s_step), np.float32(cfg.mix_denom)
-    if cfg.compat_precedence:
-        w_z = denom - s_f / denom
-    else:
-        w_z = (denom - s_f) / denom
-    mixed = r_x0 * float(s_f / denom) + r_z * float(w_z)
-    if group is not None and not cfg.per_sample:
-        return _select_across(group, mixed, z_groups, xh_groups, lig_mask,
-                              pocket_mask, cfg, core)
-    sel_idx = select_candidates(mixed, cfg, b)
-    out = gather_selected(sel_idx, z_flat, xh_flat, lig_mask, pocket_mask,
-                          core)
-    if group is not None:
-        # per_sample: the rows' own candidates, named in the global G*B
-        bg = b * group.world
-        sel_idx = (sel_idx // b) * bg + group.rank * b + sel_idx % b
-    return out + (sel_idx,)
+    with prof.phase(f"{tag}.fetch"):
+        z_h, z0_h = prof.fetch(z_flat), prof.fetch(z0_flat)
+        lm_f = prof.fetch(lig_mask).repeat(g, 1)
+    with prof.phase(f"{tag}.score"):
+        r_z = oracle.svdd_rewards(z_h[..., :nd] * nx, z_h[..., nd:], lm_f,
+                                  cfg)
+        r_x0 = oracle.svdd_rewards(z0_h[..., :nd] * nx, z0_h[..., nd:],
+                                   lm_f, cfg)
+    with prof.phase(f"{tag}.select"):
+        r_z, r_x0 = r_z.to(z_flat.device), r_x0.to(z_flat.device)
+        # the weights in float32 arithmetic, as the rewards are
+        s_f, denom = np.float32(s_step), np.float32(cfg.mix_denom)
+        if cfg.compat_precedence:
+            w_z = denom - s_f / denom
+        else:
+            w_z = (denom - s_f) / denom
+        mixed = r_x0 * float(s_f / denom) + r_z * float(w_z)
+        if group is not None and not cfg.per_sample:
+            return _select_across(group, mixed, z_groups, xh_groups,
+                                  lig_mask, pocket_mask, cfg, core)
+        sel_idx = select_candidates(mixed, cfg, b)
+        out = gather_selected(sel_idx, z_flat, xh_flat, lig_mask,
+                              pocket_mask, core)
+        if group is not None:
+            # per_sample: the rows' own candidates, named in the global G*B
+            bg = b * group.world
+            sel_idx = (sel_idx // b) * bg + group.rank * b + sel_idx % b
+        return out + (sel_idx,)
 
 
 def _select_across(group: DataGroup, mixed, z_groups, xh_groups, lig_mask,
@@ -173,21 +190,27 @@ def atp_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle, z_lig,
               cfg: ATPConfig, noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
               noise_scale: float = 1.0, adjust_fn=None,
-              group: Optional[DataGroup] = None):
+              group: Optional[DataGroup] = None,
+              prof: PhaseProfiler = OFF):
     """One pruning event.  z_lig: [B, NL, D]; s_norm, t_norm: [B]; noise:
     the branches' step noise [G-1, B, NL, D], else drawn from
     ``generator``; adjust_fn: the RL adjustment of the branch steps;
-    group: select across its ranks (z_lig etc. are this rank's rows).
-    Returns (z_lig, xh_pocket, lig_mask, pocket_mask,
-    sel_idx): the masks replace the caller's, and sel_idx % B is each
-    output row's origin row (B the global batch under a group)."""
-    zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
-                        pocket_mask, s_norm, t_norm, cfg.num_groups - 1,
-                        noise, generator, noise_scale, adjust_fn)
-    return _score_and_select(
-        core, eps_fn, oracle, torch.cat([z_lig[None], zb]),
-        torch.cat([xh_pocket[None], xhb]), lig_mask, pocket_mask, t_norm,
-        s_step, cfg, group)
+    group: select across its ranks (z_lig etc. are this rank's rows);
+    prof: times the ``atp.*`` phases.  Returns (z_lig, xh_pocket,
+    lig_mask, pocket_mask, sel_idx): the masks replace the caller's, and
+    sel_idx % B is each output row's origin row (B the global batch under
+    a group)."""
+    with prof.phase("atp.cand"):
+        zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
+                            pocket_mask, s_norm, t_norm, cfg.num_groups - 1,
+                            noise, generator, noise_scale, adjust_fn)
+        z_groups = torch.cat([z_lig[None], zb])
+        xh_groups = torch.cat([xh_pocket[None], xhb])
+        z0 = _lookahead(core, eps_fn, z_groups, xh_groups, lig_mask,
+                        pocket_mask, t_norm)
+    return _score_and_select(core, oracle, z_groups, xh_groups, z0,
+                             lig_mask, pocket_mask, s_step, cfg, group, prof,
+                             "atp")
 
 
 def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
@@ -198,7 +221,8 @@ def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
                       spsa_noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       noise_scale: float = 1.0, adjust_fn=None,
-                      group: Optional[DataGroup] = None):
+                      group: Optional[DataGroup] = None,
+                      prof: PhaseProfiler = OFF):
     """The one-off hybrid event at s == spsa.start_step: G-1 extra branches
     are sampled, each gets its own SPSA update, then the G-group ensemble
     is scored and pruned like ``atp_prune``.  Branches with index >= 2 use
@@ -206,18 +230,23 @@ def hybrid_spsa_prune(core: CondDiffusion, eps_fn, oracle: RewardOracle,
     quirk).  noise: [G-1, B, NL, D]; spsa_noise: [G-1, k, B, NL, 3];
     adjust_fn: the RL adjustment of the branch steps; group: as in
     ``atp_prune`` (each branch's SPSA update is per row and stays
-    local)."""
+    local); prof: times the ``hyb.*`` phases and the branches' ``spsa.*``
+    ones."""
     g_extra = atp_cfg.num_groups - 1
-    zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
-                        pocket_mask, s_norm, t_norm, g_extra, noise,
-                        generator, noise_scale, adjust_fn)
+    with prof.phase("hyb.branch"):
+        zb, xhb = _branches(core, eps_fn, z_lig, xh_pocket, lig_mask,
+                            pocket_mask, s_norm, t_norm, g_extra, noise,
+                            generator, noise_scale, adjust_fn)
     updated = [spsa_update(
         core, eps_fn, oracle, zb[i], xhb[i], lig_mask, pocket_mask, t_norm,
         spsa_cfg.zeta0 if i >= 2 else zeta, spsa_cfg,
         noise=None if spsa_noise is None else spsa_noise[i],
-        generator=generator) for i in range(g_extra)]
-    return _score_and_select(
-        core, eps_fn, oracle,
-        torch.cat([z_lig[None]] + [u[0][None] for u in updated]),
-        torch.cat([xh_pocket[None]] + [u[1][None] for u in updated]),
-        lig_mask, pocket_mask, t_norm, s_step, atp_cfg, group)
+        generator=generator, prof=prof) for i in range(g_extra)]
+    z_groups = torch.cat([z_lig[None]] + [u[0][None] for u in updated])
+    xh_groups = torch.cat([xh_pocket[None]] + [u[1][None] for u in updated])
+    with prof.phase("hyb.look"):
+        z0 = _lookahead(core, eps_fn, z_groups, xh_groups, lig_mask,
+                        pocket_mask, t_norm)
+    return _score_and_select(core, oracle, z_groups, xh_groups, z0,
+                             lig_mask, pocket_mask, s_step, atp_cfg, group,
+                             prof, "hyb")

@@ -21,6 +21,7 @@ from diffndm_tpu_torch.config import SPSAConfig
 from diffndm_tpu_torch.diffusion.core import CondDiffusion, draw_noise
 from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
+from diffndm_tpu_torch.utils.profiling import OFF, PhaseProfiler
 
 ZETA_GRAD_DENOM = 1e-4
 
@@ -28,10 +29,12 @@ ZETA_GRAD_DENOM = 1e-4
 def spsa_update(core: CondDiffusion, eps_fn, oracle: RewardOracle,
                 z_lig, xh_pocket, lig_mask, pocket_mask, t_norm, zeta,
                 cfg: SPSAConfig, noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                prof: PhaseProfiler = OFF):
     """One SPSA update.  z_lig: [B, NL, 3+F] (normalised latent); t_norm:
     scalar or [B]; noise: the k raw normal draws [k, B, NL, 3], else drawn
-    from ``generator``.  Returns the updated (z_lig, xh_pocket)."""
+    from ``generator``; prof: times the ``spsa.*`` phases.  Returns the
+    updated (z_lig, xh_pocket)."""
     nd = core.n_dims
     b, k = z_lig.shape[0], cfg.num_probes
     ml = lig_mask[..., None]
@@ -39,35 +42,40 @@ def spsa_update(core: CondDiffusion, eps_fn, oracle: RewardOracle,
     x, feats = z_lig[..., :nd], z_lig[..., nd:]
     t = torch.as_tensor(t_norm, dtype=x.dtype, device=x.device).expand(b)
 
-    raw = draw_noise(x.new_empty((k,) + x.shape), noise, generator) * ml
-    raw = (raw - masked_mean(raw, ml.expand_as(raw), dim=2,
-                             keepdim=True)) * ml
-    perts = zeta * raw                                    # [k, B, NL, 3]
-
-    def rewards_of(x_pm, reps):
+    def lookahead(x_pm, reps):
         """x_pm: [reps*B, NL, 3], the rows of ``reps`` copies of the batch
-        -> rewards [reps*B] of their x0 lookahead."""
+        -> their x0 lookahead."""
         z_pm = torch.cat([x_pm, feats.repeat(reps, 1, 1)], -1)
-        lm = lig_mask.repeat(reps, 1)
-        z0 = core.to_x0(z_pm, xh_pocket.repeat(reps, 1, 1), t.repeat(reps),
-                        lm, pocket_mask.repeat(reps, 1), eps_fn)
-        return oracle.spsa_rewards(z0[..., :nd] * nx, z0[..., nd:], lm, cfg)
+        return core.to_x0(z_pm, xh_pocket.repeat(reps, 1, 1),
+                          t.repeat(reps), lig_mask.repeat(reps, 1),
+                          pocket_mask.repeat(reps, 1), eps_fn)
 
-    if cfg.fuse_probes:
-        # one forward of k*2B rows, ordered [k, 2, B]: per probe the B
-        # plus rows, then the B minus rows
-        x_pm = torch.stack([x + perts, x - perts], dim=1)   # [k, 2, B, NL, 3]
-        r = rewards_of(x_pm.reshape((2 * k * b,) + x.shape[1:]),
-                       2 * k).reshape(k, 2, b)
-    else:
-        r = torch.stack([rewards_of(torch.cat([x + p, x - p]), 2)
-                         .reshape(2, b) for p in perts])
-    dd = (r[:, 0] - r[:, 1]) / (2.0 * ZETA_GRAD_DENOM)      # [k, B]
-    avg_grad = (dd[:, :, None, None] * perts).mean(dim=0)
-
-    new_x, px = remove_mean_ligand(x + cfg.guidance_scale * avg_grad,
-                                   xh_pocket[..., :nd], lig_mask,
-                                   pocket_mask)
-    return (torch.cat([new_x, feats], -1) * ml,
-            torch.cat([px, xh_pocket[..., nd:]], -1))
-
+    with prof.phase("spsa.probe"):
+        raw = draw_noise(x.new_empty((k,) + x.shape), noise, generator) * ml
+        raw = (raw - masked_mean(raw, ml.expand_as(raw), dim=2,
+                                 keepdim=True)) * ml
+        perts = zeta * raw                                # [k, B, NL, 3]
+        if cfg.fuse_probes:
+            # one forward of k*2B rows, ordered [k, 2, B]: per probe the
+            # B plus rows, then the B minus rows
+            x_pm = torch.stack([x + perts, x - perts], dim=1)
+            z0s = [lookahead(x_pm.reshape((2 * k * b,) + x.shape[1:]),
+                             2 * k)]
+        else:
+            z0s = [lookahead(torch.cat([x + p, x - p]), 2) for p in perts]
+    reps = 2 * k // len(z0s)
+    with prof.phase("spsa.fetch"):
+        z0s = [prof.fetch(z0) for z0 in z0s]
+        lm = prof.fetch(lig_mask).repeat(reps, 1)
+    with prof.phase("spsa.score"):
+        r = torch.cat([oracle.spsa_rewards(z0[..., :nd] * nx, z0[..., nd:],
+                                           lm, cfg) for z0 in z0s])
+    with prof.phase("spsa.apply"):
+        r = r.to(x.device).reshape(k, 2, b)
+        dd = (r[:, 0] - r[:, 1]) / (2.0 * ZETA_GRAD_DENOM)  # [k, B]
+        avg_grad = (dd[:, :, None, None] * perts).mean(dim=0)
+        new_x, px = remove_mean_ligand(x + cfg.guidance_scale * avg_grad,
+                                       xh_pocket[..., :nd], lig_mask,
+                                       pocket_mask)
+        return (torch.cat([new_x, feats], -1) * ml,
+                torch.cat([px, xh_pocket[..., nd:]], -1))

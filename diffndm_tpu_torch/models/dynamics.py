@@ -11,11 +11,13 @@ Two sparsity options of ``EGNNConfig`` mask the adjacency: ``neighbors``
 keeps each row's K best-ranked columns (``egnn.neighbor_mask``), and
 ``band_window`` sorts the pocket along its principal axis and keeps a band
 of columns per tile of pocket rows (``models/banding.py``); the outputs
-come back in the caller's row order."""
+come back in the caller's row order.  A call may run another tile and
+window than the config's (``band``): the guidance fan-out's own row tile
+(``SampleConfig.fanout_row_tile``) runs the same weights that way."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -116,9 +118,14 @@ class EGNNDynamics(nn.Module):
         x = F.silu(getattr(self, f"{name}_l0")(x))
         return getattr(self, f"{name}_l1")(x)
 
-    def forward(self, xh_lig, xh_pocket, t, lig_mask, pocket_mask
+    def forward(self, xh_lig, xh_pocket, t, lig_mask, pocket_mask,
+                band: Optional[Tuple[int, Optional[int]]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """band: the (row_tile, band_window) of this call in place of the
+        config's."""
         cfg, nd = self.cfg, self.n_dims
+        row_tile, window = (cfg.row_tile, cfg.band_window) if band is None \
+            else band
         nl = xh_lig.shape[1]
         x_lig, h_lig = xh_lig[..., :nd], xh_lig[..., nd:]
         x_poc, h_poc = xh_pocket[..., :nd], xh_pocket[..., nd:]
@@ -130,10 +137,10 @@ class EGNNDynamics(nn.Module):
         # block (the JAX package's condition); elsewhere it would cost a
         # host sort and change nothing
         perm = None
-        if (cfg.band_window is not None and cfg.neighbors is None
+        if (window is not None and cfg.neighbors is None
                 and cfg.mode == "egnn_dynamics"
                 and cfg.aggregation_method == "sum"
-                and cfg.band_window < x_poc.shape[1]):
+                and window < x_poc.shape[1]):
             perm, _ = banding.principal_axis_order(x_poc, pocket_mask)
             x_poc, h_poc = _take_rows(x_poc, perm), _take_rows(h_poc, perm)
             pocket_mask = torch.gather(pocket_mask, 1, perm)
@@ -150,8 +157,8 @@ class EGNNDynamics(nn.Module):
         adj = build_adjacency(x_lig, x_poc, lig_mask, pocket_mask, cfg)
         n = adj.shape[-1]
         if perm is not None:
-            adj = adj * banding.band_mask(n, nl, cfg.row_tile,
-                                          cfg.band_window, adj.device)
+            adj = adj * banding.band_mask(n, nl, row_tile, window,
+                                          adj.device)
         if cfg.neighbors is not None and cfg.neighbors < n:
             adj = adj * neighbor_mask(x, adj, nl, cfg.neighbors)
         edge_attr = None

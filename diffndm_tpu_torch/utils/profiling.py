@@ -10,6 +10,9 @@
 - ``StepTimer`` keeps host wall times per step with a percentile summary;
   given a CUDA device it synchronises the card before reading the clock,
   so that a step's time includes the work it queued.
+- ``PhaseProfiler`` sums the wall clock of the named phases of one guided
+  sampling call (``DIFFNDM_GUIDED_PROFILE=1``, the JAX package's phase
+  names) and prints them in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from collections import defaultdict
 from typing import Optional
 
 TRACE_FILE = "trace.json"
@@ -100,3 +104,74 @@ class StepTimer:
             "min_s": ts[0],
             "max_s": ts[-1],
         }
+
+
+class PhaseProfiler:
+    """Wall clock per phase of a guided sampling call: ``segment`` (a run
+    of reverse steps up to a guidance event), ``spsa.{probe, fetch, score,
+    apply}``, ``atp.{cand, fetch, score, select}``, ``hyb.{branch, look,
+    fetch, score, select}`` and ``decode``.  A ``fetch`` is the host copy
+    of the decoded x0 (and of the states and masks scored beside it)
+    before scoring.
+
+    On, each phase ends by synchronising the card, so that a phase's time
+    holds the work it queued (this serialises the loop: for diagnosis
+    only).  Off (the default), ``phase`` is a shared null context and
+    ``fetch`` the identity: no clock is read and nothing is
+    synchronised."""
+
+    def __init__(self, enabled: bool = False, device=None):
+        self.enabled = enabled
+        self.total = defaultdict(float)
+        self.count = defaultdict(int)
+        self._open = {}
+        self._sync = None
+        if enabled and device is not None:
+            import torch
+
+            device = torch.device(device)
+            if device.type == "cuda":
+                self._sync = lambda: torch.cuda.synchronize(device)
+
+    @classmethod
+    def from_env(cls, device) -> "PhaseProfiler":
+        """On when ``DIFFNDM_GUIDED_PROFILE=1``."""
+        return cls(os.environ.get("DIFFNDM_GUIDED_PROFILE") == "1", device)
+
+    def phase(self, name: str):
+        return self._phase(name) if self.enabled else _NULL
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        self.begin(name)
+        try:
+            yield
+        finally:
+            self.end(name)
+
+    def begin(self, name: str) -> None:
+        if self.enabled:
+            self._open[name] = time.perf_counter()
+
+    def end(self, name: str) -> None:
+        if self.enabled:
+            if self._sync is not None:
+                self._sync()
+            self.total[name] += time.perf_counter() - self._open.pop(name)
+            self.count[name] += 1
+
+    def fetch(self, tensor):
+        """The tensor on the host while profiling, else itself."""
+        return tensor.cpu() if self.enabled else tensor
+
+    def report(self) -> str:
+        lines = ["guided-phase profile (s, calls):"]
+        for k in sorted(self.total, key=self.total.get, reverse=True):
+            lines.append("  %-16s %8.3f  x%d" % (k, self.total[k],
+                                                 self.count[k]))
+        lines.append("  %-16s %8.3f" % ("TOTAL", sum(self.total.values())))
+        return "\n".join(lines)
+
+
+_NULL = contextlib.nullcontext()
+OFF = PhaseProfiler()

@@ -168,15 +168,16 @@ def test_guidance_config_defaults_equal_jax(name):
 
 
 def test_sample_config_fields_equal_jax_where_ported():
-    """The port's SampleConfig is the subset of the JAX one that
-    sampling, guidance, the RL adjustment, inpainting and the output
-    filters read; the TPU kernel banding knob is not ported."""
+    """The port's SampleConfig is the JAX one: what sampling, guidance
+    (with the fan-out's own band tile), the RL adjustment, inpainting and
+    the output filters read."""
     ref = {f.name: f for f in dataclasses.fields(jcfg.SampleConfig)}
     ours = dataclasses.fields(tcfg.SampleConfig)
     assert [f.name for f in ours] == ["n_samples", "timesteps", "spsa",
                                       "atp", "rl", "inpaint", "sanitize",
                                       "relax_iter",
                                       "largest_frag", "noise_scale",
+                                      "fanout_row_tile",
                                       "lig_pad_multiple",
                                       "pocket_pad_multiple"]
     assert [f.name for f in ours] == [n for n in ref if n in
