@@ -1,0 +1,7 @@
+"""Both forward edge-chain kernels' share of their roofline while sampling."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.roofline(run, readers.FWD_KERNELS, run.fwd_least_s)

@@ -1,0 +1,7 @@
+"""Share of the traced sampling steps with the card idle."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.idle_share(run)
