@@ -1,0 +1,7 @@
+"""CUDA runtime launch calls per whole sampler.step span of the eval batch."""
+
+from benchmark import spans
+
+
+def read(run):
+    return spans.launches_per_span(run, "sampler.step")

@@ -1,7 +1,9 @@
 """Partial noise-then-denoise diversification, the step of the
 evolutionary optimizer: a ligand is noised to step ``noising_steps`` of
 the model's T-step schedule and denoised back through that many reverse
-steps, which keeps it near its pose while changing its details."""
+steps, which keeps it near its pose while changing its details.  Each
+reverse step is a ``sampler.step`` span and the decode a ``decode`` span
+(``utils.profiling``)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from diffndm_tpu_torch.diffusion.core import CondDiffusion
 from diffndm_tpu_torch.diffusion.sampler import SampleResult
 from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
 from diffndm_tpu_torch.structs import NodeBatch
+from diffndm_tpu_torch.utils.profiling import annotate
 
 
 class DiversifyNoise(NamedTuple):
@@ -61,18 +64,20 @@ class DiversifySampler:
             noise=None if noise is None else noise.noised,
             generator=generator)
         for s in range(noising_steps - 1, -1, -1):
-            s_norm = torch.full((b,), float(s), device=device) / T
-            t_norm = torch.full((b,), float(s + 1), device=device) / T
-            z, xh_p, _, _ = core.sample_p_zs_given_zt(
-                s_norm, t_norm, z, xh_p, lm, pm, self._eps,
-                noise=None if noise is None else noise.steps[s],
+            with annotate("sampler.step"):
+                s_norm = torch.full((b,), float(s), device=device) / T
+                t_norm = torch.full((b,), float(s + 1), device=device) / T
+                z, xh_p, _, _ = core.sample_p_zs_given_zt(
+                    s_norm, t_norm, z, xh_p, lm, pm, self._eps,
+                    noise=None if noise is None else noise.steps[s],
+                    generator=generator)
+        with annotate("decode"):
+            x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
+                z, xh_p, lm, pm, self._eps,
+                noise=None if noise is None else noise.decode,
                 generator=generator)
-        x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
-            z, xh_p, lm, pm, self._eps,
-            noise=None if noise is None else noise.decode,
-            generator=generator)
-        shift = (masked_mean(pocket.x, pm, dim=1, keepdim=True)
-                 - masked_mean(x_pocket, pm, dim=1, keepdim=True))
+            shift = (masked_mean(pocket.x, pm, dim=1, keepdim=True)
+                     - masked_mean(x_pocket, pm, dim=1, keepdim=True))
         return SampleResult(
             ligand=NodeBatch((x_lig + shift) * ml, h_lig, lm),
             pocket=NodeBatch((x_pocket + shift) * mp, h_pocket, pm),

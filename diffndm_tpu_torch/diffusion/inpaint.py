@@ -27,9 +27,12 @@ is gathered by the selection.
 The hooks' fan-out forwards (SPSA's probe batch, ATP's branches and
 lookaheads) run with ``SampleConfig.fanout_row_tile`` as their band tile
 where it is set (``sampler.fanout_eps``), as the JAX package's
-host-orchestrated inpainting loop runs them.  ``DIFFNDM_GUIDED_PROFILE=1``
-times the hooks' phases (``spsa.*``, ``atp.*``, the phases that loop
-times) and prints them once per call.
+host-orchestrated inpainting loop runs them.  Each step s (its
+resamplings and prune) is a ``sampler.step`` span, the decode a
+``decode`` span, the hooks' phases spans of their own
+(``utils.profiling``); ``DIFFNDM_GUIDED_PROFILE=1`` also times the hooks'
+phases (``spsa.*``, ``atp.*``, the phases that loop times) and prints
+them once per call.
 
 Noise: every draw comes from ``generator`` unless ``InpaintNoise`` fixes
 it, entry by entry (the replay tests feed the draws of the JAX package's
@@ -52,7 +55,7 @@ from diffndm_tpu_torch.guidance.oracle import RewardOracle
 from diffndm_tpu_torch.guidance.spsa import spsa_update
 from diffndm_tpu_torch.ops.segment import masked_mean
 from diffndm_tpu_torch.structs import NodeBatch
-from diffndm_tpu_torch.utils.profiling import PhaseProfiler
+from diffndm_tpu_torch.utils.profiling import PhaseProfiler, annotate
 
 
 def _fixed_mean(x, fixed):
@@ -220,48 +223,52 @@ class InpaintSampler:
         prof = PhaseProfiler.from_env(device)
         row_src = torch.arange(b, device=device)
         for s in range(timesteps - 1, -1, -1):
-            s_norm = torch.full((b,), float(s), device=device) / timesteps
-            t_norm = torch.full((b,), float(s + 1), device=device) / timesteps
-            gamma_s, gamma_t = core.schedule(s_norm), core.schedule(t_norm)
-            for u in range(resamplings):
-                z_unknown, xh_p, _, _ = core.sample_p_zs_given_zt(
-                    s_norm, t_norm, z, xh_p, lm, pm, self._eps,
-                    noise=fixed_noise("steps", s, u), generator=generator,
-                    noise_scale=cfg.noise_scale)
-                if u == 0 and s in events["spsa"]:
-                    # float32 arithmetic, as the latents are
-                    zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
-                                 / np.float32(icfg.spsa_zeta_denom))
-                    z_unknown, xh_p = spsa_update(
-                        core, fan_eps, self.oracle, z, xh_p, lm, pm,
-                        t_norm, zeta, cfg.spsa,
-                        noise=fixed_noise("spsa", s), generator=generator,
+            with annotate("sampler.step"):
+                s_norm = torch.full((b,), float(s), device=device) / timesteps
+                t_norm = torch.full((b,), float(s + 1),
+                                    device=device) / timesteps
+                gamma_s, gamma_t = core.schedule(s_norm), core.schedule(t_norm)
+                for u in range(resamplings):
+                    z_unknown, xh_p, _, _ = core.sample_p_zs_given_zt(
+                        s_norm, t_norm, z, xh_p, lm, pm, self._eps,
+                        noise=fixed_noise("steps", s, u), generator=generator,
+                        noise_scale=cfg.noise_scale)
+                    if u == 0 and s in events["spsa"]:
+                        # float32 arithmetic, as the latents are
+                        zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
+                                     / np.float32(icfg.spsa_zeta_denom))
+                        z_unknown, xh_p = spsa_update(
+                            core, fan_eps, self.oracle, z, xh_p, lm, pm,
+                            t_norm, zeta, cfg.spsa,
+                            noise=fixed_noise("spsa", s), generator=generator,
+                            prof=prof)
+                    renoise = u < resamplings - 1
+                    z, xh_p = repaint_combine(
+                        core, z_unknown, xh_p, lm, pm, fixed, l_x, l_h, com_p0,
+                        gamma_s, gamma_t, u, resamplings,
+                        noise_known=fixed_noise("known", s, u),
+                        noise_renoise=(fixed_noise("renoise", s, u) if renoise
+                                       else None),
+                        generator=generator)
+                if s in events["atp"]:
+                    z, xh_p, lm, pm, sel = atp_prune(
+                        core, fan_eps, self.oracle, z, xh_p, lm, pm, s_norm,
+                        t_norm, s, cfg.atp, noise=fixed_noise("atp", s),
+                        generator=generator, noise_scale=cfg.noise_scale,
                         prof=prof)
-                renoise = u < resamplings - 1
-                z, xh_p = repaint_combine(
-                    core, z_unknown, xh_p, lm, pm, fixed, l_x, l_h, com_p0,
-                    gamma_s, gamma_t, u, resamplings,
-                    noise_known=fixed_noise("known", s, u),
-                    noise_renoise=(fixed_noise("renoise", s, u) if renoise
-                                   else None),
-                    generator=generator)
-            if s in events["atp"]:
-                z, xh_p, lm, pm, sel = atp_prune(
-                    core, fan_eps, self.oracle, z, xh_p, lm, pm, s_norm,
-                    t_norm, s, cfg.atp, noise=fixed_noise("atp", s),
-                    generator=generator, noise_scale=cfg.noise_scale,
-                    prof=prof)
-                rs = sel % b
-                fixed, l_x, l_h, com_p0 = (fixed[rs], l_x[rs], l_h[rs],
-                                           com_p0[rs])
-                row_src = row_src[rs]
+                    rs = sel % b
+                    fixed, l_x, l_h, com_p0 = (fixed[rs], l_x[rs], l_h[rs],
+                                               com_p0[rs])
+                    row_src = row_src[rs]
 
-        x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
-            z, xh_p, lm, pm, self._eps, noise=fixed_noise("decode"),
-            generator=generator)
-        com_before = masked_mean(pocket.x, pocket.mask, dim=1,
-                                 keepdim=True)[row_src]
-        shift = com_before - masked_mean(x_pocket, pm, dim=1, keepdim=True)
+        with annotate("decode"):
+            x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(
+                z, xh_p, lm, pm, self._eps, noise=fixed_noise("decode"),
+                generator=generator)
+            com_before = masked_mean(pocket.x, pocket.mask, dim=1,
+                                     keepdim=True)[row_src]
+            shift = com_before - masked_mean(x_pocket, pm, dim=1,
+                                             keepdim=True)
         if prof.enabled:
             print(prof.report(), flush=True)
         return SampleResult(

@@ -11,6 +11,8 @@ Torch cannot replay JAX's threefry streams, so every function that draws
 noise takes it as an argument: one joint draw is a pair of raw standard
 normals (ligand [B, NL, 3 + atom_nf], pocket [B, NP, 3 + residue_nf]),
 masked and projected here; what is not given is drawn from ``generator``.
+Each reverse step is a ``sampler.step`` span and the decode a ``decode``
+span (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from diffndm_tpu_torch.diffusion.core import (DiffusionSettings, EpsFn, _b11,
                                               draw_noise)
 from diffndm_tpu_torch.ops.segment import remove_mean_joint
 from diffndm_tpu_torch.structs import NodeBatch, pad_to
+from diffndm_tpu_torch.utils.profiling import annotate
 
 # one joint draw: raw N(0, 1) for the ligand and the pocket, full width
 JointDraw = Tuple[torch.Tensor, torch.Tensor]
@@ -240,16 +243,19 @@ class JointSampler:
         b = lm.shape[0]
         z_l, z_p = core.sample_joint_noise(lm, pm, draws.next(), generator)
         for s in range(timesteps - 1, -1, -1):
-            s_norm = torch.full((b,), float(s), device=device) / timesteps
-            t_norm = torch.full((b,), float(s + 1), device=device) / timesteps
-            z_l, z_p = core.sample_p_zs_given_zt(
-                s_norm, t_norm, z_l, z_p, lm, pm, self._eps,
-                noise=draws.next(), generator=generator)
-        x_l, h_l, x_p, h_p = core.sample_p_xh_given_z0(
-            z_l, z_p, lm, pm, self._eps, noise=draws.next(),
-            generator=generator)
-        # centre-of-gravity drift projection
-        x_l, x_p = remove_mean_joint(x_l, x_p, lm, pm)
+            with annotate("sampler.step"):
+                s_norm = torch.full((b,), float(s), device=device) / timesteps
+                t_norm = torch.full((b,), float(s + 1),
+                                    device=device) / timesteps
+                z_l, z_p = core.sample_p_zs_given_zt(
+                    s_norm, t_norm, z_l, z_p, lm, pm, self._eps,
+                    noise=draws.next(), generator=generator)
+        with annotate("decode"):
+            x_l, h_l, x_p, h_p = core.sample_p_xh_given_z0(
+                z_l, z_p, lm, pm, self._eps, noise=draws.next(),
+                generator=generator)
+            # centre-of-gravity drift projection
+            x_l, x_p = remove_mean_joint(x_l, x_p, lm, pm)
         return NodeBatch(x_l, h_l, lm), NodeBatch(x_p, h_p, pm)
 
     @torch.no_grad()
@@ -305,21 +311,22 @@ class JointSampler:
         s = timesteps - 1
         for i, n_steps in enumerate(schedule):
             for _ in range(n_steps):
-                s_norm, t_norm = norm_t(s), norm_t(s + 1)
-                gamma_s = core.schedule(s_norm)
-                zl_un, zp_un = core.sample_p_zs_given_zt(
-                    s_norm, t_norm, z_l, z_p, lm, pm, self._eps,
-                    noise=draws.next(), generator=generator)
-                zl_kn, zp_kn, _, _ = core.noised_representation(
-                    xh0_l, xh0_p, lm, pm, gamma_s, draws.next(), generator)
-                d = fixed_com(zl_un, zp_un) - fixed_com(zl_kn, zp_kn)
-                zl_kn = _with_x(zl_kn, (zl_kn[..., :nd] + d) * lm[..., None],
-                                nd)
-                zp_kn = _with_x(zp_kn, (zp_kn[..., :nd] + d) * pm[..., None],
-                                nd)
-                z_l = (zl_kn * lf + zl_un * (1 - lf)) * lm[..., None]
-                z_p = (zp_kn * pf + zp_un * (1 - pf)) * pm[..., None]
-                s -= 1
+                with annotate("sampler.step"):
+                    s_norm, t_norm = norm_t(s), norm_t(s + 1)
+                    gamma_s = core.schedule(s_norm)
+                    zl_un, zp_un = core.sample_p_zs_given_zt(
+                        s_norm, t_norm, z_l, z_p, lm, pm, self._eps,
+                        noise=draws.next(), generator=generator)
+                    zl_kn, zp_kn, _, _ = core.noised_representation(
+                        xh0_l, xh0_p, lm, pm, gamma_s, draws.next(), generator)
+                    d = fixed_com(zl_un, zp_un) - fixed_com(zl_kn, zp_kn)
+                    zl_kn = _with_x(
+                        zl_kn, (zl_kn[..., :nd] + d) * lm[..., None], nd)
+                    zp_kn = _with_x(
+                        zp_kn, (zp_kn[..., :nd] + d) * pm[..., None], nd)
+                    z_l = (zl_kn * lf + zl_un * (1 - lf)) * lm[..., None]
+                    z_p = (zp_kn * pf + zp_un * (1 - pf)) * pm[..., None]
+                    s -= 1
             if i < len(schedule) - 1:
                 # jump back: re-noise the last denoised level s + 1 up to
                 # s + 1 + jump_length, then denoise on from there
@@ -331,8 +338,9 @@ class JointSampler:
                     generator)
                 s = t_next - 1
 
-        x_l, h_l, x_p, h_p = core.sample_p_xh_given_z0(
-            z_l, z_p, lm, pm, self._eps, noise=draws.next(),
-            generator=generator)
-        x_l, x_p = remove_mean_joint(x_l, x_p, lm, pm)
+        with annotate("decode"):
+            x_l, h_l, x_p, h_p = core.sample_p_xh_given_z0(
+                z_l, z_p, lm, pm, self._eps, noise=draws.next(),
+                generator=generator)
+            x_l, x_p = remove_mean_joint(x_l, x_p, lm, pm)
         return NodeBatch(x_l, h_l, lm), NodeBatch(x_p, h_p, pm)

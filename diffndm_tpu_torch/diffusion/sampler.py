@@ -14,8 +14,11 @@ and lookaheads, the hybrid's) run with ``SampleConfig.fanout_row_tile``
 as their band tile where it is set (``fanout_eps``, the JAX package's
 host-orchestrated loop); the steps and the decode keep the denoiser's own.
 ``set_frame_tap`` installs a per-step callback (``make_sdf_frame_tap``
-dumps the trajectory as SDF files).  ``DIFFNDM_GUIDED_PROFILE=1`` prints
-the wall clock of the loop's phases once per call
+dumps the trajectory as SDF files).  Each reverse step (with its
+guidance events and frame tap) is a ``sampler.step`` span, the decode a
+``decode`` span, the guidance events' phases spans of their own
+(``utils.profiling``); ``DIFFNDM_GUIDED_PROFILE=1`` also prints the wall
+clock of the loop's phases once per call
 (``utils.profiling.PhaseProfiler``).
 
 Data-parallel (``group``, the JAX sampler's mesh): every rank passes the
@@ -46,7 +49,7 @@ from diffndm_tpu_torch.ops.segment import masked_mean, remove_mean_ligand
 from diffndm_tpu_torch.parallel.mesh import (DataGroup, all_gather_rows,
                                              all_reduce_flat, shard_rows)
 from diffndm_tpu_torch.structs import NodeBatch, pad_to
-from diffndm_tpu_torch.utils.profiling import PhaseProfiler
+from diffndm_tpu_torch.utils.profiling import PhaseProfiler, annotate
 
 # the batch axis of each SamplerNoise table (of one step's entry)
 _NOISE_BATCH_AXIS = dict(init=0, steps=0, decode=0, atp=1, spsa=1)
@@ -273,53 +276,55 @@ class ConditionalSampler:
                 if collect_rl else None)
 
         for s in range(timesteps - 1, -1, -1):
-            s_norm = torch.full((b,), float(s), device=device) / timesteps
-            t_norm = torch.full((b,), float(s + 1), device=device) / timesteps
-            if collect_rl:
-                traj[0][timesteps - 1 - s] = z_lig
-            if s == timesteps - 1 or s + 1 in event_steps:
-                prof.begin("segment")
-            z_lig, xh_pocket, lp, eps = core.sample_p_zs_given_zt(
-                s_norm, t_norm, z_lig, xh_pocket, lig_mask, pocket_mask,
-                self._eps, adjust_fn=adjust, noise=fixed("steps", s),
-                generator=generator, noise_scale=cfg.noise_scale)
-            if s == 0 or s in event_steps:
-                prof.end("segment")
-            if adjust is not None:
-                lp_sum += lp
-            if collect_rl:
-                traj[1][timesteps - 1 - s] = eps
+            with annotate("sampler.step"):
+                s_norm = torch.full((b,), float(s), device=device) / timesteps
+                t_norm = torch.full((b,), float(s + 1),
+                                    device=device) / timesteps
+                if collect_rl:
+                    traj[0][timesteps - 1 - s] = z_lig
+                if s == timesteps - 1 or s + 1 in event_steps:
+                    prof.begin("segment")
+                z_lig, xh_pocket, lp, eps = core.sample_p_zs_given_zt(
+                    s_norm, t_norm, z_lig, xh_pocket, lig_mask, pocket_mask,
+                    self._eps, adjust_fn=adjust, noise=fixed("steps", s),
+                    generator=generator, noise_scale=cfg.noise_scale)
+                if s == 0 or s in event_steps:
+                    prof.end("segment")
+                if adjust is not None:
+                    lp_sum += lp
+                if collect_rl:
+                    traj[1][timesteps - 1 - s] = eps
 
-            if s in events["atp"]:
-                z_lig, xh_pocket, lig_mask, pocket_mask, sel = atp_prune(
-                    core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
-                    pocket_mask, s_norm, t_norm, s, cfg.atp,
-                    noise=fixed("atp", s), generator=generator,
-                    noise_scale=cfg.noise_scale, adjust_fn=adjust,
-                    group=group, prof=prof)
-                row_src = self._origin(row_src, sel, b)
-
-            if s in events["spsa"]:
-                # float32 arithmetic, as the latents are
-                zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
-                             / np.float32(cfg.spsa.zeta_denom))
-                z_lig, xh_pocket = spsa_update(
-                    core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
-                    pocket_mask, t_norm, zeta, cfg.spsa,
-                    noise=fixed("spsa", s),
-                    generator=generator, prof=prof)
-                if s in events["hybrid"]:
-                    branch, probes = fixed("hybrid") or (None, None)
-                    (z_lig, xh_pocket, lig_mask, pocket_mask,
-                     sel) = hybrid_spsa_prune(
+                if s in events["atp"]:
+                    z_lig, xh_pocket, lig_mask, pocket_mask, sel = atp_prune(
                         core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
-                        pocket_mask, s_norm, t_norm, s, cfg.atp, cfg.spsa,
-                        zeta, noise=branch, spsa_noise=probes,
-                        generator=generator, noise_scale=cfg.noise_scale,
-                        adjust_fn=adjust, group=group, prof=prof)
+                        pocket_mask, s_norm, t_norm, s, cfg.atp,
+                        noise=fixed("atp", s), generator=generator,
+                        noise_scale=cfg.noise_scale, adjust_fn=adjust,
+                        group=group, prof=prof)
                     row_src = self._origin(row_src, sel, b)
-            if self.frame_tap is not None:
-                self.frame_tap(s, z_lig, xh_pocket, lig_mask)
+
+                if s in events["spsa"]:
+                    # float32 arithmetic, as the latents are
+                    zeta = float(np.float32(cfg.spsa.zeta0) * np.float32(s)
+                                 / np.float32(cfg.spsa.zeta_denom))
+                    z_lig, xh_pocket = spsa_update(
+                        core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
+                        pocket_mask, t_norm, zeta, cfg.spsa,
+                        noise=fixed("spsa", s),
+                        generator=generator, prof=prof)
+                    if s in events["hybrid"]:
+                        branch, probes = fixed("hybrid") or (None, None)
+                        (z_lig, xh_pocket, lig_mask, pocket_mask,
+                         sel) = hybrid_spsa_prune(
+                            core, fan_eps, oracle, z_lig, xh_pocket, lig_mask,
+                            pocket_mask, s_norm, t_norm, s, cfg.atp, cfg.spsa,
+                            zeta, noise=branch, spsa_noise=probes,
+                            generator=generator, noise_scale=cfg.noise_scale,
+                            adjust_fn=adjust, group=group, prof=prof)
+                        row_src = self._origin(row_src, sel, b)
+                if self.frame_tap is not None:
+                    self.frame_tap(s, z_lig, xh_pocket, lig_mask)
 
         with prof.phase("decode"):
             x_lig, h_lig, x_pocket, h_pocket = core.sample_p_xh_given_z0(

@@ -25,7 +25,9 @@ what crosses ranks (ATP's mixed rewards) is all-gathered by the selection
 itself (``guidance.atp``).
 
 This module imports torch only where a method takes tensors, so that the
-spawned workers of the Python scorer load the chem stack alone.
+spawned workers of the Python scorer load the chem stack alone.  A
+population's scoring is the span ``oracle.score`` on a profiler's
+timeline (``utils.profiling.annotate``, which loads no torch).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from diffndm_tpu_torch.chem import properties as P
 from diffndm_tpu_torch.chem.bonds import build_molecule
 from diffndm_tpu_torch.chem.sanitize import (SanitizeError,
                                              connectivity_fraction, sanitize)
+from diffndm_tpu_torch.utils.profiling import annotate
 
 if TYPE_CHECKING:
     import torch
@@ -164,8 +167,10 @@ class RewardOracle:
         the native scorer; a nonzero w_vina also the process pool."""
         t0 = time.perf_counter()
         try:
-            return self._score_batch(np.asarray(coords), np.asarray(types),
-                                     np.asarray(mask) > 0.5, weights)
+            with annotate("oracle.score"):
+                return self._score_batch(np.asarray(coords),
+                                         np.asarray(types),
+                                         np.asarray(mask) > 0.5, weights)
         finally:
             self.n_calls += 1
             self.seconds += time.perf_counter() - t0

@@ -34,6 +34,10 @@ changes the result.  An exact window drops no edge of the cutoff graph,
 whose other pairs the kernels skip anyway, so the facade runs the
 denoiser without the band there (no host sort of the pocket per forward)
 and keeps the window in its config; a capped window runs the band.
+
+``sample_given_pocket`` and ``result_to_molecules`` are the spans
+``facade.sample_given_pocket`` and ``facade.result_to_molecules`` on a
+profiler's timeline (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from diffndm_tpu_torch.models.banding import band_halfwidth_atoms
 from diffndm_tpu_torch.models.dynamics import EGNNDynamics
 from diffndm_tpu_torch.structs import (NodeBatch, concat_batches, pad_to,
                                        to_lists)
+from diffndm_tpu_torch.utils.profiling import annotate
 
 
 class DiffNDM:
@@ -343,11 +348,12 @@ class DiffNDM:
         """Generation for a padded pocket batch, guided as ``sample_cfg``
         says; with ``optimize`` the AdjustNet (``ensure_adjust``) adjusts
         every step.  See ``ConditionalSampler.sample_given_pocket``."""
-        adjust = self.ensure_adjust().module if optimize else None
-        return self.sampler.sample_given_pocket(
-            pocket.to(self.device), num_nodes_lig, timesteps=timesteps,
-            generator=generator, noise=noise, adjust=adjust,
-            collect_rl=collect_rl)
+        with annotate("facade.sample_given_pocket"):
+            adjust = self.ensure_adjust().module if optimize else None
+            return self.sampler.sample_given_pocket(
+                pocket.to(self.device), num_nodes_lig, timesteps=timesteps,
+                generator=generator, noise=noise, adjust=adjust,
+                collect_rl=collect_rl)
 
     def _generate(self, pocket: NodeBatch, seed: int, num_nodes_lig,
                   optimize: bool, collect_rl: bool) -> SampleResult:
@@ -451,9 +457,10 @@ class DiffNDM:
         ``relax_iter``): None where one fails; with no filter, every
         molecule."""
         sc = self.sample_cfg
-        return [process_molecule(build_molecule(coords, types,
-                                                self.dataset_info),
-                                 sanitize_flag=sc.sanitize,
-                                 relax_iter=sc.relax_iter,
-                                 largest_frag=sc.largest_frag)
-                for coords, types in to_lists(result.ligand)]
+        with annotate("facade.result_to_molecules"):
+            return [process_molecule(build_molecule(coords, types,
+                                                    self.dataset_info),
+                                     sanitize_flag=sc.sanitize,
+                                     relax_iter=sc.relax_iter,
+                                     largest_frag=sc.largest_frag)
+                    for coords, types in to_lists(result.ligand)]

@@ -28,6 +28,7 @@ from diffndm_tpu_torch.models import banding
 from diffndm_tpu_torch.models.egnn import (EGNN, GNN, neighbor_mask,
                                            pairwise_d2)
 from diffndm_tpu_torch.ops.segment import masked_mean
+from diffndm_tpu_torch.utils.profiling import annotate
 
 
 def build_adjacency(x_lig, x_pocket, lig_mask, pocket_mask,
@@ -122,7 +123,13 @@ class EGNNDynamics(nn.Module):
                 band: Optional[Tuple[int, Optional[int]]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """band: the (row_tile, band_window) of this call in place of the
-        config's."""
+        config's.  The call is a ``denoiser.forward`` span, opened inside
+        the module's call, after its forward pre-hooks."""
+        with annotate("denoiser.forward"):
+            return self._forward(xh_lig, xh_pocket, t, lig_mask, pocket_mask,
+                                 band)
+
+    def _forward(self, xh_lig, xh_pocket, t, lig_mask, pocket_mask, band):
         cfg, nd = self.cfg, self.n_dims
         row_tile, window = (cfg.row_tile, cfg.band_window) if band is None \
             else band

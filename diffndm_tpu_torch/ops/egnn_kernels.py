@@ -18,9 +18,12 @@ They take the same arguments as the JAX package's Pallas kernels
 wrapper given CPU tensors computes its plain PyTorch version
 (``*_plain``); given CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts launches per kernel (the pair launches the
-``edge_vector_reduce`` kernel once).  On the card the product by W2 runs
-on the tensor cores as a three-term TF32 split, which keeps fp32-level
-accuracy; the plain versions are plain fp32.
+``edge_vector_reduce`` kernel once).  Each wrapper call is a span named
+``kernels.<wrapper>``, each backward ``kernels.gcl_messages_bwd`` or
+``kernels.edge_vector_reduce_bwd`` (``utils.profiling.annotate``).  On
+the card the product by W2 runs on the tensor cores as a three-term TF32
+split, which keeps fp32-level accuracy; the plain versions are plain
+fp32.
 
 ``compute_dtype="bfloat16"`` runs the Pallas kernels' ``mxu_dtype =
 bfloat16`` mode (the JAX package's ``EGNNConfig.compute_dtype``): z, W2, m
@@ -72,6 +75,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from diffndm_tpu_torch.utils.profiling import annotate
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "egnn_edge.cu"
 BWD_SOURCE = SOURCE.with_name("egnn_edge_bwd.cu")
@@ -1032,12 +1037,13 @@ class _GclMessages(torch.autograd.Function):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:10]
         attention, norm_factor, compute_dtype = ctx.opts
-        if saved[0].device.type == "cpu":
-            grads = gcl_messages_backward_plain(gout, *saved, *ctx.opts)
-        else:
-            grads = _gcl_messages_backward_cuda(
-                gout, *saved, attention, norm_factor, needs,
-                _is_bf16(compute_dtype))
+        with annotate("kernels.gcl_messages_bwd"):
+            if saved[0].device.type == "cpu":
+                grads = gcl_messages_backward_plain(gout, *saved, *ctx.opts)
+            else:
+                grads = _gcl_messages_backward_cuda(
+                    gout, *saved, attention, norm_factor, needs,
+                    _is_bf16(compute_dtype))
         return (*(g if want else None for g, want in zip(grads, needs)),
                 None, None, None)
 
@@ -1080,33 +1086,34 @@ class _EdgeVectorReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        d2c, d2i, adj, x, center, *flat = ctx.saved_tensors
-        sets = [flat[i:i + 6] for i in range(0, len(flat), 6)]
-        tanh, coords_range, norm_constant, cross, norm_factor, n_rows, \
-            compute_dtype = ctx.opts
-        needs = ctx.needs_input_grad
-        if d2c.device.type == "cpu":
-            per_set, shared = [], None
-            for s, (a, b, we, w2, b2, wout) in enumerate(sets):
-                g = edge_vector_reduce_backward_plain(
-                    gout, a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
-                    tanh, coords_range, norm_constant,
-                    bool(s) if len(sets) == 2 else cross, norm_factor,
-                    n_rows, compute_dtype)
-                per_set.append((g[0], g[1], g[7], g[8], g[9], g[10]))
-                parts = (g[2], g[3], g[5], g[6])
-                shared = parts if shared is None else tuple(
-                    p + q for p, q in zip(shared, parts))
-            dd2c, dd2i, dx, dcenter = shared
-        else:
-            per_set, dd2c, dd2i, dx, dcenter = \
-                _edge_vector_reduce_backward_cuda(
-                    gout, sets, d2c, d2i, adj, x, center, tanh, coords_range,
-                    norm_constant, cross, norm_factor, n_rows, needs[1:3],
-                    _is_bf16(compute_dtype))
-        flat_grads = [g for s in per_set for g in s]
-        out = [None, dd2c, dd2i, None, dx, dcenter, *flat_grads]
-        return tuple(g if want else None for g, want in zip(out, needs))
+        with annotate("kernels.edge_vector_reduce_bwd"):
+            d2c, d2i, adj, x, center, *flat = ctx.saved_tensors
+            sets = [flat[i:i + 6] for i in range(0, len(flat), 6)]
+            tanh, coords_range, norm_constant, cross, norm_factor, n_rows, \
+                compute_dtype = ctx.opts
+            needs = ctx.needs_input_grad
+            if d2c.device.type == "cpu":
+                per_set, shared = [], None
+                for s, (a, b, we, w2, b2, wout) in enumerate(sets):
+                    g = edge_vector_reduce_backward_plain(
+                        gout, a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
+                        tanh, coords_range, norm_constant,
+                        bool(s) if len(sets) == 2 else cross, norm_factor,
+                        n_rows, compute_dtype)
+                    per_set.append((g[0], g[1], g[7], g[8], g[9], g[10]))
+                    parts = (g[2], g[3], g[5], g[6])
+                    shared = parts if shared is None else tuple(
+                        p + q for p, q in zip(shared, parts))
+                dd2c, dd2i, dx, dcenter = shared
+            else:
+                per_set, dd2c, dd2i, dx, dcenter = \
+                    _edge_vector_reduce_backward_cuda(
+                        gout, sets, d2c, d2i, adj, x, center, tanh,
+                        coords_range, norm_constant, cross, norm_factor,
+                        n_rows, needs[1:3], _is_bf16(compute_dtype))
+            flat_grads = [g for s in per_set for g in s]
+            out = [None, dd2c, dd2i, None, dx, dcenter, *flat_grads]
+            return tuple(g if want else None for g, want in zip(out, needs))
 
 
 # ---------------------------------------------------------------------------
@@ -1123,9 +1130,10 @@ def gcl_messages(a, b, d2c, d2i, adj, we, w2, b2, watt, batt=None,
     _is_bf16(compute_dtype)
     args = (a, b, d2c, d2i, adj, we, w2, b2, watt, batt, attention,
             norm_factor, compute_dtype)
-    if torch.is_grad_enabled():
-        return _GclMessages.apply(*args)
-    return _gcl_forward(*args)
+    with annotate("kernels.gcl_messages"):
+        if torch.is_grad_enabled():
+            return _GclMessages.apply(*args)
+        return _gcl_forward(*args)
 
 
 def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
@@ -1141,11 +1149,12 @@ def edge_vector_reduce(a, b, d2c, d2i, adj, x, center, we, w2, b2, wout,
     _is_bf16(compute_dtype)
     opts = (tanh, coords_range, norm_constant, cross, norm_factor, n_rows,
             compute_dtype)
-    if torch.is_grad_enabled():
-        return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center, a, b,
-                                       we, w2, b2, wout)
-    return _vec_forward(opts, d2c, d2i, adj, x, center,
-                        [(a, b, we, w2, b2, wout)])
+    with annotate("kernels.edge_vector_reduce"):
+        if torch.is_grad_enabled():
+            return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center, a,
+                                           b, we, w2, b2, wout)
+        return _vec_forward(opts, d2c, d2i, adj, x, center,
+                            [(a, b, we, w2, b2, wout)])
 
 
 def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
@@ -1172,7 +1181,8 @@ def edge_vector_reduce_pair(a: Sequence[torch.Tensor],
     opts = (tanh, coords_range, norm_constant, True, norm_factor, n_rows,
             compute_dtype)
     sets = [(a[s], b[s], we[s], w2[s], b2[s], wout[s]) for s in (0, 1)]
-    if torch.is_grad_enabled():
-        return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center,
-                                       *sets[0], *sets[1])
-    return _vec_forward(opts, d2c, d2i, adj, x, center, sets)
+    with annotate("kernels.edge_vector_reduce_pair"):
+        if torch.is_grad_enabled():
+            return _EdgeVectorReduce.apply(opts, d2c, d2i, adj, x, center,
+                                           *sets[0], *sets[1])
+        return _vec_forward(opts, d2c, d2i, adj, x, center, sets)

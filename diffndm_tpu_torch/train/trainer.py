@@ -16,9 +16,10 @@ data-parallel over a ``parallel.DataGroup``:
   count 1, written at ``step % 50`` (``step`` counts micro-steps);
 - the EMA moves on every micro-step, also those that apply no update.
 
-A micro-step's three parts are named spans on a profiler's timeline
-(``utils.profiling``): ``forward``, ``backward`` and ``optimizer`` (the
-clip, the update and the EMA).
+A micro-step's parts are named spans on a profiler's timeline
+(``utils.profiling``): ``forward``, ``backward``, under a group
+``all_reduce``, ``optimizer`` (the clip, the update and the EMA) and
+``readback`` (the loss and the ``info`` entries copied to the host).
 
 With a learned noise schedule the trainer also trains its gamma network
 (``gamma``), as the JAX trainer trains the tree ``{"dynamics", "gamma"}``:
@@ -252,8 +253,9 @@ class Trainer:
             if self.cfg.clip_grad:
                 info["clip_threshold"] = self._clip(grads, gnorm)
             self.apply_gradients(grads)
-        return float(loss.detach()), {k: float(v.detach())
-                                      for k, v in info.items()}
+        with annotate("readback"):
+            return float(loss.detach()), {k: float(v.detach())
+                                          for k, v in info.items()}
 
     @torch.no_grad()
     def apply_gradients(self, grads) -> None:

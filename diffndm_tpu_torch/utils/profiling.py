@@ -1,24 +1,37 @@
-"""Tracing and step timing.
+"""Tracing.
 
 - ``trace(outdir)`` records a ``torch.profiler`` trace of the enclosed
   block (CPU activity, and the card's when CUDA is available) and writes
   it as a Chrome trace (``trace.json``, for Perfetto or chrome://tracing)
   into ``outdir``; with no ``outdir`` it takes ``DIFFNDM_TRACE_DIR``,
   and without either it does nothing.
-- ``annotate(name)`` names a span on the trace's timeline (and an NVTX
-  range on the card).
-- ``StepTimer`` keeps host wall times per step with a percentile summary;
-  given a CUDA device it synchronises the card before reading the clock,
-  so that a step's time includes the work it queued.
-- ``PhaseProfiler`` sums the wall clock of the named phases of one guided
-  sampling call (``DIFFNDM_GUIDED_PROFILE=1``, the JAX package's phase
-  names) and prints them in the JAX package's format.
+- ``annotate(name)`` names a span on the profiler's timeline: a
+  ``record_function`` range, in the Chrome trace a ``user_annotation``
+  event on the clock of the card's kernels.  With no profiler recording
+  it costs one flag check and returns a shared null context.
+- ``PhaseProfiler`` names the phases of one guided sampling call as
+  spans, and with ``DIFFNDM_GUIDED_PROFILE=1`` also sums their wall clock
+  and prints them in the JAX package's format.
+
+The port's spans, by layer: ``facade.sample_given_pocket``,
+``facade.result_to_molecules`` (``model.py``); ``sampler.step`` (one per
+reverse step, with its guidance events and frame tap) and ``decode``
+(``diffusion/sampler.py``, ``inpaint.py``, ``joint.py``,
+``diversify.py``); the guidance
+phases ``spsa.*``, ``atp.*``, ``hyb.*`` and ``oracle.score``
+(``guidance/``); ``forward``, ``backward``, ``all_reduce``,
+``optimizer`` and ``readback`` (``train/trainer.py``);
+``denoiser.forward`` (``models/dynamics.py``); ``kernels.gcl_messages``,
+``kernels.edge_vector_reduce``, ``kernels.edge_vector_reduce_pair`` and
+the backwards ``kernels.gcl_messages_bwd``,
+``kernels.edge_vector_reduce_bwd`` (``ops/egnn_kernels.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from collections import defaultdict
 from typing import Optional
@@ -47,76 +60,32 @@ def trace(outdir: Optional[str] = None):
     prof.export_chrome_trace(os.path.join(outdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """A named span on the profiler's timeline; an NVTX range too while
-    the card is in use."""
-    import torch
-
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-class StepTimer:
-    """Host-side step timing with a percentile summary.  ``device``: a
-    CUDA device to synchronise on entry and exit (opt-in), so that the
-    time covers the card's work and not only its enqueueing."""
-
-    def __init__(self, device=None):
-        self.times = []
-        self._t0 = None
-        self._sync = None
-        if device is not None:
-            import torch
-
-            device = torch.device(device)
-            if device.type == "cuda":
-                self._sync = lambda: torch.cuda.synchronize(device)
-
-    def __enter__(self):
-        if self._sync is not None:
-            self._sync()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self._sync is not None:
-            self._sync()
-        self.times.append(time.perf_counter() - self._t0)
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        ts = sorted(self.times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "mean_s": sum(ts) / n,
-            "p50_s": ts[n // 2],
-            "p90_s": ts[min(n - 1, int(0.9 * n))],
-            "min_s": ts[0],
-            "max_s": ts[-1],
-        }
+    """A named span on the profiler's timeline while a profiler records
+    (decided at entry; the exit matches it, so a span that outlives the
+    profiler's start or stop is harmless); else a shared null context:
+    no clock read, no synchronisation, nothing allocated.  torch is
+    looked up, not imported: where it is not loaded nothing can be
+    recording."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(name)
 
 
 class PhaseProfiler:
-    """Wall clock per phase of a guided sampling call: ``segment`` (a run
-    of reverse steps up to a guidance event), ``spsa.{probe, fetch, score,
-    apply}``, ``atp.{cand, fetch, score, select}``, ``hyb.{branch, look,
-    fetch, score, select}`` and ``decode``.  A ``fetch`` is the host copy
-    of the decoded x0 (and of the states and masks scored beside it)
-    before scoring.
+    """The named phases of a guided sampling call: ``spsa.{probe, fetch,
+    score, apply}``, ``atp.{cand, fetch, score, select}``, ``hyb.{branch,
+    look, fetch, score, select}`` and ``decode``, each an ``annotate``
+    span; on (``enabled``), also the wall clock of each and of
+    ``segment`` (a run of reverse steps from one guidance event to the
+    next, across step boundaries, so it is no span).  A ``fetch`` is the
+    host copy of the decoded x0 (and of the states and masks scored
+    beside it) before scoring.
 
     On, each phase ends by synchronising the card, so that a phase's time
     holds the work it queued (this serialises the loop: for diagnosis
-    only).  Off (the default), ``phase`` is a shared null context and
+    only).  Off (the default), ``phase`` is ``annotate`` alone and
     ``fetch`` the identity: no clock is read and nothing is
     synchronised."""
 
@@ -139,13 +108,14 @@ class PhaseProfiler:
         return cls(os.environ.get("DIFFNDM_GUIDED_PROFILE") == "1", device)
 
     def phase(self, name: str):
-        return self._phase(name) if self.enabled else _NULL
+        return self._phase(name) if self.enabled else annotate(name)
 
     @contextlib.contextmanager
     def _phase(self, name: str):
         self.begin(name)
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             self.end(name)
 

@@ -9,7 +9,7 @@ package's:
   smaller in conditional mode than in joint mode; the card's peaks;
 - ``trace`` writes a Chrome trace on the CPU that holds the ``annotate``
   spans, honours ``DIFFNDM_TRACE_DIR`` and does nothing without a
-  directory; ``StepTimer``'s summary has JAX's keys and values;
+  directory (the port's spans are held in tests/test_torch_spans.py);
 - the xyz files byte-equal to JAX's and read back the same; PNG and GIF
   renders where matplotlib (and imageio) are installed;
 - the chemistry dashboard with ``n_visualize`` = 2: its SDF byte-equal to
@@ -20,7 +20,6 @@ package's:
 import glob
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -37,7 +36,6 @@ from diffndm_tpu.structs import NodeBatch as JaxNodeBatch  # noqa: E402
 from diffndm_tpu.train.eval_dashboard import \
     ChemistryDashboard as JaxDashboard  # noqa: E402
 from diffndm_tpu.utils import flops as jflops  # noqa: E402
-from diffndm_tpu.utils import profiling as jprofiling  # noqa: E402
 from diffndm_tpu.utils import visualization as jviz  # noqa: E402
 from diffndm_tpu_torch import config as tcfg  # noqa: E402
 from diffndm_tpu_torch.constants import dataset_params  # noqa: E402
@@ -158,20 +156,6 @@ def test_trace_is_a_no_op_without_a_directory(tmp_path, monkeypatch):
         torch.ones(3).sum()
     assert prof is not None
     assert (tmp_path / "env" / profiling.TRACE_FILE).exists()
-
-
-def test_step_timer_summary_equals_jax():
-    ours, ref = profiling.StepTimer(device="cpu"), jprofiling.StepTimer()
-    assert ours.summary() == ref.summary() == {}
-    for _ in range(5):
-        for timer in (ours, ref):
-            with timer:
-                time.sleep(0.001)
-    s, r = ours.summary(), ref.summary()
-    assert list(s) == list(r)
-    assert s["steps"] == r["steps"] == 5
-    ours.times = list(ref.times)
-    assert ours.summary() == r
 
 
 # ---------------------------------------------------------------------------
