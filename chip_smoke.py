@@ -232,12 +232,30 @@ Phases, each of which fails the run on any fault or mismatch:
    written frame and per step without one; (f) the guided-phase profile's
    report (DIFFNDM_GUIDED_PROFILE=1) of the capped run with the field.
 
+27. optimizer: the trainer's fused multi-tensor kernels
+   (csrc/fused_optimizer.cu) against the plain per-leaf path, both on the
+   card, at configs/crossdock_fullatom_cond.yml's 176 leaves (seeded
+   init), from the same state and gradients: 6 micro-steps at
+   accumulate_grad_batches 2, with the clip engaged (gradients x 1e4) and
+   not, EMA decay 0 and 0.999, with and without a learned schedule's
+   gamma network; the norm, threshold and norm buffer within 2 ulps; the
+   clipped gradients, weights, moments, accumulator and EMA to the bit
+   where the clip does not engage; where it does, the clipped gradients
+   within 4 ulps (the state reported in ulps of each leaf's largest
+   entry); always the state to the bit against the plain path fed the
+   fused side's clipped gradients; launches per micro-step, no
+   plain-path call and no host sync in a fused micro-step (sync debug
+   mode "error"); ms per launch of each kernel against its bytes bound,
+   and the optimizer span's host and card ms per micro-step, fused and
+   plain.
+
 ``--only kernels`` stops after phase 2, ``--only vina`` runs phases 1,
 2 and 15-17, ``--only joint`` phases 1, 2 and 18-20, ``--only variants``
 phases 1 and 21, ``--only etl`` phases 1 and 22, ``--only modes``
 phases 1 and 23, ``--only dp`` phases 1 and 24, ``--only bf16train``
 phases 1 and 25, ``--only fanout`` phases 1 and 26, ``--only workers``
-phase 1 and phase 6's oracle-worker batches, and ``--only phases``
+phase 1 and phase 6's oracle-worker batches, ``--only optimizer`` phase
+27 alone (building only its library), and ``--only phases``
 prints, from a build of the
 kernels with cycle counters, where a block's time goes in the forward
 kernels (fp32 and bf16) and in both backward epilogues, with the device
@@ -247,8 +265,8 @@ kernels).
 each metric moves with the random stream (what a change to the kernels'
 arithmetic has to exceed), then phase 11 with its floors and the same
 spread for it.  ``--only
-train`` runs phases 1, 2 and 14.
-None of the thirteen prints a result line.
+train`` runs phases 1, 2, 14 and 27.
+None of the fourteen prints a result line.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and {"ok": true, "device": {...}}.  Without a CUDA
@@ -388,6 +406,7 @@ SOURCE = "diffndm_tpu_torch/csrc/egnn_edge.cu"
 BWD_KERNELS = {"gcl_messages_bwd": "gcl_messages",
                "edge_vector_reduce_bwd": "edge_vector_reduce"}
 BWD_SOURCE = "diffndm_tpu_torch/csrc/egnn_edge_bwd.cu"
+OPT_SOURCE = "diffndm_tpu_torch/csrc/fused_optimizer.cu"
 BWD_RTOL, BWD_ATOL = 1e-4, 1e-6
 # train phase: v3b's training set and raw state, the batch shapes of its
 # padding (ligands to 8, pockets to 64 rows), the CLI run's length and cut
@@ -398,6 +417,20 @@ TRAIN_STEPS, TRAIN_EPOCH_BATCHES = 40, 40
 TRAIN_CHECK_B = 4             # the card-vs-CPU step: rows of the N=80 batch
 TRAIN_RTOL = 1e-5
 TRAIN_LOSS_MAX = 0.15         # the CLI run's mean loss (JAX: 0.099-0.100)
+# [optimizer]: the fused optimizer kernels against the plain per-leaf path
+# on the card, at DiffSBDD's CrossDocked model's 176 leaves: micro-steps
+# per case, the gradients' scale (ten-thousandfold with the clip engaged),
+# and the gate on what comes from sums in another order (the norm and the
+# threshold, so the clip's scale and, where it engages, the gradients and
+# the state)
+OPT_CONFIG = os.path.join(REPO, "configs", "crossdock_fullatom_cond.yml")
+OPT_STEPS = 6
+OPT_CLIP_SCALE = 1e4
+OPT_ULPS = 2
+# where the clip engages: its scale, from a norm OPT_ULPS apart, rounded
+# twice more (the division, the product), on each clipped gradient
+OPT_GRAD_ULPS = OPT_ULPS + 2
+OPT_MAX_LAUNCHES = 10
 # joint phases: configs/crossdock_fullatom_joint.yml at its published width
 # on seeded random weights: (a) sampling at sizes of the default joint size
 # prior, (b) RePaint with the whole pocket fixed (the synthetic receptor's
@@ -4393,6 +4426,400 @@ def train_step_profile(torch, K, batches):
     return dict(host_ms=host, busy_ms=busy, peaks=peaks)
 
 # ---------------------------------------------------------------------------
+# [optimizer]: the trainer's fused multi-tensor kernels
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_optimizer(FO):
+    """The trainer's optimizer calls routed to the plain per-leaf versions,
+    on whatever device the tensors lie."""
+    names = ("clip_by_history", "amsgrad", "ema")
+    originals = {n: getattr(FO, n) for n in names}
+    for n in names:
+        setattr(FO, n, getattr(FO, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in originals.items():
+            setattr(FO, n, f)
+
+
+def optimizer_trainer(torch, model, gamma, ema_decay):
+    """A Trainer on copies of ``model``'s dynamics (and ``gamma``) with
+    the configuration's optimizer settings and this EMA decay."""
+    import copy
+    import dataclasses
+
+    from diffndm_tpu_torch.config import load_yaml, train_config_from_yaml
+    from diffndm_tpu_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(train_config_from_yaml(load_yaml(OPT_CONFIG)),
+                              ema_decay=ema_decay)
+    return Trainer(model.core, copy.deepcopy(model.dynamics), cfg,
+                   gamma=copy.deepcopy(gamma) if gamma is not None else None)
+
+
+def optimizer_state(trainer):
+    """Every tensor the optimizer span writes, by name."""
+    o = trainer.opt
+    return dict(params=trainer.trained, mu=o.mu, nu=o.nu, nu_max=o.nu_max,
+                acc=o.acc, ema=trainer.ema, norms=[trainer.gradnorm_buf])
+
+
+def ulp_gap(torch, a, b, mag=None):
+    """(elements that differ, the largest distance in ulps of ``mag``, by
+    default |b| element by element); float32."""
+    if not a.numel():
+        return 0, 0.0
+    mag = b.abs() if mag is None else mag
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    diff = (a.double() - b.double()).abs()
+    return int((a != b).sum()), float((diff / ulp.double()).max())
+
+
+def optimizer_launches(FO, numels, update, clip):
+    """The launches one micro-step should make per kernel."""
+    blocks = lambda depth: sum(1 for lc in FO.plan(numels, depth)
+                               if lc.blocks)
+    return {"optimizer_norm": blocks(1),
+            "optimizer_clip": len(FO.clip_plan(numels)),
+            "optimizer_scale": blocks(1) if clip else 0,
+            "optimizer_update": blocks(6 if update else 2),
+            "optimizer_ema": blocks(2)}
+
+
+def optimizer_case(torch, FO, model, gamma, ema_decay, clipped, seed):
+    """OPT_STEPS micro-steps of the optimizer span from the same state and
+    gradients on three trainers: ``fused``; ``plain``, the per-leaf path;
+    ``replay``, the per-leaf path fed the fused side's clipped gradients
+    (its clip runs for its buffer, its output is dropped).  Returns per
+    micro-step the (norm, threshold) of fused and plain, the clipped
+    gradients' gap, the launches; over the run the gaps of fused against
+    replay and against plain per state tensor, the latter also in ulps of
+    each leaf's largest entry so far (a rescaled gradient moves an element
+    whose sum cancelled by many of its own ulps)."""
+    sides = {k: optimizer_trainer(torch, model, gamma, ema_decay)
+             for k in ("fused", "plain", "replay")}
+    fused = sides["fused"]
+    numels = tuple(p.numel() for p in fused.trained)
+    rng = np.random.default_rng(seed)
+    scales = 10.0 ** rng.uniform(-4, -2, size=len(numels))
+    scales[::17] = 0.0      # leaves the loss does not reach
+    if clipped:
+        scales *= OPT_CLIP_SCALE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    keys = list(optimizer_state(fused))
+    replay_gap = {k: (0, 0.0) for k in keys}
+    plain_gap = {k: (0, 0.0) for k in keys}
+    peak = {k: [torch.zeros((), device="cuda") for _ in ts]
+            for k, ts in optimizer_state(fused).items()}
+    norms, grad_gaps, launches = [], [], []
+    for step in range(OPT_STEPS):
+        grads = [torch.randn(p.shape, generator=gen, device="cuda") * s
+                 for p, s in zip(fused.trained, scales)]
+        update = (step + 1) % max(1, fused.cfg.accumulate_grad_batches) == 0
+        clipped_grads, infos = {}, {}
+        for name, trainer in sides.items():
+            g, info = [t.clone() for t in grads], {}
+            torch.cuda.synchronize()
+            if name == "fused":
+                FO.reset_counts()
+                versions = [p._version for p in trainer.trained]
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    trainer._clip(g, info)
+                    trainer.apply_gradients(g)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if update and any(p._version == v for p, v in zip(
+                        trainer.trained, versions)):
+                    raise AssertionError("[optimizer] an updated weight "
+                                         "kept its version counter")
+                launches.append(dict(FO.LAUNCHES))
+                if any(FO.PLAIN_CALLS.values()):
+                    raise AssertionError(f"[optimizer] the fused micro-step "
+                                         f"called the plain path: "
+                                         f"{FO.PLAIN_CALLS}")
+                want = optimizer_launches(FO, numels, update, True)
+                if FO.LAUNCHES != want or sum(want.values()) > \
+                        OPT_MAX_LAUNCHES:
+                    raise AssertionError(f"[optimizer] launches "
+                                         f"{FO.LAUNCHES}, expected {want}")
+            else:
+                with plain_optimizer(FO):
+                    trainer._clip(g, info)
+                    if name == "replay":
+                        g = [t.clone() for t in clipped_grads["fused"]]
+                    trainer.apply_gradients(g)
+            clipped_grads[name] = g
+            infos[name] = {k: v.reshape(1) for k, v in info.items()}
+        norms.append({k: [ulp_gap(torch, infos["fused"][k], infos["plain"][k])
+                          [1], float(infos["fused"][k]),
+                          float(infos["plain"][k])]
+                      for k in ("grad_norm", "clip_threshold")})
+        grad_gaps.append(max(
+            (ulp_gap(torch, a, b) for a, b in zip(clipped_grads["fused"],
+                                                 clipped_grads["plain"])),
+            key=lambda x: (x[1], x[0])))
+        states = {k: optimizer_state(t) for k, t in sides.items()}
+        for key in keys:
+            trios = zip(states["fused"][key], states["replay"][key],
+                        states["plain"][key], peak[key])
+            for a, r, b, m in trios:
+                a, r, b = a.detach(), r.detach(), b.detach()
+                if key != "norms":      # a slot is overwritten, not summed
+                    torch.maximum(m, b.abs().max() if b.numel() else m,
+                                  out=m)
+                d, u = ulp_gap(torch, a, r)
+                replay_gap[key] = (replay_gap[key][0] + d,
+                                   max(replay_gap[key][1], u))
+                d, u = ulp_gap(torch, a, b, None if key == "norms"
+                               else m.expand_as(b))
+                plain_gap[key] = (plain_gap[key][0] + d,
+                                  max(plain_gap[key][1], u))
+    return dict(replay=replay_gap, plain=plain_gap, norms=norms,
+                grads=grad_gaps, launches=launches, numels=numels)
+
+
+def time_cold_ms(torch, fn, reps, rounds=3):
+    """Device time of one call with the L2 cache flushed before it: per
+    call, a write of twice the L2's 50 MB, then CUDA events around the
+    call, all queued behind a long matrix product so that the host's own
+    cost stays out; the median over ``rounds`` of the mean over ``reps``."""
+    if not hasattr(time_ms, "blocker"):
+        time_ms.blocker = torch.ones((8192, 8192), device="cuda")
+    flush = torch.empty(25 << 20, device="cuda")
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.mm(time_ms.blocker, time_ms.blocker)
+        pairs = []
+        for _ in range(reps):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        pairs[-1][1].synchronize()
+        times.append(sum(a.elapsed_time(b) for a, b in pairs) / reps)
+    return float(np.median(times))
+
+
+def optimizer_timing(torch, FO, model):
+    """Device ms of each fused kernel's launches per micro-step on the
+    model's leaves, the L2 cache flushed before each, against its bytes at
+    3.35 TB/s, and per micro-step the host ms of the optimizer span and
+    the card's ms, fused and plain."""
+    trainer = optimizer_trainer(torch, model, None, 0.999)
+    params = trainer.trained
+    o = trainer.opt
+    n_el = sum(p.numel() for p in params)
+    grads = [torch.randn_like(p) * 1e-3 for p in params]
+    lib = FO._library()
+    dev = params[0].device
+    g_tab = FO._Tables("time", [grads], dev, 1)
+    acc_tab = FO._Tables("time", [grads, o.acc], dev, 2)
+    upd_tab = FO._Tables("time", [params, grads, o.acc, o.mu, o.nu,
+                                  o.nu_max], dev, 6)
+    ema_tab = FO._Tables("time", [params, trainer.ema], dev, 2)
+    n_part = sum(lc.blocks for lc in g_tab.launches)
+    partials = torch.zeros(n_part, dtype=torch.float64, device=dev)
+    stats = torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev)
+    buf = trainer.gradnorm_buf
+    (begin, ends), = FO.clip_plan(g_tab.numels)
+
+    def each(name, tables, entry, *extra):
+        def run():
+            for lc in tables.launches:
+                FO._launch(name, dev, entry, *tables.args(lc), *extra)
+        return run
+
+    def norm():
+        for lc in g_tab.launches:
+            FO._launch("optimizer_norm", dev, lib.fo_sum_squares,
+                       *g_tab.args(lc),
+                       partials.data_ptr() + 8 * lc.first_chunk)
+
+    consts = (1.0, *(FO._f32(x) for x in (FO.B1, 1 - FO.B1, FO.B2,
+                                          1 - FO.B2)),
+              1.0, 1.0, FO._f32(FO.EPS), FO._f32(1e-12), FO._f32(-1e-3), 1)
+    kernels = {
+        "optimizer_norm": (norm, 4 * n_el),
+        "optimizer_clip": (lambda: FO._launch(
+            "optimizer_clip", dev, lib.fo_clip, ends.ctypes.data, begin,
+            len(ends), partials.data_ptr(), 1, 1, buf.data_ptr(),
+            buf.numel(), 5, FO._recip(5), 0, 1, stats.data_ptr()),
+            8 * n_part + 4 * 2 * buf.numel()),
+        "optimizer_scale": (each("optimizer_scale", g_tab, lib.fo_scale,
+                                 stats.data_ptr()), 8 * n_el),
+        "optimizer_update (accumulate)": (
+            each("optimizer_update", acc_tab, lib.fo_accumulate, 0.5),
+            12 * n_el),
+        "optimizer_update (amsgrad)": (
+            each("optimizer_update", upd_tab, lib.fo_amsgrad, *consts),
+            44 * n_el),
+        "optimizer_ema (copy)": (
+            each("optimizer_ema", ema_tab, lib.fo_ema, 0.0, 0.0, 1),
+            8 * n_el),
+        "optimizer_ema (decay)": (
+            each("optimizer_ema", ema_tab, lib.fo_ema, 0.999,
+                 FO._f32(1 - 0.999), 0), 12 * n_el)}
+    tables = {"optimizer_norm": g_tab, "optimizer_scale": g_tab,
+              "optimizer_update (accumulate)": acc_tab,
+              "optimizer_update (amsgrad)": upd_tab,
+              "optimizer_ema (copy)": ema_tab,
+              "optimizer_ema (decay)": ema_tab}
+    rows = {}
+    for name, (fn, nbytes) in kernels.items():
+        ms = time_cold_ms(torch, fn, 20)
+        n_launch = len(tables[name].launches) if name in tables else 1
+        rows[name] = dict(ms=ms, launches=n_launch,
+                          bound_ms=1e3 * nbytes / PEAK_BYTES, bytes=nbytes)
+        log(f"[optimizer] {name}: {ms:.4f} ms for its {n_launch} launch(es) "
+            f"over {len(params)} leaves, {n_el} elements; bytes bound "
+            f"{rows[name]['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at "
+            f"3.35 TB/s), {100 * rows[name]['bound_ms'] / ms:.1f} % of it")
+
+    def micro_steps(n):
+        host, card = [], []
+        for i in range(n):
+            g = [t.clone() for t in grads]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            trainer._clip(g, {})
+            trainer.apply_gradients(g)
+            host.append(1e3 * (time.perf_counter() - t0))
+            end.record()
+            end.synchronize()
+            card.append(start.elapsed_time(end))
+        return host, card
+
+    out = {}
+    for label in ("fused", "plain"):
+        ctx = plain_optimizer(FO) if label == "plain" else \
+            contextlib.nullcontext()
+        with ctx:
+            micro_steps(4)
+            host, card = micro_steps(20)
+        # even micro-steps accumulate, odd ones update (k = 2)
+        out[label] = {kind: dict(host_ms=float(np.median(host[i::2])),
+                                 card_ms=float(np.median(card[i::2])))
+                      for i, kind in ((0, "accumulate"), (1, "update"))}
+        log(f"[optimizer] {label} span per micro-step (median of 10 each, "
+            f"EMA decay 0.999, clip on): accumulating "
+            f"{out[label]['accumulate']['host_ms']:.3f} ms host, "
+            f"{out[label]['accumulate']['card_ms']:.3f} ms to the card's "
+            f"end; updating {out[label]['update']['host_ms']:.3f} / "
+            f"{out[label]['update']['card_ms']:.3f} ms")
+    return dict(kernels=rows, span=out)
+
+
+def log_optimizer_ptxas(so) -> None:
+    """The compiler's registers and spills per optimizer kernel."""
+    kernel = None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function .*?(\w+_kernel)", line)
+        if m:
+            kernel = m[1]
+        elif kernel and ("registers" in line or "spill" in line):
+            log(f"[ptxas] {kernel}: {line.split(':')[-1].strip()}")
+
+
+def optimizer_phase(torch):
+    """[optimizer]: the fused optimizer kernels (csrc/fused_optimizer.cu)
+    against the plain per-leaf path, both on the card, at DiffSBDD's
+    CrossDocked model's leaves (seeded init), from the same state and
+    gradients: OPT_STEPS micro-steps at accumulate_grad_batches 2 with
+    and without the clip engaged, EMA decay 0 and 0.999, with and without
+    a learned schedule's gamma network.  Gated: the norm, the threshold
+    and the norm buffer's entries within OPT_ULPS of the plain path's
+    (sums in another order); where the clip does not engage, the clipped
+    gradients and the weights, moments, accumulator and EMA equal to the
+    bit; where it engages, the clipped gradients within OPT_GRAD_ULPS
+    element by element (the state, which a rescaled gradient moves
+    further, is reported in ulps of each leaf's largest entry); in every
+    case the
+    state equal to the bit to the plain path's fed the fused side's
+    clipped gradients; the clip engaged on every
+    micro-step of the clipped cases and on none of the others; the fused
+    launches per micro-step as the plan gives them (at most
+    OPT_MAX_LAUNCHES), no plain-path call and no host sync in a fused
+    micro-step.  Then ms per kernel launch against its bytes bound, and
+    the span per micro-step fused and plain."""
+    from diffndm_tpu_torch.diffusion.learned_gamma import GammaNetwork
+    from diffndm_tpu_torch.model import DiffNDM
+    from diffndm_tpu_torch.ops import fused_optimizer as FO
+
+    torch.manual_seed(SEED)
+    model = DiffNDM.from_yaml(OPT_CONFIG, device="cuda")
+    gamma = GammaNetwork().to("cuda")
+    results = {}
+    i = 0
+    for with_gamma in (False, True):
+        for ema_decay in (0.0, 0.999):
+            for clipped in (False, True):
+                i += 1
+                label = (f"{'clip' if clipped else 'no clip'}, ema "
+                         f"{ema_decay}{', gamma' if with_gamma else ''}")
+                res = optimizer_case(torch, FO, model,
+                                     gamma if with_gamma else None,
+                                     ema_decay, clipped, SEED + 40 + i)
+                results[label] = res
+                engaged = [n["grad_norm"][1] > n["clip_threshold"][1]
+                           and n["grad_norm"][2] > n["clip_threshold"][2]
+                           for n in res["norms"]]
+                quiet = [n["grad_norm"][1] < n["clip_threshold"][1]
+                         and n["grad_norm"][2] < n["clip_threshold"][2]
+                         for n in res["norms"]]
+                norm_ulps = max(max(n["grad_norm"][0], n["clip_threshold"][0])
+                                for n in res["norms"])
+                fmt = lambda gaps: ", ".join(f"{k} {d} / {u:.1f}"
+                                             for k, (d, u) in gaps.items())
+                per_step = [sum(lc.values()) for lc in res["launches"]]
+                log(f"[optimizer] {label}: {len(res['numels'])} leaves, "
+                    f"{sum(res['numels'])} elements; clip engaged on "
+                    f"{sum(engaged)} of {OPT_STEPS} micro-steps on both "
+                    f"paths; norm and threshold, fused / plain: at most "
+                    f"{norm_ulps:.1f} ulps apart; clipped gradients per "
+                    f"micro-step (elements differing, ulps) "
+                    f"{[(d, round(u, 1)) for d, u in res['grads']]}; "
+                    f"state against the plain path fed the fused "
+                    f"gradients (elements differing / ulps): "
+                    f"{fmt(res['replay'])}; against the plain path (ulps "
+                    f"of each leaf's largest entry; the norm buffer's of "
+                    f"each entry): {fmt(res['plain'])}; fused launches per "
+                    f"micro-step {per_step}, {res['launches'][-1]}")
+                if not clipped:
+                    log(f"[optimizer] {label}: (norm, threshold) fused / "
+                        f"plain per micro-step {res['norms']}")
+                replay_ok = all(d == 0 for k, (d, _) in
+                                res["replay"].items() if k != "norms")
+                # where the clip engages, a norm an ulp apart moves the
+                # clipped gradients by a few ulps and the state, fed them
+                # over the micro-steps, further: that state is reported,
+                # its arithmetic gated by the replay
+                plain_ok = all(
+                    u <= OPT_ULPS if k == "norms" else (clipped or d == 0)
+                    for k, (d, u) in res["plain"].items())
+                grads_ok = all(u <= OPT_GRAD_ULPS if clipped else d == 0
+                               for d, u in res["grads"])
+                if not (replay_ok and plain_ok and grads_ok
+                        and norm_ulps <= OPT_ULPS
+                        and all(engaged if clipped else quiet)):
+                    log(f"[optimizer] {label}: (norm, threshold) fused / "
+                        f"plain per micro-step {res['norms']}")
+                    raise AssertionError(f"[optimizer] {label}: the fused "
+                                         f"path disagrees with the plain one")
+    timing = optimizer_timing(torch, FO, model)
+    return dict(cases=results, **timing)
+
+
+# ---------------------------------------------------------------------------
 # [modes]: bf16, K-nearest-neighbour edges, the sorted band
 # ---------------------------------------------------------------------------
 
@@ -5882,7 +6309,7 @@ def main() -> int:
                                            "train", "vina", "joint",
                                            "variants", "etl", "modes",
                                            "dp", "workers", "bf16train",
-                                           "fanout"],
+                                           "fanout", "optimizer"],
                         default=None, help="stop after the kernel phase, "
                         "print the kernels' cycles per phase, run the "
                         "quality evaluation alone over several seeds, "
@@ -5894,8 +6321,9 @@ def main() -> int:
                         "alone, run the etl phase alone, run the modes "
                         "phase alone, run the data-parallel phase alone, "
                         "time a guided batch with the oracle's workers and "
-                        "with one, run the bf16 training phase alone, or "
-                        "run the fanout-tap phase alone")
+                        "with one, run the bf16 training phase alone, "
+                        "run the fanout-tap phase alone, or run the fused "
+                        "optimizer phase alone")
     opts = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -5911,21 +6339,36 @@ def main() -> int:
     from diffndm_tpu_torch.data.dataset import ProcessedLigandPocketDataset
     from diffndm_tpu_torch.model import DiffNDM
     from diffndm_tpu_torch.ops import egnn_kernels as K
+    from diffndm_tpu_torch.ops import fused_optimizer as FO
 
     smi = nvidia_smi()
     log(f"[identity] {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
+    if opts.only == "optimizer":
+        t0 = time.perf_counter()
+        opt_so = K.build_library(source=FO.SOURCE, flags=FO.FLAGS)
+        log(f"[identity] optimizer kernels built in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            f"{os.path.relpath(opt_so, REPO)}")
+        log_optimizer_ptxas(opt_so)
+        optimizer_phase(torch)
+        log("[optimizer] done (--only optimizer: no result)")
+        return 0
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:     # the compilers side by side
+    with ThreadPoolExecutor(4) as pool:     # the compilers side by side
         builds = [pool.submit(K.build_library),
                   pool.submit(K.build_library, source=K.BWD_SOURCE),
-                  pool.submit(native.build_library)]
-        so, bwd_so, scorer_so = (b.result() for b in builds)
-    log(f"[identity] kernels, backward kernels and reward scorer built in "
-        f"{time.perf_counter() - t0:.1f} s: {os.path.relpath(so, REPO)}, "
-        f"{os.path.relpath(bwd_so, REPO)}, "
-        f"{os.path.relpath(scorer_so, REPO)}")
+                  pool.submit(native.build_library),
+                  pool.submit(K.build_library, source=FO.SOURCE,
+                              flags=FO.FLAGS)]
+        so, bwd_so, scorer_so, opt_so = (b.result() for b in builds)
+    log(f"[identity] kernels, backward kernels, reward scorer and optimizer "
+        f"kernels built in {time.perf_counter() - t0:.1f} s: "
+        f"{os.path.relpath(so, REPO)}, {os.path.relpath(bwd_so, REPO)}, "
+        f"{os.path.relpath(scorer_so, REPO)}, "
+        f"{os.path.relpath(opt_so, REPO)}")
+    log_optimizer_ptxas(opt_so)
     # the compiler's report, per instantiation edge_chain_mma<H, VEC> (fp32)
     # and edge_chain_wgmma<H, VEC> (bf16)
     kernel = None
@@ -6052,6 +6495,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             train_cli_phase(torch, K, train_ds, tmp)
         train_step_profile(torch, K, batches)
+        optimizer_phase(torch)
         log("[train] done (--only train: no result)")
         return 0
     path_check(torch, make_model, ds[POCKETS[0]])
@@ -6083,6 +6527,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, _ = train_cli_phase(torch, K, train_ds, tmp)
     train_step_profile(torch, K, batches)
+    optimizer = optimizer_phase(torch)
     with tempfile.TemporaryDirectory() as tmp:
         vina_launches, vina_checks, pdb, sdf, vina_sdf = vina_phase(
             torch, K, ds, tmp)
@@ -6229,6 +6674,15 @@ def main() -> int:
                 "plain_share", "points", "ms", "fp32_ms", "plain_ms", "bound_ms",
                 "bound_by", "sfu_floor_ms", "blocks")} for k, r in at.items()},
             ptxas=bwd_ptxas[name]))
+    for name, res in optimizer["kernels"].items():
+        table.append(dict(
+            name=name, route="cuda", source=OPT_SOURCE, replaces=None,
+            note="one phase of the trainer's optimizer span over every "
+            "leaf (the JAX package's trainer runs optax under jit: no TPU "
+            "kernel)", launches=res["launches"], ms=res["ms"],
+            bound_ms=res["bound_ms"], bound_by="bytes",
+            bound_peak="3.35 TB/s", library_ms=None,
+            span_ms=optimizer["span"]))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -125,28 +125,32 @@ def _flags(profile: bool) -> tuple:
     return NVCC_FLAGS + (("-DEGNN_PROFILE",) if profile else ())
 
 
-def library_path(profile: bool = False, source: Path = SOURCE) -> Path:
-    """The build of ``source`` under these flags: named by a hash of the
-    source, of every header (``*.cuh``) beside it and of the flags, so that
-    an edited header is built anew."""
+def library_path(profile: bool = False, source: Path = SOURCE,
+                 flags: tuple = ()) -> Path:
+    """The build of ``source`` under these flags (``flags`` added to the
+    common ones): named by a hash of the source, of every header
+    (``*.cuh``) beside it and of the flags, so that an edited header is
+    built anew."""
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(_flags(profile)).encode())
+    h.update(" ".join(_flags(profile) + flags).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_library(profile: bool = False, source: Path = SOURCE) -> Path:
-    """Compile ``source`` (the forward kernels unless ``BWD_SOURCE``)
-    unless its build exists.  The compiler's register/spill report lands
-    beside it (``.log``).  ``profile`` builds the variant with cycle
-    counters per phase."""
-    so = library_path(profile, source)
+def build_library(profile: bool = False, source: Path = SOURCE,
+                  flags: tuple = ()) -> Path:
+    """Compile ``source`` (the forward kernels unless ``BWD_SOURCE``, or
+    ``fused_optimizer.SOURCE`` with its ``FLAGS``) unless its build
+    exists.  The compiler's register/spill report lands beside it
+    (``.log``).  ``profile`` builds the variant with cycle counters per
+    phase."""
+    so = library_path(profile, source, flags)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *_flags(profile), "-o", str(tmp),
+    proc = subprocess.run([_nvcc(), *_flags(profile), *flags, "-o", str(tmp),
                            str(source)], capture_output=True, text=True)
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -16,6 +16,10 @@ data-parallel over a ``parallel.DataGroup``:
   count 1, written at ``step % 50`` (``step`` counts micro-steps);
 - the EMA moves on every micro-step, also those that apply no update.
 
+Each of these phases is one call over the list of leaves
+(``ops/fused_optimizer``): on the card a few multi-tensor kernel launches
+each, on the CPU the plain per-leaf loops.
+
 A micro-step's parts are named spans on a profiler's timeline
 (``utils.profiling``): ``forward``, ``backward``, under a group
 ``all_reduce``, ``optimizer`` (the clip, the update and the EMA) and
@@ -59,6 +63,7 @@ from diffndm_tpu_torch.convert import (gamma_params_from_jax,
                                        params_from_jax, params_to_jax,
                                        split_trees)
 from diffndm_tpu_torch.diffusion.core import CondDiffusion
+from diffndm_tpu_torch.ops import fused_optimizer as FO
 from diffndm_tpu_torch.parallel.mesh import (DataGroup, all_reduce_flat,
                                              pad_rows, replicate, shard_rows)
 from diffndm_tpu_torch.structs import NodeBatch
@@ -69,7 +74,6 @@ from diffndm_tpu_torch.utils.profiling import annotate
 
 QUEUE_LEN = 50          # accepted gradient norms the clip looks back on
 QUEUE_FLUSH = 3000.0    # the buffer's initial value
-B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.scale_by_amsgrad defaults
 
 
 class AmsgradState:
@@ -92,26 +96,16 @@ class AmsgradState:
         place.  Returns whether it updated."""
         k = max(1, self.cfg.accumulate_grad_batches)
         n = self.mini_step + 1
-        for acc, g in zip(self.acc, grads):
-            acc.add_((g - acc) / n)
+        state = (params, grads, self.acc, self.mu, self.nu, self.nu_max, n)
         if self.mini_step < k - 1:
+            FO.amsgrad(*state, update=False)
             self.mini_step += 1
             return False
         self.count += 1
         cfg = self.cfg
-        c1 = 1.0 - B1 ** self.count
-        c2 = 1.0 - B2 ** self.count
-        for p, g, mu, nu, nu_max in zip(params, self.acc, self.mu, self.nu,
-                                        self.nu_max):
-            mu.mul_(B1).add_((1.0 - B1) * g)
-            nu.mul_(B2).add_((1.0 - B2) * g * g)
-            torch.maximum(nu_max, nu / c2, out=nu_max)
-            u = (mu / c1) / (torch.sqrt(nu_max) + EPS)
-            if cfg.weight_decay:
-                u = u + cfg.weight_decay * p
-            p.add_(-cfg.lr * u)
-        for acc in self.acc:
-            acc.zero_()
+        FO.amsgrad(*state, update=True, c1=1.0 - FO.B1 ** self.count,
+                   c2=1.0 - FO.B2 ** self.count, lr=cfg.lr,
+                   weight_decay=cfg.weight_decay)
         self.mini_step = 0
         return True
 
@@ -208,20 +202,17 @@ class Trainer:
             info[k].detach().float() for k in keys)])
         return out[:n], out[n], dict(zip(keys, out[n + 1:]))
 
-    def _clip(self, grads, gnorm: torch.Tensor) -> torch.Tensor:
-        """Scale grads in place by the adaptive clip; returns the
-        threshold."""
-        buf, cnt = self.gradnorm_buf, max(self.gradnorm_count, 1)
-        valid = torch.arange(QUEUE_LEN, device=buf.device) < cnt
-        mean = torch.where(valid, buf, 0.0).sum() / cnt
-        var = torch.where(valid, (buf - mean) ** 2, 0.0).sum() / cnt
-        max_norm = 1.5 * mean + 2.0 * torch.sqrt(var)
-        scale = torch.clamp_max(max_norm / (gnorm + 1e-12), 1.0)
-        for g in grads:
-            g.mul_(scale)
-        buf[self.step % QUEUE_LEN] = torch.minimum(gnorm, max_norm)
-        self.gradnorm_count = min(self.gradnorm_count + 1, QUEUE_LEN)
-        return max_norm
+    def _clip(self, grads, info) -> None:
+        """The gradients' global norm into ``info``; with the clip on, grads
+        scaled in place by the adaptive clip and its threshold too."""
+        clip = self.cfg.clip_grad
+        gnorm, threshold = FO.clip_by_history(
+            grads, self.gradnorm_buf, self.gradnorm_count,
+            self.step % QUEUE_LEN, clip)
+        info["grad_norm"] = gnorm
+        if clip:
+            info["clip_threshold"] = threshold
+            self.gradnorm_count = min(self.gradnorm_count + 1, QUEUE_LEN)
 
     def train_step(self, ligand: NodeBatch, pocket: NodeBatch, t_int=None,
                    noise=None) -> Tuple[float, Dict[str, float]]:
@@ -248,10 +239,7 @@ class Trainer:
             with annotate("all_reduce"):
                 grads, loss, info = self._reduce(grads, loss, info)
         with torch.no_grad(), annotate("optimizer"):
-            gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-            info["grad_norm"] = gnorm
-            if self.cfg.clip_grad:
-                info["clip_threshold"] = self._clip(grads, gnorm)
+            self._clip(grads, info)
             self.apply_gradients(grads)
         with annotate("readback"):
             return float(loss.detach()), {k: float(v.detach())
@@ -262,12 +250,7 @@ class Trainer:
         """The rest of a micro-step after the clip: the optimizer (an
         update on every k-th call), the EMA, the step count."""
         self.opt.update(self.trained, grads)
-        d = self.cfg.ema_decay
-        for e, p in zip(self.ema, self.trained):
-            if d > 0.0:
-                e.mul_(d).add_((1.0 - d) * p)
-            else:
-                e.copy_(p)
+        FO.ema(self.ema, self.trained, self.cfg.ema_decay)
         self.step += 1
 
     @torch.no_grad()
